@@ -7,23 +7,38 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases, each printing one line with its elapsed seconds; any failure raises
 and exits non-zero:
 
-1. device  -- a CUDA device or raise; its name, count and power limit;
-2. build   -- every kernel built from csrc/ with one nvcc call; the -Xptxas -v
-              register, shared-memory and spill lines of each kernel;
-3. check   -- BASELINE config #3 (360x180x32, fp32, full physics), 10 plain
-              steps from the initial state, then the predictor and corrector
-              kernels held against the plain substep on the same inputs,
-              field by field, within the stated bounds; the kernels launched
-              with one term left out must break them;
-4. timing  -- CUDA events over 50 back-to-back launches of each kernel and
-              each plain substep, beside the byte bound of the card;
-5. main    -- the run command of config #3 (``run --baseline 3 --days 0.1
-              --out-every-hours 1``: ~253 steps in three chunks, adaptive dt,
-              hourly radiation) with the launch counters set to 0 just before
-              and read just after; its launches, cadence, dt and fields are
-              checked. Nothing is written to disk;
-6. breakdown -- each layer of a step (radiation, the two kernels, the
-              physics splits, the chunk diagnostics) timed alone.
+1. device   -- a CUDA device or raise; its name, count and power limit;
+2. build    -- every kernel built from csrc/ with one nvcc call; the
+               -Xptxas -v register, shared-memory and spill lines of each;
+3. check    -- BASELINE config #3 (360x180x32, fp32, full physics), 10
+               plain steps from the initial state. Each kernel variant is
+               held against its plain version on the same inputs, field by
+               field, within the stated bounds: the predictor and corrector
+               (v wall by row index), the predictor with the wall mask and
+               the corrector with the mask and the physics epilogue (from
+               the same state with its moisture raised near saturation from
+               a seed, so that every physics term is active; also with
+               convection on). The mask variants must equal the index rule
+               bit for bit, and a mask with an interior row set to 0 must
+               zero v there. Planted faults: each kernel launched with one
+               term left out must break a bound in one call; without
+               diffusion, from the state with grid-scale noise, the bound
+               of each diffused field;
+4. timing   -- CUDA events over back-to-back launches of each variant and
+               its plain version, in turns, beside the bound of the card;
+5. main     -- the run command of config #3 (``run --baseline 3 --days 0.1
+               --out-every-hours 1``: 253 steps in three chunks, adaptive
+               dt, hourly radiation), which takes the packed scan, with
+               every launch and call counter set to 0 just before and read
+               just after: one masked predictor and one epilogue corrector
+               a step, no other launch and no plain physics split; cadence,
+               dt and fields are checked. Nothing is written to disk;
+6. per-step -- the per-step path (``run_scan(make_step_fn(cfg), ...)``) for
+               the first chunk of the run, from the same initial state,
+               with its counters and sanity checks; the packed scan over
+               the same steps, compared with it field by field; ms/step of
+               both paths, in turns;
+7. breakdown -- each layer of a step timed alone.
 
 The line before last is the total, the last line the JSON verdict. The port
 imports no JAX, and neither does this script.
@@ -31,22 +46,28 @@ imports no JAX, and neither does this script.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from climate_model_tpu_torch import cli
 from climate_model_tpu_torch.core.config import baseline_config
 from climate_model_tpu_torch.core.grid import adaptive_cfl_dt, round_to
 from climate_model_tpu_torch.core.init import initialize
-from climate_model_tpu_torch.dycore.stepper import step_matsuno
+from climate_model_tpu_torch.dycore.operators import diagnose_pressure
+from climate_model_tpu_torch.dycore.stepper import run_scan, step_matsuno
 from climate_model_tpu_torch.kernels import fused_substep as fs
-from climate_model_tpu_torch.model import make_step_fn
-from climate_model_tpu_torch.physics import radiation
+from climate_model_tpu_torch.model import (make_chunk_runner, make_step_fn,
+                                           phys_epilogue_tuple)
+from climate_model_tpu_torch.physics import (microphysics, radiation,
+                                             surface, turbulence)
+from climate_model_tpu_torch.physics.thermo import qsat_water
 
 MAIN_ARGV = ["run", "--baseline", "3", "--days", "0.1",
              "--out-every-hours", "1"]
@@ -59,11 +80,37 @@ MAIN_ARGV = ["run", "--baseline", "3", "--days", "0.1",
 # colp 7.8e-3 Pa (1 ulp at 9e4 Pa)), and well below what one term of the
 # substep adds in one step: phase 3 launches the kernel with the radiative
 # source left out, then with diffusion left out, and requires each to
-# break a bound (PLANTED_FAULTS).
+# break a bound (PLANTED_FAULTS). The same bounds hold one substep from the
+# state with grid-scale noise (rough_state), where the kernel without
+# diffusion must break the bound of each of DIFFUSED.
 FIELD_TOL = {"u": 5e-4, "v": 1e-4, "pott": 1.5e-4, "qv": 5e-9, "qc": 1e-10,
              "colp": 0.03}
 PLANTED_FAULTS = {"with_rad=False": {"with_rad": False},
                   "with_diff=False": {"with_diff": False}}
+DIFFUSED = ("u", "v", "pott", "qv")
+
+# Per-field bounds on max|kernel - plain| for ONE call of the corrector with
+# the physics epilogue at config #3 in fp32, from the moist check state
+# (moist_state). Each is 3.0-3.8x the error measured on an H100 (u 1.26e-4
+# m/s, v 3.09e-5 m/s, pott 7.9e-4 K, qv 3.08e-7, qc 2.99e-7, colp 7.8e-3
+# Pa, tsurf 3.05e-5 K, rain 6.6e-6 kg/m2, soil_moist 4.7e-9 m). pott and
+# the moisture carry the saturation adjustment's sensitivity to the Exner
+# factor of the new colp, a difference of two nearly equal fp32 products
+# rounded in another order (FMA). One call suffices for the planted faults:
+# the epilogue without the surface, the turbulence or the microphysics each
+# breaks a bound (EPI_FAULTS).
+EPI_TOL = {"u": 4e-4, "v": 1e-4, "pott": 2.5e-3, "qv": 1e-6, "qc": 1e-6,
+           "colp": 0.03, "tsurf": 1e-4, "rain": 2e-5, "soil_moist": 1.5e-8}
+EPI_FAULTS = ("surface", "turbulence", "microphysics")
+# Bounds on max|packed scan - per-step path| after the first chunk (105
+# steps) from the initial state: the same model, the epilogue kernel in
+# place of the plain physics splits. 3.0-3.6x the difference measured on an
+# H100 (u 1.87e-3 m/s, v 1.95e-3 m/s, pott 7.6e-4 K, qv 9.8e-8, colp 8.6e-2
+# Pa, tsurf 1.22e-4 K, soil_moist 2.8e-9 m; qc and rain 0: the run's air
+# stays below saturation for its first hour).
+PATHS_TOL = {"u": 6e-3, "v": 6e-3, "pott": 2.5e-3, "qv": 3e-7, "qc": 1e-10,
+             "colp": 0.3, "tsurf": 4e-4, "rain": 1e-10, "soil_moist": 1e-8}
+SEED = 5                         # the generator of the check states
 
 # Main-path sanity bounds (the repo's verification recipe for a short run):
 MAX_WIND = 100.0                 # m/s; beyond it the run is blowing up
@@ -74,11 +121,19 @@ MASS_DRIFT = 1e-6                # relative drift of sum(colp*area)
 # Card peaks for the bound (H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-# Floating-point operations per grid point of one substep, counted from
-# csrc/fused_substep.cu and rounded up (column scans incl. one powf per
-# level ~35, three scalar advections ~135, two momentum equations ~140,
-# on-the-fly face fluxes ~40).
+# Floating-point operations per grid point, counted from the sources and
+# rounded up. Substep (csrc/fused_substep.cu): column scans incl. one powf
+# per level ~35, three scalar advections ~135, two momentum equations ~140,
+# on-the-fly face fluxes ~40. Epilogue (csrc/physics_epilogue.cu, counting
+# powf and expf as 20): three column profiles ~180, the five diffusions ~50,
+# two face profiles ~16, microphysics ~80, the surface of three columns
+# spread over the levels ~10, convective K (when on) ~70 -> 350 with it
+# off.
 FLOPS_PER_POINT = 350
+EPILOGUE_FLOPS_PER_POINT = 350
+
+STATE_FIELDS = ("u", "v", "colp", "pott", "qv", "qc", "tsurf", "rain",
+                "soil_moist", "dpottdt_rad", "swflx_sfc", "lwflx_sfc")
 
 T0 = time.perf_counter()
 
@@ -102,18 +157,18 @@ def ptxas_lines(log: str):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            if "column_kernel" in mangled:
-                name = "column_kernel"
-            elif "point_kernelILb1" in mangled:
-                name = "point_kernel<same_base=true>"
-            elif "point_kernelILb0" in mangled:
-                name = "point_kernel<same_base=false>"
+            for key, name in (("column_kernel", "column_kernel"),
+                              ("point_kernelILb1", "point_kernel<same_base=1>"),
+                              ("point_kernelILb0", "point_kernel<same_base=0>"),
+                              ("epilogue_kernel", "epilogue_kernel")):
+                if key in mangled:
+                    break
             else:
                 name = mangled
             cur = (name, [])
             kernels.append(cur)
         elif cur and ("registers" in line or "spill" in line
-                      or "smem" in line):
+                      or "smem" in line or "stack frame" in line):
             cur[1].append(line.strip())
     return kernels
 
@@ -132,11 +187,11 @@ def timed(fn, n=50, warmup=5) -> float:
     return e0.elapsed_time(e1) / n
 
 
-def field_errors(got, want) -> dict:
-    """max|got - want| of each field in FIELD_TOL; raises on a non-finite
+def field_errors(got, want, tol) -> dict:
+    """max|got - want| of each field in ``tol``; raises on a non-finite
     field of ``got``."""
     per = {}
-    for f in FIELD_TOL:
+    for f in tol:
         a, b = getattr(got, f), getattr(want, f)
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"non-finite {f} from the kernel")
@@ -144,13 +199,31 @@ def field_errors(got, want) -> dict:
     return per
 
 
+def over(per: dict, tol: dict) -> list:
+    return [f for f, e in per.items() if not e <= tol[f]]
+
+
+def show(per: dict, tol: dict) -> str:
+    bad = over(per, tol)
+    return ", ".join(f"{f} {e:.3e}{' (over)' if f in bad else ''}"
+                     f" (<= {tol[f]:.1e})" for f, e in per.items())
+
+
+def bitwise_equal(a, b, fields=("u", "v", "pott", "qv", "qc", "colp")
+                  ) -> bool:
+    """Every field of ``a`` and ``b`` has the same bits."""
+    return all(torch.equal(getattr(a, f).view(torch.int32),
+                           getattr(b, f).view(torch.int32)) for f in fields)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def substep_bound_ms(ev, base, grid, forcing, out):
-    """Least time for one substep: each input read once, each output written
-    once, at the card's memory rate; or its operations at the fp32 rate."""
+def substep_bound_ms(ev, base, grid, forcing, out, phys=None, vmask=None):
+    """Least time for one substep call: each input read once, each output
+    written once, at the card's memory rate; or its operations at the fp32
+    rate."""
     reads = [getattr(ev, f) for f in ("u", "v", "pott", "qv", "qc", "colp",
                                       "dpottdt_rad")]
     if base is not None:
@@ -158,51 +231,479 @@ def substep_bound_ms(ev, base, grid, forcing, out):
                                              "colp")]
     reads += [forcing.hsurf, fs.geo_table(grid), grid.sigma_vb, grid.dsigma]
     writes = [getattr(out, f) for f in ("u", "v", "pott", "qv", "qc", "colp")]
+    flops = FLOPS_PER_POINT
+    if vmask is not None:
+        reads.append(vmask)
+    if phys is not None:
+        reads += [getattr(base, f) for f in ("tsurf", "rain", "soil_moist",
+                                             "swflx_sfc", "lwflx_sfc")]
+        reads += [forcing.land_mask, forcing.evap_eff]
+        writes += [out.tsurf, out.rain, out.soil_moist]
+        flops += EPILOGUE_FLOPS_PER_POINT
     t_bytes = nbytes(*reads, *writes) / PEAK_BYTES_PER_S
-    t_ops = FLOPS_PER_POINT * ev.u.numel() / PEAK_FP32_FLOPS
+    t_ops = flops * ev.u.numel() / PEAK_FP32_FLOPS
     if t_bytes >= t_ops:
         return 1e3 * t_bytes, "bytes"
     return 1e3 * t_ops, "operations"
+
+
+def reset_counts():
+    """Every launch counter of the kernels and call counter of the plain
+    physics set to 0."""
+    fs.reset_launch_counts()
+    radiation.radiation_step.refreshes = 0
+    surface.surface_step.calls = 0
+    turbulence.turbulence_step.calls = 0
+    microphysics.microphysics_step.calls = 0
+
+
+def read_counts() -> dict:
+    return {"predictor": fs.predictor.launches,
+            "predictor_masked": fs.predictor.masked_launches,
+            "corrector": fs.corrector.launches,
+            "corrector_masked": fs.corrector.masked_launches,
+            "corrector_epilogue": fs.corrector.epilogue_launches,
+            "radiation_refreshes": radiation.radiation_step.refreshes,
+            "surface_split": surface.surface_step.calls,
+            "turbulence_split": turbulence.turbulence_step.calls,
+            "microphysics_split": microphysics.microphysics_step.calls}
+
+
+def moist_state(state, grid, cfg, seed=SEED):
+    """``state`` with moisture raised near saturation and the soil bucket
+    spread between dry and field capacity, from a numpy generator: relative
+    humidity 0.85-1.1 of the Magnus saturation at every level, cloud water
+    around the autoconversion threshold. Every term of the epilogue is then
+    active (condensation, evaporation of cloud, autoconversion and rain,
+    convective mixing where it is on)."""
+    r = np.random.default_rng(seed)
+    kw = dict(dtype=state.dtype, device=state.device)
+    pvb, pvtf, _ = diagnose_pressure(state.colp, grid)
+    qs = qsat_water(state.pott * pvtf, 0.5 * (pvb[:-1] + pvb[1:]))
+    rh = torch.as_tensor(r.uniform(0.85, 1.1, qs.shape), **kw)
+    qc = torch.as_tensor(np.abs(r.normal(0.0, 2e-4, qs.shape)), **kw)
+    soil = torch.as_tensor(r.uniform(0.0, cfg.physics.soil_moist_cap,
+                                     state.colp.shape), **kw)
+    return state.replace(qv=qs * rh, qc=qc, soil_moist=soil)
+
+
+def rough_state(state, seed=SEED):
+    """``state`` with grid-scale noise from a numpy generator: u and v
+    +-1 m/s (v's wall row kept at 0), pott +-1 K, qv +-10 %. The horizontal
+    diffusion of a smooth 1-degree field moves u, v and pott less in a step
+    than fp32 rounding does; on this field it moves each of them far more,
+    so a kernel that drops the diffusion of any one field shows."""
+    r = np.random.default_rng(seed + 1)
+    kw = dict(dtype=state.dtype, device=state.device)
+    noise = lambda sd: torch.as_tensor(r.normal(0.0, sd, state.u.shape),
+                                       **kw)
+    v = state.v + noise(1.0)
+    v[:, 0] = 0.0
+    return state.replace(u=state.u + noise(1.0), v=v,
+                         pott=state.pott + noise(1.0),
+                         qv=state.qv * (1.0 + noise(0.1)).clamp(min=0.0))
+
+
+@dataclasses.dataclass
+class CheckInputs:
+    cfg: object
+    state: object       # 10 plain steps in
+    moist: object       # the same with moisture near saturation
+    rough: object       # the same with grid-scale noise
+    grid: object
+    forcing: object
+    kw: dict            # with_rad, with_diff of the config
+    phys: tuple         # the config's epilogue tuple
+    vmask: torch.Tensor  # the single-device wall mask
+
+
+def check_inputs(dev) -> CheckInputs:
+    """Config #3 at full width, 10 plain steps from the initial state."""
+    cfg = baseline_config(3)
+    state, forcing, grid = initialize(cfg, device=dev)
+    plain_step = make_step_fn(cfg, dynamics=functools.partial(step_matsuno,
+                                                              cfg=cfg))
+    for _ in range(10):
+        state = plain_step(state, grid, forcing)
+    num = cfg.numerics
+    kw = dict(with_rad=cfg.physics.radiation,
+              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+    return CheckInputs(cfg=cfg, state=state,
+                       moist=moist_state(state, grid, cfg),
+                       rough=rough_state(state), grid=grid,
+                       forcing=forcing, kw=kw, phys=phys_epilogue_tuple(cfg),
+                       vmask=fs.wall_mask(grid.ny, torch.float32, dev))
+
+
+def epilogue_args(ci: CheckInputs):
+    """(ev, base, grid, forcing, dt) of the epilogue checks: the moist state
+    and its plain masked prediction."""
+    g, f, dt, s = ci.grid, ci.forcing, ci.grid.dt, ci.moist
+    pred = fs.fused_substep_plain(s, None, g, f, dt, vmask=ci.vmask, **ci.kw)
+    return pred, s, g, f, dt
+
+
+def epilogue_pair(ci: CheckInputs, phys=None, vmask=None):
+    """(kernel, plain) calls of the corrector with the physics epilogue on
+    the moist state, evaluated at the plain masked prediction."""
+    phys = ci.phys if phys is None else phys
+    vmask = ci.vmask if vmask is None else vmask
+    args = epilogue_args(ci)
+    return (lambda: fs.corrector(*args, phys=phys, vmask=vmask, **ci.kw),
+            lambda: fs.fused_substep_plain(*args, phys=phys, vmask=vmask,
+                                           **ci.kw))
+
+
+def phys_with(cfg, **switches) -> tuple:
+    """The epilogue tuple of ``cfg`` with some physics switches changed."""
+    return phys_epilogue_tuple(cfg.replace(physics=dataclasses.replace(
+        cfg.physics, **switches)))
+
+
+def check_kernels(ci: CheckInputs) -> dict:
+    """Phase 3. Returns the errors of every variant; raises after printing
+    every reading if any check failed."""
+    g, f, dt = ci.grid, ci.forcing, ci.grid.dt
+    st, kw = ci.state, ci.kw
+    errs, bad = {}, []
+
+    # -- predictor and corrector, v wall by index (the per-step path) --
+    pred_plain = fs.fused_substep_plain(st, None, g, f, dt, **kw)
+    corr_plain = fs.fused_substep_plain(pred_plain, st, g, f, dt, **kw)
+
+    def launch(kname, **over):
+        if kname == "predictor":
+            return fs.predictor(st, g, f, dt, **dict(kw, **over))
+        return fs.corrector(pred_plain, st, g, f, dt, **dict(kw, **over))
+
+    want = {"predictor": pred_plain, "corrector": corr_plain}
+    for kname in ("predictor", "corrector"):
+        errs[kname] = field_errors(launch(kname), want[kname], FIELD_TOL)
+        print(f"  {kname} max|kernel-plain|: "
+              + show(errs[kname], FIELD_TOL), flush=True)
+        bad += [f"{kname}: {x} over its bound"
+                for x in over(errs[kname], FIELD_TOL)]
+    for fault, over_kw in PLANTED_FAULTS.items():
+        for kname in ("predictor", "corrector"):
+            per = field_errors(launch(kname, **over_kw), want[kname],
+                               FIELD_TOL)
+            print(f"  planted fault {kname} {fault}, one substep: "
+                  + show(per, FIELD_TOL), flush=True)
+            if not over(per, FIELD_TOL):
+                bad.append(f"{kname} with {fault} stays within every bound")
+
+    # the diffusion of each field, one substep from the rough state: on the
+    # smooth state one substep of it moves u, v and pott less than fp32
+    # rounding, and more steps grow the rounding as fast as the missing
+    # diffusion, so only qv showed a kernel without diffusion
+    rough = ci.rough
+    rp = fs.fused_substep_plain(rough, None, g, f, dt, **kw)
+    rough_want = {"predictor": rp,
+                  "corrector": fs.fused_substep_plain(rp, rough, g, f, dt,
+                                                      **kw)}
+    for kname in ("predictor", "corrector"):
+        base = None if kname == "predictor" else rough
+        ev = rough if kname == "predictor" else rp
+        for fault, over_kw in (("sound", {}),
+                               ("with_diff=False", {"with_diff": False})):
+            k = dict(kw, **over_kw)
+            got = (fs.predictor(ev, g, f, dt, **k) if base is None
+                   else fs.corrector(ev, base, g, f, dt, **k))
+            per = field_errors(got, rough_want[kname], FIELD_TOL)
+            print(f"  rough state, {kname} {fault}, one substep: "
+                  + show(per, FIELD_TOL), flush=True)
+            if fault == "sound":
+                bad += [f"{kname} on the rough state: {x} over its bound"
+                        for x in over(per, FIELD_TOL)]
+            else:
+                bad += [f"{kname} without diffusion keeps {x} within its "
+                        "bound on the rough state" for x in DIFFUSED
+                        if x not in over(per, FIELD_TOL)]
+
+    # -- the wall as a mask (the packed scan) --
+    vm = ci.vmask
+    pm = fs.predictor(st, g, f, dt, vmask=vm, **kw)
+    if not bitwise_equal(pm, launch("predictor")):
+        bad.append("masked predictor differs from the index rule")
+    errs["predictor_masked"] = field_errors(
+        pm, fs.fused_substep_plain(st, None, g, f, dt, vmask=vm, **kw),
+        FIELD_TOL)
+    print("  predictor (mask) max|kernel-plain|: "
+          + show(errs["predictor_masked"], FIELD_TOL), flush=True)
+    bad += [f"masked predictor: {x} over its bound"
+            for x in over(errs["predictor_masked"], FIELD_TOL)]
+    row = g.ny // 2
+    holed = vm.clone()
+    holed[row] = 0.0
+    ph = fs.predictor(st, g, f, dt, vmask=holed, **kw)
+    per = field_errors(ph, fs.fused_substep_plain(st, None, g, f, dt,
+                                                  vmask=holed, **kw),
+                       FIELD_TOL)
+    if bool(ph.v[:, row].abs().max() != 0) or over(per, FIELD_TOL):
+        bad.append(f"predictor with v row {row} masked: v there "
+                   f"{float(ph.v[:, row].abs().max())}, {per}")
+
+    # -- the corrector with the physics epilogue, on the moist state --
+    kern, plain = epilogue_pair(ci)
+    want_epi = plain()
+    got = kern()
+    errs["corrector_epilogue"] = field_errors(got, want_epi, EPI_TOL)
+    no_mic = epilogue_pair(ci, phys=phys_with(ci.cfg,
+                                              microphysics=False))[1]()
+    n_cond = int((want_epi.qv < no_mic.qv).sum())
+    rain_inc = float((want_epi.rain - ci.moist.rain).max())
+    print(f"  moist state: {n_cond} of {want_epi.qv.numel()} cells condense "
+          f"in the plain epilogue; largest rain increment {rain_inc:.3e} "
+          "kg/m2", flush=True)
+    if n_cond == 0 or not rain_inc > 0:
+        bad.append("the moist state does not condense or rain")
+    print("  corrector+epilogue (mask) max|kernel-plain|: "
+          + show(errs["corrector_epilogue"], EPI_TOL), flush=True)
+    bad += [f"epilogue corrector: {x} over its bound"
+            for x in over(errs["corrector_epilogue"], EPI_TOL)]
+    unmasked = fs.corrector(*epilogue_args(ci), phys=ci.phys, **kw)
+    if not bitwise_equal(got, unmasked, tuple(EPI_TOL)):
+        bad.append("masked epilogue corrector differs from the index rule")
+    kern_h, plain_h = epilogue_pair(ci, vmask=holed)
+    got_h, want_h = kern_h(), plain_h()
+    per = field_errors(got_h, want_h, EPI_TOL)
+    if bool(got_h.v[:, row].abs().max() != 0) or over(per, EPI_TOL):
+        bad.append(f"epilogue corrector with v row {row} masked: {per}")
+    print(f"  v row {row} masked: predictor and epilogue corrector zero it "
+          "and match their plain versions; the single-device mask equals "
+          "the index rule bit for bit", flush=True)
+    kern_c, plain_c = epilogue_pair(ci, phys=phys_with(ci.cfg,
+                                                       convection=True))
+    errs["corrector_epilogue_convection"] = field_errors(kern_c(), plain_c(),
+                                                         EPI_TOL)
+    print("  corrector+epilogue, convection on: "
+          + show(errs["corrector_epilogue_convection"], EPI_TOL), flush=True)
+    bad += [f"epilogue corrector with convection: {x} over its bound"
+            for x in over(errs["corrector_epilogue_convection"], EPI_TOL)]
+    for term in EPI_FAULTS:
+        kf = epilogue_pair(ci, phys=phys_with(ci.cfg, **{term: False}))[0]
+        per = field_errors(kf(), want_epi, EPI_TOL)
+        print(f"  planted fault epilogue without {term}, one call (one "
+              "shows each term above rounding): " + show(per, EPI_TOL),
+              flush=True)
+        if not over(per, EPI_TOL):
+            bad.append(f"epilogue without {term} stays within every bound")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return errs
+
+
+def time_kernels(ci: CheckInputs, card: str) -> dict:
+    """Phase 4: each variant and its plain version, in turns (kernel,
+    plain, plain, kernel), beside its bound."""
+    g, f, dt, st, kw, vm = (ci.grid, ci.forcing, ci.grid.dt, ci.state,
+                            ci.kw, ci.vmask)
+    pred_plain = fs.fused_substep_plain(st, None, g, f, dt, **kw)
+    ev, base = epilogue_args(ci)[:2]
+    calls = {
+        "predictor": (
+            lambda: fs.predictor(st, g, f, dt, **kw),
+            lambda: fs.fused_substep_plain(st, None, g, f, dt, **kw),
+            (st, None, None, None)),
+        "corrector": (
+            lambda: fs.corrector(pred_plain, st, g, f, dt, **kw),
+            lambda: fs.fused_substep_plain(pred_plain, st, g, f, dt, **kw),
+            (pred_plain, st, None, None)),
+        "predictor_masked": (
+            lambda: fs.predictor(st, g, f, dt, vmask=vm, **kw),
+            lambda: fs.fused_substep_plain(st, None, g, f, dt, vmask=vm,
+                                           **kw),
+            (st, None, None, vm)),
+        "corrector_epilogue": (
+            *epilogue_pair(ci), (ev, base, ci.phys, vm)),
+    }
+    timing = {}
+    for kname, (kern, plain, (e, b, phys, vmask)) in calls.items():
+        k1, p1, p2, k2 = timed(kern), timed(plain), timed(plain), timed(kern)
+        bound, by = substep_bound_ms(e, b, g, f, kern(), phys=phys,
+                                     vmask=vmask)
+        ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+        timing[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by)
+        print(f"  {kname}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+              f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), bound {bound:.4f} ms "
+              f"({by}; {100 * bound / ms:.1f}% of it); no PyTorch library "
+              f"call computes it (library_ms null) [{card}]", flush=True)
+    return timing
+
+
+def sanity(s, grid, s0):
+    """The run's sanity checks against its initial state ``s0``; raises on
+    the first that fails."""
+    for f in STATE_FIELDS:
+        if not bool(torch.isfinite(getattr(s, f)).all()):
+            raise AssertionError(f"non-finite {f} after the run")
+    max_wind = max(float(s.u.abs().max()), float(s.v.abs().max()))
+    area = grid.area.double()[:, None]
+    w = area / area.sum() / s.colp.shape[-1]
+    mean_colp = float((s.colp.double() * w).sum())
+    pott_lo, pott_hi = float(s.pott.min()), float(s.pott.max())
+    mass0 = float((s0.colp.double() * area).sum())
+    mass1 = float((s.colp.double() * area).sum())
+    drift = abs(mass1 - mass0) / mass0
+    checks = [(max_wind < MAX_WIND, f"max wind {max_wind:.2f} < {MAX_WIND}"),
+              (MEAN_COLP[0] < mean_colp < MEAN_COLP[1],
+               f"mean COLP {mean_colp:.1f} in {MEAN_COLP}"),
+              (POTT_RANGE[0] <= pott_lo and pott_hi <= POTT_RANGE[1],
+               f"POTT [{pott_lo:.2f}, {pott_hi:.2f}] in {POTT_RANGE}"),
+              (drift < MASS_DRIFT, f"mass drift {drift:.3e} < {MASS_DRIFT}")]
+    for ok, what in checks:
+        print(f"  {'ok ' if ok else 'BAD'} {what}", flush=True)
+        if not ok:
+            raise AssertionError(what)
+
+
+def main_path(dev, card: str):
+    """Phase 5: the run command through the packed scan, counted."""
+    args = cli.make_parser().parse_args(MAIN_ARGV)
+    run_cfg = cli.build_config(args)
+    s0, _, g0 = initialize(run_cfg, device=dev)
+    reset_counts()
+    res = cli.run(run_cfg, device=args.device)
+    counts = read_counts()
+    s = res.state
+    if res.aborted:
+        raise AssertionError("the run aborted on a non-finite state")
+    every = run_cfg.physics.rad_every_steps
+    want = dict.fromkeys(counts, 0)
+    want.update(predictor_masked=res.steps, corrector_epilogue=res.steps,
+                radiation_refreshes=sum(1 for k in range(res.steps)
+                                        if k % every == 0))
+    if counts != want:
+        raise AssertionError(f"counts {counts} for {res.steps} steps, "
+                             f"expected {want}: one masked predictor and "
+                             "one epilogue corrector a step, radiation every "
+                             f"{every} steps, nothing else")
+    if len(res.chunks) < 3:
+        raise AssertionError(f"chunks {res.chunks}: expected three")
+    dt0 = res.dts[0]
+    if dt0 != g0.dt:
+        raise AssertionError(f"first dt {dt0} != the grid's {g0.dt}")
+    for rec, dt_next in zip(res.records[:-1], res.dts[1:]):
+        want_dt = round_to(max(adaptive_cfl_dt(res.min_dx,
+                                               run_cfg.numerics.cfl,
+                                               rec["max_wind"]), 0.05 * dt0),
+                           torch.float32)
+        if dt_next != want_dt:
+            raise AssertionError(f"dt {dt_next} != adaptive_cfl_dt {want_dt}")
+    horizon = run_cfg.sim_days * 86400.0
+    if abs(float(s.t) - horizon) > 0.5 * res.dts[-1]:
+        raise AssertionError(f"t = {float(s.t)} s misses the horizon "
+                             f"{horizon} s")
+    sanity(s, res.grid, s0)
+    points = run_cfg.grid.nx * run_cfg.grid.ny * run_cfg.grid.nz
+    steady_steps = sum(res.chunks[1:])
+    steady_wall = sum(r["wall_s"] for r in res.records[1:])
+    steady_ms = 1e3 * steady_wall / steady_steps
+    print(f"  {res.steps} steps {res.chunks} in {res.wall_s:.3f}s: "
+          f"{1e3 * res.wall_s / res.steps:.3f} ms/step "
+          f"({points * res.steps / res.wall_s / 1e6:.2f} M grid-points/s); "
+          f"after the first chunk {steady_ms:.3f} ms/step "
+          f"({points * steady_steps / steady_wall / 1e6:.2f} "
+          f"M grid-points/s); dt {res.dts}; counts {counts} [{card}]",
+          flush=True)
+    return run_cfg, res, counts, steady_ms
+
+
+def per_step_path(run_cfg, n, dev, card: str):
+    """Phase 6: the per-step path for ``n`` steps from the initial state,
+    counted and checked; the packed scan over the same steps compared with
+    it; both timed in turns."""
+    s0, forcing, grid = initialize(run_cfg, device=dev)
+    step = make_step_fn(run_cfg)
+    packed = make_chunk_runner(run_cfg, n)
+
+    def per_step():
+        return run_scan(step, s0, grid, forcing, n)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t) / n
+
+    reset_counts()
+    a, ms_a1 = wall(per_step)
+    counts = read_counts()
+    every = run_cfg.physics.rad_every_steps
+    want = dict.fromkeys(counts, 0)
+    want.update(predictor=n, corrector=n, surface_split=n,
+                turbulence_split=n, microphysics_split=n,
+                radiation_refreshes=sum(1 for k in range(n)
+                                        if k % every == 0))
+    if counts != want:
+        raise AssertionError(f"per-step path counts {counts} for {n} steps, "
+                             f"expected {want}")
+    sanity(a, grid, s0)
+    b, ms_b1 = wall(lambda: packed(s0, grid, forcing))
+    b2, ms_b2 = wall(lambda: packed(s0, grid, forcing))
+    _, ms_a2 = wall(per_step)
+    if not bitwise_equal(b, b2, STATE_FIELDS):
+        raise AssertionError("two packed-scan runs from one state differ")
+    per = field_errors(b, a, PATHS_TOL)
+    print(f"  {n} steps, packed scan vs per-step path: "
+          + show(per, PATHS_TOL), flush=True)
+    if over(per, PATHS_TOL):
+        raise AssertionError(f"the two paths differ beyond their bounds: "
+                             f"{per}")
+    ms_a, ms_b = 0.5 * (ms_a1 + ms_a2), 0.5 * (ms_b1 + ms_b2)
+    print(f"  ms/step over {n} steps from the initial state (radiation "
+          f"refresh included): per-step path {ms_a:.3f} ({ms_a1:.3f}, "
+          f"{ms_a2:.3f}), packed scan {ms_b:.3f} ({ms_b1:.3f}, {ms_b2:.3f}); "
+          f"per-step counts {counts} [{card}]", flush=True)
+    return counts, per, ms_a, ms_b
 
 
 def breakdown(cfg, state, grid, forcing, step_ms, card):
     """Each layer of a model step timed alone on the final state of the main
     path: ms per call over back-to-back calls (CUDA events; the device's time
     where it exceeds the host's) and the host's enqueue ms per call. Their
-    sum, weighted by calls per step, is set beside the measured ms/step."""
-    from climate_model_tpu_torch.dycore.operators import diagnose_pressure
+    sums for each path, weighted by calls per step, are set beside the
+    measured ms/step of the main path."""
     from climate_model_tpu_torch.io.metrics import diagnostics
-    from climate_model_tpu_torch.physics import (microphysics, surface,
-                                                 turbulence)
     num = cfg.numerics
     kw = dict(with_rad=cfg.physics.radiation,
               with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
     dt = grid.dt
+    vm = fs.wall_mask(grid.ny, torch.float32, state.device)
+    phys = phys_epilogue_tuple(cfg)
     pred = fs.predictor(state, grid, forcing, dt, **kw)
     press = diagnose_pressure(state.colp, grid)
+    every = cfg.physics.rad_every_steps
+    # (name, fn, calls a step on the packed scan, on the per-step path)
     layers = [
-        ("radiation refresh (1 step in "
-         f"{cfg.physics.rad_every_steps})",
+        (f"radiation refresh (1 step in {every})",
          lambda: radiation.compute_radiation(state, grid, forcing, cfg),
-         1.0 / cfg.physics.rad_every_steps),
+         1.0 / every, 1.0 / every),
+        ("predictor kernel (mask)", lambda: fs.predictor(
+            state, grid, forcing, dt, vmask=vm, **kw), 1.0, 0.0),
+        ("corrector kernel with physics epilogue (mask)",
+         lambda: fs.corrector(pred, state, grid, forcing, dt, phys=phys,
+                              vmask=vm, **kw), 1.0, 0.0),
         ("predictor kernel", lambda: fs.predictor(state, grid, forcing, dt,
-                                                  **kw), 1.0),
+                                                  **kw), 0.0, 1.0),
         ("corrector kernel", lambda: fs.corrector(pred, state, grid, forcing,
-                                                  dt, **kw), 1.0),
+                                                  dt, **kw), 0.0, 1.0),
         ("pressure diagnostics", lambda: diagnose_pressure(state.colp, grid),
-         1.0),
+         0.0, 1.0),
         ("surface split", lambda: surface.surface_step(
-            state, grid, forcing, cfg, dt, press=press), 1.0),
+            state, grid, forcing, cfg, dt, press=press), 0.0, 1.0),
         ("turbulence split", lambda: turbulence.turbulence_step(
-            state, grid, forcing, cfg, dt, press=press), 1.0),
+            state, grid, forcing, cfg, dt, press=press), 0.0, 1.0),
         ("microphysics split", lambda: microphysics.microphysics_step(
-            state, grid, forcing, cfg, dt, press=press), 1.0),
+            state, grid, forcing, cfg, dt, press=press), 0.0, 1.0),
         ("chunk diagnostics (1 per chunk)",
-         lambda: diagnostics(state, grid, forcing, cfg),
+         lambda: diagnostics(state, grid, forcing, cfg), 1.0 / 105,
          1.0 / 105),
     ]
-    per_step = 0.0
-    for name, fn, share in layers:
+    sums = [0.0, 0.0]
+    for name, fn, packed_share, step_share in layers:
         dev_ms = timed(fn, n=20, warmup=3)
         torch.cuda.synchronize()
         h0 = time.perf_counter()
@@ -210,11 +711,24 @@ def breakdown(cfg, state, grid, forcing, step_ms, card):
             fn()
         host_ms = 1e3 * (time.perf_counter() - h0) / 20
         torch.cuda.synchronize()
-        per_step += share * dev_ms
+        sums[0] += packed_share * dev_ms
+        sums[1] += step_share * dev_ms
         print(f"  {name}: back-to-back {dev_ms:.4f} ms, host enqueue "
               f"{host_ms:.4f} ms per call", flush=True)
-    print(f"  layers summed per step: {per_step:.3f} ms, against "
-          f"{step_ms:.3f} ms/step measured [{card}]", flush=True)
+    print(f"  layers summed per step: packed scan {sums[0]:.3f} ms (against "
+          f"{step_ms:.3f} ms/step of the main path), per-step path "
+          f"{sums[1]:.3f} ms [{card}]", flush=True)
+
+
+VARIANTS = {
+    # name: (counter, path that launches it, errors key)
+    "predictor": ("predictor", "per-step", "predictor"),
+    "corrector": ("corrector", "per-step", "corrector"),
+    "predictor_masked": ("predictor_masked", "packed scan",
+                         "predictor_masked"),
+    "corrector_epilogue": ("corrector_epilogue", "packed scan",
+                           "corrector_epilogue"),
+}
 
 
 def main() -> int:
@@ -242,175 +756,52 @@ def main() -> int:
 
     # ---- 3. kernels vs plain at config #3 ----
     t = time.perf_counter()
-    cfg = baseline_config(3)
-    state, forcing, grid = initialize(cfg, device=dev)
-    plain_step = make_step_fn(cfg, dynamics=functools.partial(step_matsuno,
-                                                              cfg=cfg))
-    for _ in range(10):
-        state = plain_step(state, grid, forcing)
-    num = cfg.numerics
-    kw = dict(with_rad=cfg.physics.radiation,
-              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
-    dt = grid.dt
-    pred_plain = fs.fused_substep_plain(state, None, grid, forcing, dt, **kw)
-    corr_plain = fs.fused_substep_plain(pred_plain, state, grid, forcing, dt,
-                                        **kw)
-
-    def launch(kname, **over):
-        if kname == "predictor":
-            return fs.predictor(state, grid, forcing, dt, **dict(kw, **over))
-        return fs.corrector(pred_plain, state, grid, forcing, dt,
-                            **dict(kw, **over))
-
-    want = {"predictor": pred_plain, "corrector": corr_plain}
-    pred_k, corr_k = launch("predictor"), launch("corrector")
-    errs, bad = {}, []
-    for kname, got in (("predictor", pred_k), ("corrector", corr_k)):
-        errs[kname] = field_errors(got, want[kname])
-        print(f"  {kname} max|kernel-plain|: " + ", ".join(
-            f"{f} {e:.3e} (<= {FIELD_TOL[f]:.1e})"
-            for f, e in errs[kname].items()), flush=True)
-        bad += [f"{kname}: max|kernel-plain| of {f} = {e:.3e} > "
-                f"{FIELD_TOL[f]:.1e}" for f, e in errs[kname].items()
-                if not e <= FIELD_TOL[f]]
-    # the bounds must fail a kernel that leaves out a term
-    for fault, over in PLANTED_FAULTS.items():
-        for kname in ("predictor", "corrector"):
-            per = field_errors(launch(kname, **over), want[kname])
-            broken = [f for f, e in per.items() if e > FIELD_TOL[f]]
-            print(f"  planted fault {kname} {fault}: " + ", ".join(
-                f"{f} {e:.3e}{' (over)' if f in broken else ''}"
-                for f, e in per.items()), flush=True)
-            if not broken:
-                bad.append(f"{kname} with {fault} stays within every bound: "
-                           "the bounds cannot tell a kernel that drops a term")
-    if bad:
-        raise AssertionError("; ".join(bad))
-    phase("check", t, "predictor and corrector agree with the plain substep "
-          f"at {tuple(state.u.shape)} fp32; each planted fault breaks a bound")
+    ci = check_inputs(dev)
+    errs = check_kernels(ci)
+    phase("check", t, "every variant agrees with its plain version at "
+          f"{tuple(ci.state.u.shape)} fp32; each planted fault breaks a "
+          "bound")
 
     # ---- 4. timing ----
     t = time.perf_counter()
-    calls = {
-        "predictor": (lambda: fs.predictor(state, grid, forcing, dt, **kw),
-                      lambda: fs.fused_substep_plain(state, None, grid,
-                                                     forcing, dt, **kw),
-                      None, pred_k),
-        "corrector": (lambda: fs.corrector(pred_plain, state, grid, forcing,
-                                           dt, **kw),
-                      lambda: fs.fused_substep_plain(pred_plain, state, grid,
-                                                     forcing, dt, **kw),
-                      state, corr_k),
-    }
-    timing = {}
-    for kname, (kern, plain, base, out) in calls.items():
-        # in turns: kernel, plain, plain, kernel
-        k1, p1, p2, k2 = timed(kern), timed(plain), timed(plain), timed(kern)
-        ev = state if kname == "predictor" else pred_plain
-        bound, by = substep_bound_ms(ev, base, grid, forcing, out)
-        ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
-        timing[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by=by)
-        print(f"  {kname}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
-              f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), bound {bound:.4f} ms "
-              f"({by}; {100 * bound / ms:.1f}% of it); no PyTorch library "
-              f"call computes this substep (library_ms null) [{card}]",
-              flush=True)
+    timing = time_kernels(ci, card)
     phase("timing", t)
 
-    # ---- 5. main path ----
+    # ---- 5. main path: the packed scan ----
     t = time.perf_counter()
-    args = cli.make_parser().parse_args(MAIN_ARGV)
-    run_cfg = cli.build_config(args)
-    fs.predictor.launches = 0
-    fs.corrector.launches = 0
-    radiation.radiation_step.refreshes = 0
-    res = cli.run(run_cfg, device=args.device)
-    launches = {"predictor": fs.predictor.launches,
-                "corrector": fs.corrector.launches}
-    refreshes = radiation.radiation_step.refreshes
-    s = res.state
-    if res.aborted:
-        raise AssertionError("the run aborted on a non-finite state")
-    if launches != {"predictor": res.steps, "corrector": res.steps}:
-        raise AssertionError(f"launches {launches} for {res.steps} steps: "
-                             "expected one predictor and one corrector a step")
-    every = run_cfg.physics.rad_every_steps
-    want_ref = sum(1 for k in range(res.steps) if k % every == 0)
-    if refreshes != want_ref:
-        raise AssertionError(f"radiation refreshed {refreshes} times in "
-                             f"{res.steps} steps, expected {want_ref} "
-                             f"(every {every})")
-    if len(res.chunks) < 3:
-        raise AssertionError(f"chunks {res.chunks}: expected three")
-    dt0 = res.dts[0]
-    if dt0 != grid.dt:
-        raise AssertionError(f"first dt {dt0} != the grid's {grid.dt}")
-    for rec, dt_next in zip(res.records[:-1], res.dts[1:]):
-        want = round_to(max(adaptive_cfl_dt(res.min_dx, run_cfg.numerics.cfl,
-                                            rec["max_wind"]), 0.05 * dt0),
-                        torch.float32)
-        if dt_next != want:
-            raise AssertionError(f"dt {dt_next} != adaptive_cfl_dt {want}")
-    horizon = run_cfg.sim_days * 86400.0
-    if abs(float(s.t) - horizon) > 0.5 * res.dts[-1]:
-        raise AssertionError(f"t = {float(s.t)} s misses the horizon "
-                             f"{horizon} s")
-    for f in ("u", "v", "colp", "pott", "qv", "qc", "tsurf", "rain",
-              "soil_moist", "dpottdt_rad", "swflx_sfc", "lwflx_sfc"):
-        if not bool(torch.isfinite(getattr(s, f)).all()):
-            raise AssertionError(f"non-finite {f} after the run")
-    max_wind = max(float(s.u.abs().max()), float(s.v.abs().max()))
-    area = res.grid.area.double()[:, None]
-    w = area / area.sum() / s.colp.shape[-1]
-    mean_colp = float((s.colp.double() * w).sum())
-    pott_lo, pott_hi = float(s.pott.min()), float(s.pott.max())
-    s0, _, _ = initialize(run_cfg, device=dev)
-    mass0 = float((s0.colp.double() * area).sum())
-    mass1 = float((s.colp.double() * area).sum())
-    drift = abs(mass1 - mass0) / mass0
-    checks = [(max_wind < MAX_WIND, f"max wind {max_wind:.2f} < {MAX_WIND}"),
-              (MEAN_COLP[0] < mean_colp < MEAN_COLP[1],
-               f"mean COLP {mean_colp:.1f} in {MEAN_COLP}"),
-              (POTT_RANGE[0] <= pott_lo and pott_hi <= POTT_RANGE[1],
-               f"POTT [{pott_lo:.2f}, {pott_hi:.2f}] in {POTT_RANGE}"),
-              (drift < MASS_DRIFT, f"mass drift {drift:.3e} < {MASS_DRIFT}")]
-    for ok, what in checks:
-        print(f"  {'ok ' if ok else 'BAD'} {what}", flush=True)
-        if not ok:
-            raise AssertionError(what)
-    points = run_cfg.grid.nx * run_cfg.grid.ny * run_cfg.grid.nz
-    steady_steps = sum(res.chunks[1:])
-    steady_wall = sum(r["wall_s"] for r in res.records[1:])
-    print(f"  {res.steps} steps {res.chunks} in {res.wall_s:.3f}s: "
-          f"{1e3 * res.wall_s / res.steps:.3f} ms/step "
-          f"({points * res.steps / res.wall_s / 1e6:.2f} M grid-points/s); "
-          f"after the first chunk {1e3 * steady_wall / steady_steps:.3f} "
-          f"ms/step ({points * steady_steps / steady_wall / 1e6:.2f} "
-          f"M grid-points/s); dt {res.dts}; launches {launches}; radiation "
-          f"refreshes {refreshes} [{card}]", flush=True)
-    phase("main", t, "config #3 through cli.run with the substep kernels")
+    run_cfg, res, main_counts, steady_ms = main_path(dev, card)
+    phase("main", t, "config #3 through cli.run on the packed scan")
 
-    # ---- 6. where a step's time goes ----
+    # ---- 6. the per-step path beside it ----
     t = time.perf_counter()
-    breakdown(run_cfg, s, res.grid, res.forcing, 1e3 * steady_wall
-              / steady_steps, card)
+    step_counts, _, _, _ = per_step_path(run_cfg, res.chunks[0], dev, card)
+    phase("per-step", t, "the per-step path driven and checked; both paths "
+          "agree")
+
+    # ---- 7. where a step's time goes ----
+    t = time.perf_counter()
+    breakdown(run_cfg, res.state, res.grid, res.forcing, steady_ms, card)
     phase("breakdown", t)
 
     kernels = []
-    for kname in ("predictor", "corrector"):
-        tm = timing[kname]
+    for kname, (counter, path, ekey) in VARIANTS.items():
+        tm, err = timing[kname], errs[ekey]
+        tol = EPI_TOL if kname == "corrector_epilogue" else FIELD_TOL
+        launches = (main_counts if path == "packed scan"
+                    else step_counts)[counter]
         kernels.append({
             "name": f"fused_substep_{kname}", "route": "cuda",
-            "source": "climate_model_tpu_torch/kernels/csrc/fused_substep.cu",
+            # the epilogue variant also runs fused_substep.cu's launches
+            "source": "climate_model_tpu_torch/kernels/csrc/"
+                      + ("physics_epilogue.cu" if kname == "corrector_epilogue"
+                         else "fused_substep.cu"),
             "replaces": "climate_model_tpu/kernels/fused_substep.py:1047",
-            "launches": launches[kname],
+            "path": path, "launches": launches,
             # fields differ in units: the max is colp's (Pa); each field's
             # error and the largest error/bound ratio are listed beside it
-            "max_abs_err": max(errs[kname].values()),
-            "max_abs_err_by_field": errs[kname],
-            "max_err_over_tol": max(e / FIELD_TOL[f]
-                                    for f, e in errs[kname].items()),
+            "max_abs_err": max(err.values()),
+            "max_abs_err_by_field": err,
+            "max_err_over_tol": max(e / tol[f] for f, e in err.items()),
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": None})

@@ -3,7 +3,9 @@
 Port of the single-device ``run`` path of ``climate_model_tpu/cli.py``: build
 grid, state and forcing, step in chunks sized to the output cadence, fetch
 the diagnostics once per chunk, recompute dt per chunk with ``--adaptive-dt``
-and land exactly on the horizon. Nothing is written to disk yet: output
+and land exactly on the horizon. The chunks run ``model.py::
+make_chunk_runner``: the packed scan, whose corrector kernel carries the
+physics as its epilogue, for every config the kernels cover. Nothing is written to disk yet: output
 directories, restarts, NetCDF, TOML namelists, device meshes and the
 ``bench``/``plot``/``profile`` subcommands raise "not ported yet".
 
@@ -88,7 +90,7 @@ def run(cfg: ModelConfig, device="cuda") -> RunResult:
     from .core.grid import adaptive_cfl_dt, round_to
     from .core.init import initialize
     from .io.metrics import MetricsLogger, diagnostics
-    from .model import make_chunk_runner
+    from .model import make_chunk_runner, takes_packed_scan
 
     if cfg.sharding.mesh_lat * cfg.sharding.mesh_lon > 1:
         _not_ported("a device mesh (dist/)")
@@ -103,8 +105,10 @@ def run(cfg: ModelConfig, device="cuda") -> RunResult:
 
     dev = state.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    path = ("packed scan (corrector with physics epilogue)"
+            if takes_packed_scan(cfg) else "per-step")
     print(f"grid {gc.nx}x{gc.ny}x{gc.nz}  dt={dt:.1f}s  steps={n_total}  "
-          f"chunk={chunk}  device={dev} ({name})", flush=True)
+          f"chunk={chunk}  device={dev} ({name})  path={path}", flush=True)
     t0 = time.time()
     done = 0
     logger._t_last = t0

@@ -2,12 +2,16 @@
 // hand-written CUDA C++ for Hopper (sm_90a), fp32.
 //
 // Replaces the TPU kernel climate_model_tpu/kernels/fused_substep.py::
-// make_fused_substep_packed (the pallas_call at :1047) in the two variants
-// the per-step Matsuno path launches (climate_model_tpu/dycore/stepper.py
-// :116-117):
+// make_fused_substep_packed (the pallas_call at :1047) in the variants the
+// Matsuno paths launch (climate_model_tpu/dycore/stepper.py:116-117 per step,
+// climate_model_tpu/model.py:118-120 on the packed scan):
 //   predictor  same_base=1: tendencies at the state, advanced from it;
 //   corrector  same_base=0: tendencies at the predicted state, advanced from
 //              the time-n base state (COLP_new = COLP_base + dt*dCOLP/dt).
+// vmask (null, or a (ny,) row mask: 1 on interior v rows, 0 on walls) is the
+// wall_mask=True form: v is multiplied by it instead of zeroing row 0 by
+// index. The packed scan's corrector also runs the physics epilogue; that
+// is a third launch, in physics_epilogue.cu, on the fields written here.
 // with_rad adds the cached radiative heating to the POTT tendency, with_diff
 // the COLP-weighted 5-point horizontal diffusion (coefficients per latitude,
 // read from the geometry table, so retuning them rebuilds nothing). dt is a
@@ -47,14 +51,11 @@
 
 #include <cuda_runtime.h>
 
+#include "constants.cuh"
+
 namespace {
 
-constexpr float kG = 9.81f;
-constexpr float kREarth = 6371000.0f;
-constexpr float kCp = 1004.0f;
-constexpr float kKappa = (float)(287.0 / 1004.0);
-constexpr float kOnePlusKappa = (float)(1.0 + 287.0 / 1004.0);
-constexpr float kPRef = 100000.0f;
+using namespace cm;
 
 // GEO_FIELDS order (kernels/fused_substep.py)
 enum Geo {
@@ -66,6 +67,7 @@ struct Args {
   const float *u, *v, *pott, *qv, *qc, *colp;        // evaluation state
   const float *ub, *vb, *pottb, *qvb, *qcb, *colpb;  // base state
   const float *hsurf, *rad, *geo, *sigma_vb, *dsigma;
+  const float* vmask;                                // (ny,) or null
   float *u_out, *v_out, *pott_out, *qv_out, *qc_out, *colp_out;
   float *wwind, *phi, *pvtf;                         // scratch
   int nz, ny, nx;
@@ -284,7 +286,7 @@ __global__ void point_kernel(Args a) {
 
   // ---- v momentum at the south face of (j, i) ----
   {
-    if (j == 0) {                                   // south wall
+    if (j == 0 && !a.vmask) {                       // south wall, by index
       a.v_out[id] = 0.f;
       return;
     }
@@ -325,7 +327,11 @@ __global__ void point_kernel(Args a) {
     }
     const float vb = SAME_BASE ? vc : a.vb[id];
     const float cv_old = 0.5f * (colpb[x.at2(js, i)] + cb);
-    a.v_out[id] = (vb * cv_old + a.dt * dvdt) / cn_v;
+    const float vnew = (vb * cv_old + a.dt * dvdt) / cn_v;
+    // the wall as data: 0 on wall rows. "+ 0" turns the -0 of a negative v
+    // times 0 into +0, so the single-device mask equals the index rule bit
+    // for bit
+    a.v_out[id] = a.vmask ? vnew * a.vmask[j] + 0.f : vnew;
   }
 }
 
@@ -340,13 +346,13 @@ extern "C" int cm_fused_substep_f32(
     const float* ub, const float* vb, const float* pottb, const float* qvb,
     const float* qcb, const float* colpb,
     const float* hsurf, const float* rad, const float* geo,
-    const float* sigma_vb, const float* dsigma,
+    const float* sigma_vb, const float* dsigma, const float* vmask,
     float* u_out, float* v_out, float* pott_out, float* qv_out, float* qc_out,
     float* colp_out, float* wwind, float* phi, float* pvtf,
     int nz, int ny, int nx, float dt, float dy, float ptop,
     int same_base, int with_rad, int with_diff, void* stream) {
   Args a{u, v, pott, qv, qc, colp, ub, vb, pottb, qvb, qcb, colpb,
-         hsurf, rad, geo, sigma_vb, dsigma,
+         hsurf, rad, geo, sigma_vb, dsigma, vmask,
          u_out, v_out, pott_out, qv_out, qc_out, colp_out, wwind, phi, pvtf,
          nz, ny, nx, dt, dy, (float)((double)dy * (double)dy), ptop,
          with_rad, with_diff};

@@ -1,24 +1,31 @@
-"""Fused dycore substep: the hand-written CUDA kernel, its wrappers and its
-plain PyTorch version.
+"""Fused dycore substep: the hand-written CUDA kernels, their wrappers and
+their plain PyTorch version.
 
-Port of the two variants of ``climate_model_tpu/kernels/fused_substep.py::
-make_fused_substep_packed`` that the per-step Matsuno path launches: the
-predictor (``same_base=True``) and the corrector (``same_base=False``), both
-with the radiative source and horizontal diffusion compiled in or out by a
-launch argument. The kernel source is ``csrc/fused_substep.cu``; its header
-says how it is split into launches and what bounds it on the card.
+Port of the variants of ``climate_model_tpu/kernels/fused_substep.py::
+make_fused_substep_packed`` that the Matsuno paths launch: the predictor
+(``same_base=True``) and the corrector (``same_base=False``), with the
+radiative source and horizontal diffusion switched by launch arguments; the
+v wall either by row index or from a ``(ny,)`` mask (``wall_mask=True``);
+and the packed scan's corrector, which also runs the physics epilogue
+(surface, turbulence and microphysics, ``phys=``). The kernel sources are
+``csrc/fused_substep.cu`` (the substep, two launches) and
+``csrc/physics_epilogue.cu`` (the epilogue, a third launch); their headers
+say how each is split into launches and what bounds it on the card.
 
 * ``predictor`` / ``corrector`` are the wrappers. On a CUDA tensor they
-  launch the kernel (fp32 only) or raise; on a CPU tensor they call the plain
-  version. Each counts its launches in a plain integer attribute
-  ``.launches``.
-* ``fused_substep_plain`` is the port's own plain substep (``tendencies``
-  followed by ``proceed``): exactly what the kernel computes. The CPU tests use it, and
-  ``chip_smoke.py`` holds the kernel against it on the card.
+  launch the kernels (fp32 only) or raise; on a CPU tensor they call the
+  plain version. Each counts its launches per variant in plain integer
+  attributes: ``predictor.launches`` / ``.masked_launches`` (index rule /
+  mask), ``corrector.launches`` / ``.masked_launches`` (without the
+  epilogue) and ``corrector.epilogue_launches``.
+* ``fused_substep_plain`` is the plain version: the stepper's ``substep``,
+  then, with ``phys``, the port's own surface, turbulence and microphysics
+  splits on the pressure of the new colp. The CPU tests use it, and
+  ``chip_smoke.py`` holds the kernels against it on the card.
 
 The library is built at first use with one ``nvcc`` call over every
 ``csrc/*.cu`` into ``climate_model_tpu_torch/_build/`` (named by a hash of
-the sources, so an edit rebuilds) and loaded with ``ctypes``.
+the sources and headers, so an edit rebuilds) and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import subprocess
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from ..core.config import ModelConfig, NumericsConfig, PhysicsConfig
@@ -49,8 +57,22 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# The physics-epilogue parameters, in the order of ``model.py::
+# phys_epilogue_tuple`` (the reference's ``phys=`` tuple).
+PHYS_FIELDS = ("surface", "turbulence", "microphysics", "drag_coef",
+               "soil_heat_capacity", "ocean_heat_capacity",
+               "qc_autoconv_time", "qc_autoconv_threshold",
+               "diff_coef_scalar", "diff_coef_momentum", "soil_moisture",
+               "soil_moist_cap", "convection", "conv_diffusivity",
+               "conv_rh_crit")
+MAX_NZ_EPILOGUE = 64     # kMaxNz of csrc/physics_epilogue.cu
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 26 + [_I] * 3 + [_F] * 3 + [_I] * 3 + [_P]
+_ARGTYPES = {
+    "cm_fused_substep_f32": [_P] * 27 + [_I] * 3 + [_F] * 3 + [_I] * 3 + [_P],
+    "cm_physics_epilogue_f32": [_P] * 25 + [_I] * 3 + [_F] * 3 + [_I] * 5
+                               + [_F] * 9 + [_P],
+}
 
 
 @dataclasses.dataclass
@@ -79,7 +101,7 @@ def build(force: bool = False) -> BuildInfo:
     sources exists. Returns where it is, how long nvcc took and its log."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     h = hashlib.sha256()
-    for s in sources:
+    for s in sorted(sources + glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -106,9 +128,10 @@ def _lib():
     """The loaded kernel library (built at first use)."""
     if "lib" not in _loaded:
         lib = ctypes.CDLL(build().path)
-        fn = lib.cm_fused_substep_f32
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded["lib"] = lib
     return _loaded["lib"]
 
@@ -117,6 +140,16 @@ def geo_table(grid: Grid) -> torch.Tensor:
     """The per-latitude geometry as one contiguous (ny, 11) table in
     ``GEO_FIELDS`` order (what the kernel reads)."""
     return torch.stack([getattr(grid, f) for f in GEO_FIELDS], dim=1)
+
+
+def wall_mask(ny: int, dtype, device) -> torch.Tensor:
+    """The single-device v-wall mask: 1 on the interior v rows, 0 on the
+    south-wall row 0 (the north wall row is not stored). The reference
+    packs it into AUX2 slot 4 (``kernels/packing.py::pack_aux``); a
+    latitude shard would pass its own rows."""
+    mask = torch.ones(ny, dtype=dtype, device=device)
+    mask[0] = 0.0
+    return mask
 
 
 # ---------------------------------------------------------------------------
@@ -133,16 +166,55 @@ def _plain_cfg(with_rad: bool, with_diff: bool) -> ModelConfig:
                                                diff_moist=on))
 
 
+def _phys_cfg(phys: tuple) -> ModelConfig:
+    """The config of the plain physics splits that the ``phys`` tuple
+    selects (the epilogue's counterpart of ``_plain_cfg``)."""
+    return ModelConfig(physics=PhysicsConfig(**dict(zip(PHYS_FIELDS, phys))))
+
+
+def _apply_wall(state: State, vmask) -> State:
+    if vmask is None:
+        return state
+    return state.replace(v=state.v * vmask[:, None])
+
+
 def fused_substep_plain(ev: State, base: State | None, grid: Grid,
                         forcing: Forcing, dt: float, *, with_rad: bool,
-                        with_diff: bool) -> State:
+                        with_diff: bool, phys: tuple | None = None,
+                        vmask: torch.Tensor | None = None) -> State:
     """One substep in plain PyTorch (the stepper's ``substep`` with the
     kernel's terms): tendencies at ``ev`` advanced from ``base``
     (``base=None``: from ``ev``, the predictor). Returns ``base`` with u, v,
-    pott, qv, qc and colp replaced."""
+    pott, qv, qc and colp replaced.
+
+    ``vmask`` multiplies v after the update, after the surface drag and
+    after the turbulence, where the reference kernel applies its wall.
+    ``phys`` (the corrector only) then runs the physics epilogue: the
+    port's ``surface_step``, ``turbulence_step`` and ``microphysics_step``
+    in that order, on the pressure of the new colp and the time-n surface
+    fields of ``base``, which also replaces tsurf, rain and soil_moist."""
+    from ..dycore.operators import diagnose_pressure
     from ..dycore.stepper import substep
-    return substep(ev, ev if base is None else base, dt, grid, forcing,
-                   _plain_cfg(with_rad, with_diff))
+    from ..physics.microphysics import microphysics_step
+    from ..physics.surface import surface_step
+    from ..physics.turbulence import turbulence_step
+
+    out = substep(ev, ev if base is None else base, dt, grid, forcing,
+                  _plain_cfg(with_rad, with_diff))
+    out = _apply_wall(out, vmask)
+    if phys is None:
+        return out
+    cfg = _phys_cfg(phys)
+    press = diagnose_pressure(out.colp, grid)
+    if cfg.physics.surface:
+        out = _apply_wall(surface_step(out, grid, forcing, cfg, dt,
+                                       press=press), vmask)
+    if cfg.physics.turbulence:
+        out = _apply_wall(turbulence_step(out, grid, forcing, cfg, dt,
+                                          press=press), vmask)
+    if cfg.physics.microphysics:
+        out = microphysics_step(out, grid, forcing, cfg, dt, press=press)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +222,14 @@ def fused_substep_plain(ev: State, base: State | None, grid: Grid,
 # ---------------------------------------------------------------------------
 
 _FIELDS3 = ("u", "v", "pott", "qv", "qc")
+_FIELDS2 = ("tsurf", "rain", "soil_moist", "swflx_sfc", "lwflx_sfc")
+_FIELDS2_OUT = ("tsurf", "rain", "soil_moist")
+_EPI_SWITCHES = ("surface", "turbulence", "microphysics", "soil_moisture",
+                 "convection")
+_EPI_PARAMS = ("drag_coef", "soil_heat_capacity", "ocean_heat_capacity",
+               "qc_autoconv_threshold", "diff_coef_scalar",
+               "diff_coef_momentum", "soil_moist_cap", "conv_diffusivity",
+               "conv_rh_crit")
 
 
 def _check(name, t, shape, device, dtype):
@@ -167,10 +247,11 @@ def _check(name, t, shape, device, dtype):
 
 
 def _validate(ev: State, base: State | None, grid: Grid, forcing: Forcing,
-              with_rad: bool):
-    """Device, dtype, shape and contiguity of every tensor the kernel
-    reads. On the card the dtype must be float32 (the kernel's only type);
-    on the CPU every tensor must share the dtype of ``ev.u``."""
+              with_rad: bool, phys: tuple | None = None, vmask=None):
+    """Device, dtype, shape and contiguity of every tensor the kernels
+    read, the length of ``phys`` and the mask. On the card the dtype must
+    be float32 (the kernels' only type); on the CPU every tensor must share
+    the dtype of ``ev.u``."""
     dev = ev.u.device
     if dev.type == "cuda":
         dtype = torch.float32
@@ -192,21 +273,43 @@ def _validate(ev: State, base: State | None, grid: Grid, forcing: Forcing,
         _check(f"grid.{f}", getattr(grid, f), (ny,), dev, dtype)
     _check("grid.sigma_vb", grid.sigma_vb, (nz + 1,), dev, dtype)
     _check("grid.dsigma", grid.dsigma, (nz,), dev, dtype)
+    if vmask is not None:
+        _check("vmask", vmask, (ny,), dev, dtype)
+    if phys is not None:
+        if not isinstance(phys, tuple) or len(phys) != len(PHYS_FIELDS):
+            raise ValueError(f"phys: expected a tuple of {len(PHYS_FIELDS)} "
+                             f"parameters {PHYS_FIELDS}, got {phys!r}")
+        if dev.type == "cuda" and nz > MAX_NZ_EPILOGUE:
+            raise ValueError(f"phys: the epilogue kernel takes at most "
+                             f"{MAX_NZ_EPILOGUE} levels, got {nz}")
+        for f in _FIELDS2:
+            _check(f"base.{f}", getattr(base, f), s2, dev, dtype)
+        for f in ("land_mask", "evap_eff"):
+            _check(f"forcing.{f}", getattr(forcing, f), s2, dev, dtype)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
-            dt: float, with_rad: bool, with_diff: bool) -> State:
+            dt: float, with_rad: bool, with_diff: bool, phys: tuple | None,
+            vmask) -> State:
     dev = ev.u.device
     nz, ny, nx = ev.u.shape
     s3 = (nz, ny, nx)
     b = ev if base is None else base
+
+    def empty(shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
     geo = geo_table(grid)
-    out = {f: torch.empty(s3, dtype=torch.float32, device=dev)
-           for f in _FIELDS3}
-    colp = torch.empty((ny, nx), dtype=torch.float32, device=dev)
-    wwind = torch.empty((nz + 1, ny, nx), dtype=torch.float32, device=dev)
-    phi = torch.empty(s3, dtype=torch.float32, device=dev)
-    pvtf = torch.empty(s3, dtype=torch.float32, device=dev)
+    out = {f: empty(s3) for f in _FIELDS3}
+    # with the epilogue, the substep writes the post-dynamics fields to
+    # scratch and the epilogue writes the outputs
+    dyn = {f: empty(s3) for f in _FIELDS3} if phys is not None else out
+    colp = empty((ny, nx))
+    wwind, phi, pvtf = empty((nz + 1, ny, nx)), empty(s3), empty(s3)
     rad_ptr = ev.dpottdt_rad.data_ptr() if with_rad else None
     lib = _lib()
     with torch.cuda.device(dev):
@@ -215,40 +318,91 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
             *(getattr(ev, f).data_ptr() for f in _FIELDS3), ev.colp.data_ptr(),
             *(getattr(b, f).data_ptr() for f in _FIELDS3), b.colp.data_ptr(),
             forcing.hsurf.data_ptr(), rad_ptr, geo.data_ptr(),
-            grid.sigma_vb.data_ptr(), grid.dsigma.data_ptr(),
-            *(out[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
+            grid.sigma_vb.data_ptr(), grid.dsigma.data_ptr(), _ptr(vmask),
+            *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
             wwind.data_ptr(), phi.data_ptr(), pvtf.data_ptr(),
             nz, ny, nx, float(dt), float(grid.dy), float(grid.ptop),
             int(base is None), int(with_rad), int(with_diff), stream)
+        if err != 0:
+            raise RuntimeError(f"fused_substep launch failed: CUDA error "
+                               f"{err}")
+        if phys is None:
+            return b.replace(colp=colp, **out)
+        new2 = {f: empty((ny, nx)) for f in _FIELDS2_OUT}
+        p = dict(zip(PHYS_FIELDS, phys))
+        err = lib.cm_physics_epilogue_f32(
+            *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
+            *(getattr(b, f).data_ptr() for f in _FIELDS2),
+            forcing.land_mask.data_ptr(), forcing.evap_eff.data_ptr(),
+            forcing.hsurf.data_ptr(), _ptr(vmask), grid.sigma_vb.data_ptr(),
+            grid.dsigma.data_ptr(),
+            *(out[f].data_ptr() for f in _FIELDS3),
+            *(new2[f].data_ptr() for f in _FIELDS2_OUT),
+            nz, ny, nx, float(dt), float(grid.ptop),
+            _autoconv_frac(dt, p["qc_autoconv_time"]) if p["microphysics"]
+            else 0.0,
+            *(int(bool(p[f])) for f in _EPI_SWITCHES),
+            *(float(p[f]) for f in _EPI_PARAMS), stream)
     if err != 0:
-        raise RuntimeError(f"fused_substep launch failed: CUDA error {err}")
-    return b.replace(colp=colp, **out)
+        raise RuntimeError(f"physics epilogue launch failed: CUDA error "
+                           f"{err}")
+    return b.replace(colp=colp, **out, **new2)
+
+
+def _autoconv_frac(dt: float, tau: float) -> float:
+    """1 - exp(-dt/tau) in fp32, as the reference's wrapper computes it
+    (``kernels/fused_substep.py:1061-1070``) for its kernel."""
+    one, x = np.float32(1.0), np.float32(-dt) / np.float32(tau)
+    return float(one - np.exp(x))
 
 
 def predictor(ev: State, grid: Grid, forcing: Forcing, dt: float, *,
-              with_rad: bool, with_diff: bool) -> State:
-    """Matsuno predictor substep (tendencies at ``ev``, advanced from it)."""
-    _validate(ev, None, grid, forcing, with_rad)
+              with_rad: bool, with_diff: bool, vmask=None) -> State:
+    """Matsuno predictor substep (tendencies at ``ev``, advanced from it).
+    ``vmask``: the v wall as a (ny,) row mask (``wall_mask``) instead of
+    the row index."""
+    _validate(ev, None, grid, forcing, with_rad, vmask=vmask)
     if ev.u.device.type == "cpu":
         return fused_substep_plain(ev, None, grid, forcing, dt,
-                                   with_rad=with_rad, with_diff=with_diff)
-    out = _launch(ev, None, grid, forcing, dt, with_rad, with_diff)
-    predictor.launches += 1
+                                   with_rad=with_rad, with_diff=with_diff,
+                                   vmask=vmask)
+    out = _launch(ev, None, grid, forcing, dt, with_rad, with_diff, None,
+                  vmask)
+    if vmask is None:
+        predictor.launches += 1
+    else:
+        predictor.masked_launches += 1
     return out
 
 
 def corrector(ev: State, base: State, grid: Grid, forcing: Forcing,
-              dt: float, *, with_rad: bool, with_diff: bool) -> State:
+              dt: float, *, with_rad: bool, with_diff: bool,
+              phys: tuple | None = None, vmask=None) -> State:
     """Matsuno corrector substep (tendencies at the predicted ``ev``,
-    advanced from the time-n ``base``)."""
-    _validate(ev, base, grid, forcing, with_rad)
+    advanced from the time-n ``base``). ``phys`` (``model.py::
+    phys_epilogue_tuple``) adds the physics epilogue; ``vmask`` as for the
+    predictor."""
+    _validate(ev, base, grid, forcing, with_rad, phys, vmask)
     if ev.u.device.type == "cpu":
         return fused_substep_plain(ev, base, grid, forcing, dt,
-                                   with_rad=with_rad, with_diff=with_diff)
-    out = _launch(ev, base, grid, forcing, dt, with_rad, with_diff)
-    corrector.launches += 1
+                                   with_rad=with_rad, with_diff=with_diff,
+                                   phys=phys, vmask=vmask)
+    out = _launch(ev, base, grid, forcing, dt, with_rad, with_diff, phys,
+                  vmask)
+    if phys is not None:
+        corrector.epilogue_launches += 1
+    elif vmask is None:
+        corrector.launches += 1
+    else:
+        corrector.masked_launches += 1
     return out
 
 
-predictor.launches = 0
-corrector.launches = 0
+def reset_launch_counts():
+    """Set every launch counter of the substep kernels to 0."""
+    predictor.launches = predictor.masked_launches = 0
+    corrector.launches = corrector.masked_launches = 0
+    corrector.epilogue_launches = 0
+
+
+reset_launch_counts()

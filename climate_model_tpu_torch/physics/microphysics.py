@@ -44,6 +44,9 @@ def saturation_adjustment(pott, qv, qc, pvtf, pair, dt, cfg: ModelConfig):
 
 def microphysics_step(state: State, grid: Grid, forcing, cfg: ModelConfig,
                       dt, press=None) -> State:
+    """Saturation adjustment, autoconversion, rain and the soil refill.
+    ``microphysics_step.calls`` counts the calls."""
+    microphysics_step.calls += 1
     pvb, pvtf, _ = press if press is not None \
         else ops.diagnose_pressure(state.colp, grid)
     pair = 0.5 * (pvb[:-1] + pvb[1:])
@@ -63,3 +66,6 @@ def microphysics_step(state: State, grid: Grid, forcing, cfg: ModelConfig,
     return state.replace(pott=pott, qv=torch.clamp(qv, min=0.0),
                          qc=torch.clamp(qc, min=0.0), rain=rain,
                          soil_moist=soil_moist)
+
+
+microphysics_step.calls = 0

@@ -39,6 +39,9 @@ def convective_k(state: State, pvb, pvtf, cfg: ModelConfig):
 
 def turbulence_step(state: State, grid: Grid, forcing: Forcing,
                     cfg: ModelConfig, dt, press=None) -> State:
+    """One explicit step of the vertical K-diffusion of pott, qv, qc, u and
+    v. ``turbulence_step.calls`` counts the calls."""
+    turbulence_step.calls += 1
     p = cfg.physics
     pvb, pvtf, pvtfvb = press if press is not None \
         else ops.diagnose_pressure(state.colp, grid)
@@ -86,3 +89,6 @@ def turbulence_step(state: State, grid: Grid, forcing: Forcing,
 
     return state.replace(u=u, v=v, pott=pott, qv=torch.clamp(qv, min=0.0),
                          qc=torch.clamp(qc, min=0.0))
+
+
+turbulence_step.calls = 0

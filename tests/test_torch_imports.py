@@ -3,10 +3,13 @@
 * Every module of ``climate_model_tpu_torch`` and ``chip_smoke`` imports in a
   process where ``jax`` cannot be imported, and loads no module of the JAX
   package.
-* The substep wrappers check device, dtype, shape and contiguity, and take
-  the plain version for CPU tensors.
+* The substep wrappers check device, dtype, shape and contiguity, the
+  physics-epilogue tuple and the wall mask, and take the plain version for
+  CPU tensors; with the single-device mask the plain version equals the
+  index rule bit for bit.
 * On a card (tests marked ``gpu``, which skip without one) the kernels agree
-  with the plain version at a small size.
+  with the plain version: the substep at a small size, the corrector with
+  the physics epilogue at config #3 with ``chip_smoke.py``'s bounds.
 """
 
 import os
@@ -19,7 +22,8 @@ import pytest
 import torch
 
 import climate_model_tpu_torch
-from climate_model_tpu_torch.core.config import GridConfig, ModelConfig
+from climate_model_tpu_torch.core.config import (GridConfig, ModelConfig,
+                                                 PhysicsConfig)
 from climate_model_tpu_torch.core.init import initialize
 from climate_model_tpu_torch.kernels import fused_substep as fs
 
@@ -101,6 +105,68 @@ def test_wrapper_refuses_bad_inputs(bad, err, match):
             fs.corrector(st, bad(st), gr, fo, gr.dt, **KW)
 
 
+def _phys():
+    from climate_model_tpu_torch.model import phys_epilogue_tuple
+    cfg = ModelConfig(physics=PhysicsConfig(surface=True, turbulence=True,
+                                            microphysics=True))
+    return phys_epilogue_tuple(cfg)
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    (lambda s, f, m, p: (s, f, m, p[:-1]), ValueError, "phys: expected"),
+    (lambda s, f, m, p: (s, f, m, list(p)), ValueError, "phys: expected"),
+    (lambda s, f, m, p: (s, f, torch.ones(len(m) + 1, dtype=m.dtype), p),
+     ValueError, "vmask: shape"),
+    (lambda s, f, m, p: (s, f, m.float(), p), TypeError, "vmask: dtype"),
+    (lambda s, f, m, p: (s, f, torch.empty(m.shape, dtype=m.dtype,
+                                           device="meta"), p),
+     ValueError, "vmask: on meta"),
+    (lambda s, f, m, p: (s.replace(tsurf=s.tsurf[:-1]), f, m, p), ValueError,
+     "base.tsurf: shape"),
+    (lambda s, f, m, p: (s.replace(lwflx_sfc=s.lwflx_sfc.float()), f, m, p),
+     TypeError, "base.lwflx_sfc: dtype"),
+    (lambda s, f, m, p: (s, f.__class__(**{**f.__dict__, "land_mask":
+                                            f.land_mask.float()}), m, p),
+     TypeError, "forcing.land_mask: dtype"),
+])
+def test_wrapper_refuses_bad_phys_and_mask(bad, err, match):
+    st, fo, gr = _small()
+    mask = fs.wall_mask(gr.ny, st.dtype, "cpu")
+    base, forcing, vmask, phys = bad(st, fo, mask, _phys())
+    with pytest.raises(err, match=match):
+        fs.corrector(st, base, gr, forcing, gr.dt, phys=phys, vmask=vmask,
+                     **KW)
+    if "vmask" in match:
+        with pytest.raises(err, match=match):
+            fs.predictor(st, gr, fo, gr.dt, vmask=vmask, **KW)
+
+
+def test_default_mask_equals_index_rule():
+    """With the single-device wall mask, the plain predictor and the plain
+    corrector with and without the epilogue equal the index rule bit for
+    bit; a mask with an interior row set to 0 zeroes v on it."""
+    st, fo, gr = _small()
+    mask = fs.wall_mask(gr.ny, st.dtype, "cpu")
+    assert mask.tolist() == [0.0] + [1.0] * (gr.ny - 1)
+    fields = ("u", "v", "pott", "qv", "qc", "colp", "tsurf", "rain",
+              "soil_moist")
+    pred = fs.predictor(st, gr, fo, gr.dt, **KW)
+    pred_m = fs.predictor(st, gr, fo, gr.dt, vmask=mask, **KW)
+    for phys in (None, _phys()):
+        corr = fs.corrector(pred, st, gr, fo, gr.dt, phys=phys, **KW)
+        corr_m = fs.corrector(pred_m, st, gr, fo, gr.dt, phys=phys,
+                              vmask=mask, **KW)
+        for a, b in ((pred, pred_m), (corr, corr_m)):
+            for f in fields:
+                assert torch.equal(getattr(a, f), getattr(b, f)), f
+    holed = mask.clone()
+    holed[4] = 0.0
+    out = fs.corrector(pred, st, gr, fo, gr.dt, phys=_phys(), vmask=holed,
+                       **KW)
+    assert float(out.v[:, 4].abs().max()) == 0.0
+    assert float(out.v[:, 5].abs().max()) > 0.0
+
+
 def test_wrapper_refuses_other_devices():
     st, fo, gr = _small()
     meta = st.replace(u=torch.empty(st.u.shape, dtype=st.dtype,
@@ -140,6 +206,27 @@ def test_kernels_match_plain_on_card(cuda_device):
             a, b = getattr(got, f), getattr(want, f)
             assert bool(torch.isfinite(a).all()), f
             assert float((a - b).abs().max()) <= bound, f
+
+
+@pytest.mark.gpu
+def test_epilogue_kernel_matches_plain_on_card(cuda_device):
+    """The corrector with the physics epilogue (and the masked predictor)
+    against their plain versions at config #3, from ``chip_smoke.py``'s
+    moist check state, within its bounds; the mask equals the index rule
+    bit for bit."""
+    import chip_smoke as cs
+    ci = cs.check_inputs(cuda_device)
+    kern, plain = cs.epilogue_pair(ci)
+    e0 = fs.corrector.epilogue_launches
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    assert fs.corrector.epilogue_launches - e0 == 1
+    per = cs.field_errors(got, want, cs.EPI_TOL)
+    assert not cs.over(per, cs.EPI_TOL), per
+    g, f, s = ci.grid, ci.forcing, ci.state
+    assert cs.bitwise_equal(fs.predictor(s, g, f, g.dt, **ci.kw),
+                            fs.predictor(s, g, f, g.dt, vmask=ci.vmask,
+                                         **ci.kw))
 
 
 @pytest.mark.gpu

@@ -1,14 +1,16 @@
-"""The slice as a whole: the port's per-step model path against the JAX
+"""The slice as a whole: the port's two model paths against the JAX
 reference's, and the port's ``run`` command (CPU, fp64).
 
 BASELINE config #3's physics and numerics (full physics, hourly radiation,
 scale-aware diffusion) on a 32x16x8 grid. The hour-based
 radiation cadence resolves to 7 steps at this grid's dt, so 12 steps cross a
-refresh. The reference runs its per-step path (``CLIMATE_TPU_PACKED_SCAN=0``:
-the Pallas substep kernel in interpret mode, twice a step, with jnp physics
-around it); the port runs its own per-step path, whose kernel wrappers take
-the plain version on the CPU. Tolerance rtol=1e-9, atol=1e-10, as in the
-reference's ``test_packed_full_model_matches_std``.
+refresh. The packed scan (``make_chunk_runner``: predictor, then the
+corrector with the physics epilogue) is held against the reference's default
+``CLIMATE_TPU_PACKED_SCAN=1`` path, the per-step path (``run_scan`` of
+``make_step_fn``) against its ``CLIMATE_TPU_PACKED_SCAN=0`` path; the
+reference runs its Pallas kernel in interpret mode, the port's kernel
+wrappers take the plain version on the CPU. Tolerance rtol=1e-9,
+atol=1e-10, as in the reference's ``test_packed_full_model_matches_std``.
 """
 
 import dataclasses
@@ -44,18 +46,13 @@ def config3_small():
         dtype="float64"))
 
 
-def test_chunk_runner_matches_reference(monkeypatch):
-    monkeypatch.setenv("CLIMATE_TPU_PACKED_SCAN", "0")
-    cfg = config3_small()
-    assert cfg.backend == "pallas" and cfg.physics.rad_every_steps == 7
-    n = 12
+def _reference_run(monkeypatch, packed: bool, cfg, n):
+    monkeypatch.setenv("CLIMATE_TPU_PACKED_SCAN", "1" if packed else "0")
     js, jf, jg = jinit.initialize(jax_cfg(cfg))
-    ref = jmodel.make_chunk_runner(jax_cfg(cfg), n)(js, jg, jf)
+    return jmodel.make_chunk_runner(jax_cfg(cfg), n)(js, jg, jf)
 
-    ts, tf, tg = tinit.initialize(cfg, device="cpu")
-    refreshes = trad.radiation_step.refreshes
-    out = tmodel.make_chunk_runner(cfg, n)(ts, tg, tf)
-    assert trad.radiation_step.refreshes - refreshes == 2     # steps 0, 7
+
+def _assert_matches_reference(out, ref, n):
     assert out.step == int(ref.step) == n
     np.testing.assert_allclose(float(out.t), float(ref.t), rtol=1e-14)
     for name in FIELDS:
@@ -63,15 +60,71 @@ def test_chunk_runner_matches_reference(monkeypatch):
                                    np.asarray(getattr(ref, name)),
                                    rtol=1e-9, atol=1e-10, err_msg=name)
     # on the CPU the kernel wrappers take the plain version and count nothing
-    assert fs.predictor.launches == 0 and fs.corrector.launches == 0
+    assert (fs.predictor.launches, fs.predictor.masked_launches,
+            fs.corrector.launches, fs.corrector.masked_launches,
+            fs.corrector.epilogue_launches) == (0, 0, 0, 0, 0)
+
+
+def test_chunk_runner_matches_reference(monkeypatch):
+    """The per-step path against the reference's per-step path."""
+    cfg = config3_small()
+    assert cfg.backend == "pallas" and cfg.physics.rad_every_steps == 7
+    n = 12
+    ref = _reference_run(monkeypatch, False, cfg, n)
+    ts, tf, tg = tinit.initialize(cfg, device="cpu")
+    refreshes = trad.radiation_step.refreshes
+    out = tstep.run_scan(tmodel.make_step_fn(cfg), ts, tg, tf, n)
+    assert trad.radiation_step.refreshes - refreshes == 2     # steps 0, 7
+    _assert_matches_reference(out, ref, n)
+
+
+def test_packed_scan_matches_reference(monkeypatch):
+    """``make_chunk_runner`` takes the packed scan for config #3 and
+    matches the reference's packed scan, the radiation caches included."""
+    cfg = config3_small()
+    assert tmodel.takes_packed_scan(cfg)
+    n = 12
+    ref = _reference_run(monkeypatch, True, cfg, n)
+    ts, tf, tg = tinit.initialize(cfg, device="cpu")
+    refreshes = trad.radiation_step.refreshes
+    out = tmodel.make_chunk_runner(cfg, n)(ts, tg, tf)
+    assert trad.radiation_step.refreshes - refreshes == 2     # steps 0, 7
+    _assert_matches_reference(out, ref, n)
+
+
+def test_packed_scan_equals_per_step_path():
+    """The packed scan (the corrector's physics epilogue) and the per-step
+    path (the physics splits after the dynamics) are one model."""
+    cfg = config3_small()
+    ts, tf, tg = tinit.initialize(cfg, device="cpu")
+    a = tmodel.make_chunk_runner(cfg, 9)(ts, tg, tf)
+    b = tstep.run_scan(tmodel.make_step_fn(cfg), ts, tg, tf, 9)
+    for name in FIELDS:
+        np.testing.assert_allclose(getattr(a, name).numpy(),
+                                   getattr(b, name).numpy(),
+                                   rtol=1e-12, atol=0, err_msg=name)
+
+
+def test_packed_scan_chunk_boundaries():
+    """Two 6-step chunks equal one 12-step chunk bit for bit (the reference's
+    ``test_packed_scan_chunk_boundaries``)."""
+    cfg = config3_small()
+    ts, tf, tg = tinit.initialize(cfg, device="cpu")
+    run6 = tmodel.make_chunk_runner(cfg, 6)
+    a = run6(run6(ts, tg, tf), tg, tf)
+    b = tmodel.make_chunk_runner(cfg, 12)(ts, tg, tf)
+    assert a.step == b.step == 12
+    for name in FIELDS + ("t",):
+        np.testing.assert_array_equal(getattr(a, name).numpy(),
+                                      getattr(b, name).numpy(), err_msg=name)
 
 
 def test_fused_path_equals_plain_path():
-    """The kernel path (substep wrappers) and the plain Matsuno step are the
-    same model on the CPU."""
+    """The per-step kernel path (substep wrappers) and the plain Matsuno
+    step are the same model on the CPU."""
     cfg = config3_small()
     ts, tf, tg = tinit.initialize(cfg, device="cpu")
-    a = tmodel.make_chunk_runner(cfg, 3)(ts, tg, tf)
+    a = tstep.run_scan(tmodel.make_step_fn(cfg), ts, tg, tf, 3)
     plain = tmodel.make_step_fn(cfg, dynamics=functools.partial(
         tstep.step_matsuno, cfg=cfg))
     b = tstep.run_scan(plain, ts, tg, tf, 3)
