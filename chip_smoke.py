@@ -24,8 +24,10 @@ and exits non-zero:
                term left out must break a bound in one call; without
                diffusion, from the state with grid-scale noise, the bound
                of each diffused field;
-4. timing   -- CUDA events over back-to-back launches of each variant and
-               its plain version, in turns, beside the bound of the card;
+4. timing   -- device time of each variant and its plain version, in
+               turns (CUDA events over launches queued behind a sleep
+               kernel, so that no host gap enters), with the host's time
+               per call beside it, against the bound of the card;
 5. main     -- the run command of config #3 (``run --baseline 3 --days 0.1
                --out-every-hours 1``: 253 steps in three chunks, adaptive
                dt, hourly radiation), which takes the packed scan, with
@@ -38,9 +40,25 @@ and exits non-zero:
                with its counters and sanity checks; the packed scan over
                the same steps, compared with it field by field; ms/step of
                both paths, in turns;
-7. breakdown -- each layer of a step timed alone.
+7. breakdown -- each layer of a step timed alone;
+8. sharded  -- BASELINE #4 (720x360x32) on its 2x4 mesh, 8 shards on the
+               card: ``run --baseline 4 --days 0.05 --halo-overlap`` with
+               every counter set to 0 just before and read just after (8
+               shard launches of each program a step, 4 south-strip and 4
+               north-strip), then the blocking schedule and the unsharded
+               grid (``--mesh-lat 1 --mesh-lon 1``); each pair compared per
+               field (SHARDED_TOL) and bit for bit. Then FAULT_STEPS steps
+               from a noisy #4 state: the sound sharded run and each planted
+               fault (the lon exchange left out, the lat exchange left out,
+               ghosts of 2) against the unsharded grid;
+9. backend  -- ``run --baseline 1`` (backend='jnp') on the card: the plain
+               path, no kernel launch, finite fields.
 
-The line before last is the total, the last line the JSON verdict. The port
+Phase 3 also holds the epilogue's momentum terms on a windy state
+(MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
+seam-strip variants on blocks of the noisy #4 state (CHECK_BLOCKS); phase 4
+times those variants at #4's 2x4 shapes. The line before last is the total,
+the last line the JSON verdict. The port
 imports no JAX, and neither does this script.
 """
 
@@ -57,9 +75,13 @@ import numpy as np
 import torch
 
 from climate_model_tpu_torch import cli
-from climate_model_tpu_torch.core.config import baseline_config
+from climate_model_tpu_torch.core.config import (baseline_config,
+                                                 resolve_rad_interval)
 from climate_model_tpu_torch.core.grid import adaptive_cfl_dt, round_to
 from climate_model_tpu_torch.core.init import initialize
+from climate_model_tpu_torch.dist import sharding
+from climate_model_tpu_torch.dist.mesh import Mesh, make_mesh
+from climate_model_tpu_torch.dist.packed_halo import SeamStrip, row_mask
 from climate_model_tpu_torch.dycore.operators import diagnose_pressure
 from climate_model_tpu_torch.dycore.stepper import run_scan, step_matsuno
 from climate_model_tpu_torch.kernels import fused_substep as fs
@@ -112,6 +134,67 @@ PATHS_TOL = {"u": 6e-3, "v": 6e-3, "pott": 2.5e-3, "qv": 3e-7, "qc": 1e-10,
              "colp": 0.3, "tsurf": 4e-4, "rain": 1e-10, "soil_moist": 1e-8}
 SEED = 5                         # the generator of the check states
 
+# The epilogue's momentum terms (surface drag and K-diffusion of u and v)
+# are read on a state with strong winds near the surface and vertical shear
+# (windy_state): without the surface, and without the turbulence, u and v
+# must each break their EPI_TOL bound in one call, and the sound kernel
+# must stay within every bound.
+MOMENTUM_FAULTS = ("surface", "turbulence")
+# A column taller than the epilogue keeps in local memory: config #3's
+# physics on a small grid with TALL_NZ levels, from the moist state. With
+# layers 3x thinner, the Exner factor's difference of two nearly equal
+# products (see EPI_TOL) loses 3x more to rounding: an H100 read pott
+# 3.05e-3 K, qv 1.42e-6, qc 1.07e-6, rain 5.20e-5, soil_moist 2.33e-8 (u
+# 7.8e-5, v 3.6e-5, tsurf 3.05e-5, colp 0). TALL_TOL is 3.3-4.7x these
+# and EPI_TOL's bounds elsewhere.
+TALL_NZ = 96
+TALL_GRID = (64, 32)             # nx, ny
+TALL_TOL = dict(EPI_TOL, pott=1e-2, qv=5e-6, qc=5e-6, rain=2e-4,
+                soil_moist=1e-7)
+
+# BASELINE #4 (720x360x32, full physics, adaptive dt) on its 2x4 mesh,
+# every shard on the one card: the halo-overlap schedule through the run
+# command (the main path of this slice; the preset itself, as the
+# reference's, leaves halo_overlap off), the blocking schedule, and the
+# same grid unsharded (the 1x1 override), all from the initial state over
+# 0.05 days (258 steps at 16.7 s, three chunks).
+SHARDED_ARGV = ["run", "--baseline", "4", "--days", "0.05",
+                "--out-every-hours", "0.4", "--halo-overlap"]
+BLOCKING_ARGV = SHARDED_ARGV[:-1]
+UNSHARDED_ARGV = BLOCKING_ARGV + ["--mesh-lat", "1", "--mesh-lon", "1"]
+SHARD_PARTS = ("shard", "south_strip", "north_strip")
+# The shard-local and seam-strip variants are checked on blocks cut from a
+# #4-sized moist state with grid-scale noise: (name, mesh, shard).
+CHECK_BLOCKS = (("interior", (4, 4), 5),      # ghosts on all four sides
+                ("polar-edge", (2, 4), 1),    # the south wall, no ghosts
+                ("lon-seam", (2, 4), 4))      # west ghosts across lon 0
+# Bounds on max|kernel - plain| over the block's interior (a strip: the
+# interior rows it keeps) for one call: the single-device bounds, which the
+# same arithmetic keeps to (an H100 read at most u 1.34e-4, v 3.33e-5,
+# pott 8.85e-4 with the epilogue, 6.1e-5 without, qv 3.48e-7, qc 3.41e-7,
+# rain 3.56e-6), but for the predictor's qc: the check state has cloud
+# water (the #3 check state has none there), and it read 1.164e-10, one
+# ulp; its bound is 4.3x that.
+SHARD_TOL = dict(FIELD_TOL, qc=5e-10)
+SHARD_EPI_TOL = EPI_TOL
+# Bounds on max|sharded run - unsharded run|, after the 258 steps of #4
+# from the initial state and after FAULT_STEPS steps from the noisy #4
+# check state (noisy4). An H100 read 0 in every field in both cases, both
+# schedules: bit for bit, as the shard kernels do the same fp32 operations
+# per point on the same values and radiation is column-local. Each bound
+# is 3-6 fp32 ulp of the field's largest values, so a run passes only if
+# it loses no more than the last bits of a few cells. Each planted fault
+# (from the noisy state, where a fault at a seam is not lost to rounding)
+# must break one, but for the lon exchange left out after the predictor
+# only: that read 0 too, and is printed, not gated (PERF.md, Findings).
+SHARDED_TOL = {"u": 2e-5, "v": 2e-5, "pott": 1e-4, "qv": 5e-9, "qc": 3e-10,
+               "colp": 0.03, "tsurf": 1e-4, "rain": 5e-8,
+               "soil_moist": 5e-8}
+FAULT_STEPS = 20
+# ... and BASELINE #1 (backend='jnp') on the card for 0.05 days: the plain
+# per-step path, no kernel launch.
+BACKEND_ARGV = ["run", "--baseline", "1", "--days", "0.05"]
+
 # Main-path sanity bounds (the repo's verification recipe for a short run):
 MAX_WIND = 100.0                 # m/s; beyond it the run is blowing up
 MEAN_COLP = (90_000.0, 91_000.0)  # Pa, area-weighted mean COLP
@@ -160,7 +243,10 @@ def ptxas_lines(log: str):
             for key, name in (("column_kernel", "column_kernel"),
                               ("point_kernelILb1", "point_kernel<same_base=1>"),
                               ("point_kernelILb0", "point_kernel<same_base=0>"),
-                              ("epilogue_kernel", "epilogue_kernel")):
+                              ("epilogue_kernelILb1",
+                               "epilogue_kernel<local columns>"),
+                              ("epilogue_kernelILb0",
+                               "epilogue_kernel<workspace columns>")):
                 if key in mangled:
                     break
             else:
@@ -185,6 +271,47 @@ def timed(fn, n=50, warmup=5) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n
+
+
+def device_ms(fn, n=50, warmup=5) -> tuple:
+    """(device ms, host ms) per call of ``fn``. The device time is that of
+    ``n`` calls' launches back to back on the stream: a sleep kernel holds
+    the stream while the host enqueues them, so the events between the
+    sleep and the last call see no host gap. The host time is that of ``n``
+    calls in a loop. A gap shows as the sleep's end reached before the host
+    is done: a host slower than the sleep, or more launches than the
+    device's queue holds (the plain versions launch hundreds of kernels a
+    call); then fewer calls are timed, down to one, and a gap there
+    refuses the time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - h0) / n
+    torch.cuda.synchronize()
+    c0, c1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    c0.record()
+    torch.cuda._sleep(1_000_000)
+    c1.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1_000_000 / c0.elapsed_time(c1)
+    while True:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(int((2.0 * host_ms * n + 5.0) * cycles_per_ms))
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        gap = e0.query()           # the sleep ended before the host was done
+        torch.cuda.synchronize()
+        if not gap:
+            return e0.elapsed_time(e1) / n, host_ms
+        if n == 1:
+            raise AssertionError("device time not separable from the "
+                                 "host's: the stream ran dry during one call")
+        n = max(1, n // 5)
 
 
 def field_errors(got, want, tol) -> dict:
@@ -263,6 +390,9 @@ def read_counts() -> dict:
             "corrector": fs.corrector.launches,
             "corrector_masked": fs.corrector.masked_launches,
             "corrector_epilogue": fs.corrector.epilogue_launches,
+            **{f"{fn.__name__}_{part}": getattr(fn, f"{part}_launches")
+               for fn in (fs.predictor, fs.corrector)
+               for part in SHARD_PARTS},
             "radiation_refreshes": radiation.radiation_step.refreshes,
             "surface_split": surface.surface_step.calls,
             "turbulence_split": turbulence.turbulence_step.calls,
@@ -519,17 +649,28 @@ def time_kernels(ci: CheckInputs, card: str) -> dict:
     }
     timing = {}
     for kname, (kern, plain, (e, b, phys, vmask)) in calls.items():
-        k1, p1, p2, k2 = timed(kern), timed(plain), timed(plain), timed(kern)
-        bound, by = substep_bound_ms(e, b, g, f, kern(), phys=phys,
-                                     vmask=vmask)
-        ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
-        timing[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by=by)
-        print(f"  {kname}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
-              f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), bound {bound:.4f} ms "
-              f"({by}; {100 * bound / ms:.1f}% of it); no PyTorch library "
-              f"call computes it (library_ms null) [{card}]", flush=True)
+        timing[kname] = kernel_timing(kname, kern, plain, substep_bound_ms(
+            e, b, g, f, kern(), phys=phys, vmask=vmask), card)
     return timing
+
+
+def kernel_timing(name, kern, plain, bound, card) -> dict:
+    """A kernel and its plain version timed in turns (kernel, plain, plain,
+    kernel): device ms per call (``device_ms``) and the host's enqueue ms
+    beside it, against ``bound`` = (bound ms, what bounds it)."""
+    (k1, kh1), (p1, ph1), (p2, ph2), (k2, kh2) = (
+        device_ms(kern), device_ms(plain), device_ms(plain), device_ms(kern))
+    (bound_ms, by), ms = bound, 0.5 * (k1 + k2)
+    tm = dict(ms=ms, plain_ms=0.5 * (p1 + p2), bound_ms=bound_ms,
+              bound_by=by, enqueue_ms=0.5 * (kh1 + kh2),
+              plain_enqueue_ms=0.5 * (ph1 + ph2))
+    print(f"  {name}: kernel {ms:.4f} ms on the device ({k1:.4f}, "
+          f"{k2:.4f}), {tm['enqueue_ms']:.4f} ms host enqueue; plain "
+          f"{tm['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}), "
+          f"{tm['plain_enqueue_ms']:.4f} ms enqueue; bound {bound_ms:.5f} ms "
+          f"({by}; {100 * bound_ms / ms:.1f}% of it); no PyTorch library "
+          f"call computes it (library_ms null) [{card}]", flush=True)
+    return tm
 
 
 def sanity(s, grid, s0):
@@ -720,6 +861,392 @@ def breakdown(cfg, state, grid, forcing, step_ms, card):
           f"{sums[1]:.3f} ms [{card}]", flush=True)
 
 
+def windy_state(state):
+    """``state`` with strong winds near the surface and vertical shear: u
+    raised by up to 40 m/s and v lowered by up to 30 m/s over the lowest
+    four levels (full at the bottom, v's wall row kept at 0). On the moist
+    check state the bottom winds are a few m/s, and neither the surface
+    drag nor the K-diffusion of u and v moves them by more than fp32
+    rounding in one call; here each moves them by far more."""
+    nz = state.u.shape[0]
+    k = torch.arange(nz, dtype=state.dtype, device=state.device)
+    ramp = ((k - (nz - 5)) / 4.0).clamp(0.0, 1.0)[:, None, None]
+    v = state.v - 30.0 * ramp
+    v[:, 0] = 0.0
+    return state.replace(u=state.u + 40.0 * ramp, v=v)
+
+
+def check_momentum(ci: CheckInputs, bad: list):
+    """The epilogue corrector on the windy state: sound within EPI_TOL,
+    and without the surface or the turbulence u and v each over it."""
+    g, f, dt = ci.grid, ci.forcing, ci.grid.dt
+    windy = windy_state(ci.moist)
+    pred = fs.fused_substep_plain(windy, None, g, f, dt, vmask=ci.vmask,
+                                  **ci.kw)
+
+    def call(kernel, phys):
+        fn = fs.corrector if kernel else fs.fused_substep_plain
+        return fn(pred, windy, g, f, dt, phys=phys, vmask=ci.vmask, **ci.kw)
+
+    want = call(False, ci.phys)
+    per = field_errors(call(True, ci.phys), want, EPI_TOL)
+    print("  windy state, corrector+epilogue max|kernel-plain|: "
+          + show(per, EPI_TOL), flush=True)
+    bad += [f"epilogue corrector on the windy state: {x} over its bound"
+            for x in over(per, EPI_TOL)]
+    for term in MOMENTUM_FAULTS:
+        per = field_errors(call(True, phys_with(ci.cfg, **{term: False})),
+                           want, EPI_TOL)
+        print(f"  planted fault epilogue without {term}, windy state: u "
+              f"{per['u']:.3e}, v {per['v']:.3e} (bounds "
+              f"{EPI_TOL['u']:.1e}, {EPI_TOL['v']:.1e})", flush=True)
+        bad += [f"epilogue without {term} keeps {x} within its bound on "
+                "the windy state" for x in ("u", "v")
+                if x not in over(per, EPI_TOL)]
+
+
+def check_tall(dev, bad: list):
+    """The epilogue corrector on a column of TALL_NZ levels (its workspace
+    form) against its plain version, on the moist state."""
+    b3 = baseline_config(3)
+    cfg = resolve_rad_interval(b3.replace(grid=dataclasses.replace(
+        b3.grid, nx=TALL_GRID[0], ny=TALL_GRID[1], nz=TALL_NZ)))
+    state, forcing, grid = initialize(cfg, device=dev)
+    moist = moist_state(state, grid, cfg)
+    num = cfg.numerics
+    kw = dict(with_rad=cfg.physics.radiation,
+              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+    vm = fs.wall_mask(grid.ny, torch.float32, dev)
+    pred = fs.fused_substep_plain(moist, None, grid, forcing, grid.dt,
+                                  vmask=vm, **kw)
+    args = (pred, moist, grid, forcing, grid.dt)
+    phys = phys_epilogue_tuple(cfg)
+    per = field_errors(fs.corrector(*args, phys=phys, vmask=vm, **kw),
+                       fs.fused_substep_plain(*args, phys=phys, vmask=vm,
+                                              **kw), TALL_TOL)
+    print(f"  {TALL_NZ} levels on {TALL_GRID[0]}x{TALL_GRID[1]}, "
+          "corrector+epilogue (workspace columns) max|kernel-plain|: "
+          + show(per, TALL_TOL), flush=True)
+    bad += [f"{TALL_NZ}-level epilogue: {x} over its bound"
+            for x in over(per, TALL_TOL)]
+
+
+@dataclasses.dataclass
+class Block:
+    """A shard's block cut from the #4 check state, with its statics."""
+
+    name: str
+    lay: object
+    state: object
+    grid: object
+    forcing: object
+    vmask: torch.Tensor
+    strips: list
+
+
+def noisy4(dev):
+    """Config #4 at full width, 10 plain steps from the initial state, its
+    moisture raised near saturation, grid-scale noise added, and colp
+    +-20 Pa. Returns (cfg, state, forcing, grid)."""
+    cfg = baseline_config(4)
+    state, forcing, grid = initialize(cfg, device=dev)
+    plain_step = make_step_fn(cfg, dynamics=functools.partial(step_matsuno,
+                                                              cfg=cfg))
+    for _ in range(10):
+        state = plain_step(state, grid, forcing)
+    state = rough_state(moist_state(state, grid, cfg))
+    r = np.random.default_rng(SEED + 2)
+    colp = state.colp + torch.as_tensor(r.normal(0.0, 20.0,
+                                                 state.colp.shape),
+                                        dtype=state.dtype, device=dev)
+    return cfg, state.replace(colp=colp), forcing, grid
+
+
+def shard_blocks(cfg, state, forcing, grid, dev):
+    """The blocks of CHECK_BLOCKS cut from ``state``. Returns (blocks, kw,
+    phys)."""
+    blocks = []
+    for name, (n_lat, n_lon), shard in CHECK_BLOCKS:
+        lay = sharding.layout(Mesh(n_lat, n_lon, dev), shard, grid.ny,
+                              grid.nx)
+        g = sharding.split_grid(grid, lay)
+        f = sharding.split_forcing(forcing, lay)
+        vm = row_mask(lay, torch.float32, dev)
+        strips = [SeamStrip(side, lay, g, f, vm, sharding.Halo())
+                  for side, has in (("south", lay.gs), ("north", lay.gn))
+                  if has]
+        blocks.append(Block(name, lay, sharding.split_state(state, lay), g,
+                            f, vm, strips))
+    num = cfg.numerics
+    kw = dict(with_rad=cfg.physics.radiation,
+              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+    return blocks, kw, phys_epilogue_tuple(cfg)
+
+
+def kept_rows(b: Block, st) -> slice:
+    """The rows of strip ``st`` that replace the main launch's and lie in
+    the block's interior, in strip coordinates."""
+    d0, _, n = st.keep
+    lo, hi = max(d0, b.lay.rows.start), min(d0 + n, b.lay.rows.stop)
+    return slice(lo - st.r0, hi - st.r0)
+
+
+def region_errors(got, want, rows, cols, tol) -> dict:
+    """field_errors over rows x cols of each field."""
+    per = {}
+    for f in tol:
+        a = getattr(got, f)[..., rows, cols]
+        b = getattr(want, f)[..., rows, cols]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"non-finite {f} from the kernel")
+        per[f] = float((a - b).abs().max())
+    return per
+
+
+def shard_calls(b: Block, kw, phys, dt):
+    """(variant, kernel call, plain call, rows, tol, (ev, base, phys,
+    vmask, grid, forcing)) of every shard-local and seam-strip program on
+    block ``b``."""
+    skw = dict(kw, vmask=b.vmask)
+    s, g, f = b.state, b.grid, b.forcing
+    pred = fs.fused_substep_plain(s, None, g, f, dt, **skw)
+    calls = [
+        ("predictor_shard",
+         lambda: fs.predictor(s, g, f, dt, part="shard", **skw),
+         lambda: fs.fused_substep_plain(s, None, g, f, dt, **skw),
+         b.lay.rows, SHARD_TOL, (s, None, None, b.vmask, g, f)),
+        ("corrector_shard",
+         lambda: fs.corrector(pred, s, g, f, dt, phys=phys, part="shard",
+                              **skw),
+         lambda: fs.fused_substep_plain(pred, s, g, f, dt, phys=phys, **skw),
+         b.lay.rows, SHARD_EPI_TOL, (pred, s, phys, b.vmask, g, f))]
+    for st in b.strips:
+        ss, ps = st.cut(s), st.cut(pred)
+        tkw = dict(skw, vmask=st.vmask)
+        sg, sf = st.grid, st.forcing
+        calls += [
+            (f"predictor_{st.part}",
+             functools.partial(fs.predictor, ss, sg, sf, dt, part=st.part,
+                               **tkw),
+             functools.partial(fs.fused_substep_plain, ss, None, sg, sf, dt,
+                               **tkw),
+             kept_rows(b, st), SHARD_TOL, (ss, None, None, st.vmask, sg, sf)),
+            (f"corrector_{st.part}",
+             functools.partial(fs.corrector, ps, ss, sg, sf, dt, phys=phys,
+                               part=st.part, **tkw),
+             functools.partial(fs.fused_substep_plain, ps, ss, sg, sf, dt,
+                               phys=phys, **tkw),
+             kept_rows(b, st), SHARD_EPI_TOL, (ps, ss, phys, st.vmask, sg, sf))]
+    return calls
+
+
+def check_shards(noisy, dev, bad: list):
+    """Each shard-local and seam-strip variant against its plain version on
+    the blocks of CHECK_BLOCKS cut from the ``noisy4`` state. Returns
+    (errors by variant, the blocks and what the timing needs)."""
+    blocks, kw, phys = shard_blocks(*noisy, dev)
+    dt = blocks[0].grid.dt
+    errs = {}
+    for b in blocks:
+        lay = b.lay
+        print(f"  {b.name} block: shard ({lay.lat_idx}, {lay.lon_idx}), "
+              f"{tuple(b.state.u.shape)} with ghosts s/n/cols "
+              f"{lay.gs}/{lay.gn}/{lay.gx}", flush=True)
+        for name, kern, plain, rows, tol, _ in shard_calls(b, kw, phys, dt):
+            per = region_errors(kern(), plain(), rows, lay.cols, tol)
+            errs[name] = {f: max(e, errs.get(name, {}).get(f, 0.0))
+                          for f, e in per.items()}
+            print(f"    {name} max|kernel-plain| (interior): "
+                  + show(per, tol), flush=True)
+            bad += [f"{name} on the {b.name} block: {x} over its bound"
+                    for x in over(per, tol)]
+    return errs, (blocks, kw, phys, dt)
+
+
+def time_shards(shard_inputs, card: str) -> dict:
+    """Each shard-local and seam-strip variant and its plain version, in
+    turns, at #4's 2x4 shapes (the lon-seam block and its south strip, the
+    polar-edge block's north strip), beside its bound."""
+    blocks, kw, phys, dt = shard_inputs
+    by_name = {b.name: b for b in blocks}
+    timing = {}
+    for bname, names in (("lon-seam", ("predictor_shard", "corrector_shard",
+                                       "predictor_south_strip",
+                                       "corrector_south_strip")),
+                         ("polar-edge", ("predictor_north_strip",
+                                         "corrector_north_strip"))):
+        b = by_name[bname]
+        for name, kern, plain, _, _, (ev, base, ph, vm, g, f) in shard_calls(
+                b, kw, phys, dt):
+            if name not in names:
+                continue
+            timing[name] = kernel_timing(
+                f"{name} at {tuple(ev.u.shape)}", kern, plain,
+                substep_bound_ms(ev, base, g, f, kern(), phys=ph, vmask=vm),
+                card)
+    return timing
+
+
+def run_argv(argv, dev):
+    """``cli.run`` of ``argv``, with every counter set to 0 just before and
+    read just after. Returns (cfg, result, counts, steady ms/step)."""
+    cfg = cli.build_config(cli.make_parser().parse_args(argv))
+    reset_counts()
+    res = cli.run(cfg, device=dev)
+    counts = read_counts()
+    if res.aborted:
+        raise AssertionError(f"{argv}: the run aborted on a non-finite state")
+    steady = 1e3 * sum(r["wall_s"] for r in res.records[1:]) \
+        / max(sum(res.chunks[1:]), 1)
+    return cfg, res, counts, steady
+
+
+def state_diffs(a, b) -> dict:
+    """max|a - b| of every state field; inf where a is not finite."""
+    return {f: (float((getattr(a, f) - getattr(b, f)).abs().max())
+                if bool(torch.isfinite(getattr(a, f)).all())
+                else float("inf")) for f in STATE_FIELDS}
+
+
+class _LeaveOut:
+    """An exchange with part of its work left out (a planted fault)."""
+
+    def __init__(self, inner, what: str):
+        self.inner, self.what, self.calls = inner, what, 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def refresh_cols(self, fields):
+        # the schedule refreshes the columns twice a step: the time-n
+        # fields, then the predicted ones
+        self.calls += 1
+        if self.what == "lon exchange" or (
+                self.what == "lon exchange after the predictor"
+                and self.calls % 2 == 0):
+            return
+        self.inner.refresh_cols(fields)
+
+    def start_lat(self, fields):
+        if self.what == "lat exchange":
+            return _NoWait()
+        return self.inner.start_lat(fields)
+
+
+class _NoWait:
+    def wait(self):
+        pass
+
+
+def sharded_steps(cfg, noisy, n, dev, halo=sharding.Halo(),
+                  leave_out=None):
+    """``n`` steps of the sharded runner of ``cfg`` from the ``noisy4``
+    state, optionally with a planted fault; the gathered final state."""
+    _, s0, f0, g0 = noisy
+    ss = sharding.shard(make_mesh(cfg, device=dev), s0, g0, f0, halo)
+    if leave_out:
+        ss = ss.replace(exchange=_LeaveOut(ss.exchange, leave_out))
+    return sharding.gather(make_chunk_runner(cfg, n)(ss, g0, f0))
+
+
+def sharded_path(noisy, dev, card: str):
+    """Phase 8: BASELINE #4 on its 2x4 mesh in one process through the run
+    command, with halo overlap (counted), then the blocking schedule and
+    the unsharded grid from the same initial state; each pair compared.
+    Then FAULT_STEPS steps from the ``noisy4`` state: the sound sharded run
+    and each planted fault against the unsharded grid."""
+    bad = []
+    runs = {}
+    for name, argv in (("overlap", SHARDED_ARGV), ("blocking", BLOCKING_ARGV),
+                       ("unsharded", UNSHARDED_ARGV)):
+        runs[name] = run_argv(argv, dev)
+        cfg, res, counts, steady = runs[name]
+        every = cfg.physics.rad_every_steps
+        refreshes = sum(1 for k in range(res.steps) if k % every == 0)
+        want = dict.fromkeys(counts, 0)
+        n = res.steps
+        if name == "unsharded":
+            want.update(predictor_masked=n, corrector_epilogue=n,
+                        radiation_refreshes=refreshes)
+        else:
+            shards = cfg.sharding.mesh_lat * cfg.sharding.mesh_lon
+            want.update(predictor_shard=shards * n,
+                        corrector_shard=shards * n,
+                        radiation_refreshes=shards * refreshes)
+            if name == "overlap":
+                seams = cfg.sharding.mesh_lon * (cfg.sharding.mesh_lat - 1)
+                for part in ("south_strip", "north_strip"):
+                    want[f"predictor_{part}"] = seams * n
+                    want[f"corrector_{part}"] = seams * n
+        print(f"  {name}: {res.path}; {n} steps {res.chunks}, "
+              f"{1e3 * res.wall_s / n:.3f} ms/step, after the first chunk "
+              f"{steady:.3f} ms/step; counts {counts} [{card}]", flush=True)
+        if counts != want:
+            bad.append(f"{name}: counts {counts}, expected {want}")
+    s0, _, g0 = initialize(runs["overlap"][0], device=dev)
+    sanity(runs["overlap"][1].state, runs["overlap"][1].grid, s0)
+    base = runs["unsharded"][1]
+    for name in ("overlap", "blocking"):
+        if runs[name][1].dts != base.dts:
+            bad.append(f"{name}: dts {runs[name][1].dts} != {base.dts}")
+    pairs = (("overlap", "unsharded"), ("blocking", "unsharded"),
+             ("overlap", "blocking"))
+    for a, b in pairs:
+        sa, sb = runs[a][1].state, runs[b][1].state
+        per = state_diffs(sa, sb)
+        same = bitwise_equal(sa, sb, STATE_FIELDS)
+        print(f"  {a} vs {b}: bitwise equal {same}; "
+              + show({f: per[f] for f in SHARDED_TOL}, SHARDED_TOL),
+              flush=True)
+        bad += [f"{a} vs {b}: {x} over its bound"
+                for x in over({f: per[f] for f in SHARDED_TOL}, SHARDED_TOL)]
+    cfg, cfg1 = runs["overlap"][0], runs["unsharded"][0]
+    _, s0, f0, g0 = noisy
+    want = make_chunk_runner(cfg1, FAULT_STEPS)(s0, g0, f0)
+    for fault, kw in (("none (sound)", {}),
+                      ("lon exchange left out", dict(leave_out="lon exchange")),
+                      ("lon exchange left out after the predictor only",
+                       dict(leave_out="lon exchange after the predictor")),
+                      ("strips on stale lat rows (lat exchange left out)",
+                       dict(leave_out="lat exchange")),
+                      ("ghosts one row and column narrower (2)",
+                       dict(halo=sharding.Halo(2, 2, 2)))):
+        got = sharded_steps(cfg, noisy, FAULT_STEPS, dev, **kw)
+        per = state_diffs(got, want)
+        per = {f: per[f] for f in SHARDED_TOL}
+        same = bitwise_equal(got, want, STATE_FIELDS)
+        print(f"  noisy #4 state, {FAULT_STEPS} steps, overlap run, planted "
+              f"fault: {fault}; vs unsharded, bitwise equal {same}: "
+              + show(per, SHARDED_TOL), flush=True)
+        if fault == "none (sound)":
+            bad += [f"sound sharded run from the noisy state: {x} over its "
+                    "bound" for x in over(per, SHARDED_TOL)]
+        elif "after the predictor only" in fault:
+            pass        # a reading, not a gate (PERF.md, Findings)
+        elif not over(per, SHARDED_TOL):
+            bad.append(f"the {fault} stays within every bound")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {name: r[2] for name, r in runs.items()}
+
+
+def backend_path(dev, card: str):
+    """Phase 9: BASELINE #1 (backend='jnp') on the card: the plain per-step
+    path, no kernel launch, finite fields."""
+    cfg, res, counts, _ = run_argv(BACKEND_ARGV, dev)
+    launched = {k: v for k, v in counts.items() if v}
+    if not res.path.startswith("per-step (plain") or launched:
+        raise AssertionError(f"baseline 1 took {res.path!r}, counts "
+                             f"{launched}")
+    for f in STATE_FIELDS:
+        if not bool(torch.isfinite(getattr(res.state, f)).all()):
+            raise AssertionError(f"non-finite {f} after baseline 1")
+    print(f"  {cfg.grid.nx}x{cfg.grid.ny}x{cfg.grid.nz} backend="
+          f"{cfg.backend}: {res.path}; {res.steps} steps, no kernel launch "
+          f"(every counter 0), finite fields, max|V| "
+          f"{res.records[-1]['max_wind']:.2f} m/s [{card}]", flush=True)
+
+
 VARIANTS = {
     # name: (counter, path that launches it, errors key)
     "predictor": ("predictor", "per-step", "predictor"),
@@ -758,13 +1285,23 @@ def main() -> int:
     t = time.perf_counter()
     ci = check_inputs(dev)
     errs = check_kernels(ci)
+    bad = []
+    check_momentum(ci, bad)
+    check_tall(dev, bad)
+    noisy = noisy4(dev)
+    shard_errs, shard_inputs = check_shards(noisy, dev, bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
     phase("check", t, "every variant agrees with its plain version at "
-          f"{tuple(ci.state.u.shape)} fp32; each planted fault breaks a "
+          f"{tuple(ci.state.u.shape)} fp32, on {TALL_NZ} levels, and on "
+          "#4's shard blocks and seam strips; each planted fault breaks a "
           "bound")
 
     # ---- 4. timing ----
     t = time.perf_counter()
     timing = time_kernels(ci, card)
+    shard_timing = time_shards(shard_inputs, card)
+    del shard_inputs
     phase("timing", t)
 
     # ---- 5. main path: the packed scan ----
@@ -783,18 +1320,24 @@ def main() -> int:
     breakdown(run_cfg, res.state, res.grid, res.forcing, steady_ms, card)
     phase("breakdown", t)
 
+    # ---- 8. BASELINE #4 on its mesh: the sharded packed scan ----
+    t = time.perf_counter()
+    sharded_counts = sharded_path(noisy, dev, card)
+    phase("sharded", t, "#4 on 2x4 in one process through cli.run, both "
+          "schedules against the unsharded grid; each planted fault breaks "
+          "a bound")
+
+    # ---- 9. backend='jnp' on the card ----
+    t = time.perf_counter()
+    backend_path(dev, card)
+    phase("backend", t, "baseline 1 ran the plain path")
+
     kernels = []
-    for kname, (counter, path, ekey) in VARIANTS.items():
-        tm, err = timing[kname], errs[ekey]
-        tol = EPI_TOL if kname == "corrector_epilogue" else FIELD_TOL
-        launches = (main_counts if path == "packed scan"
-                    else step_counts)[counter]
-        kernels.append({
+
+    def entry(kname, source, path, launches, err, tol, tm):
+        return {
             "name": f"fused_substep_{kname}", "route": "cuda",
-            # the epilogue variant also runs fused_substep.cu's launches
-            "source": "climate_model_tpu_torch/kernels/csrc/"
-                      + ("physics_epilogue.cu" if kname == "corrector_epilogue"
-                         else "fused_substep.cu"),
+            "source": f"climate_model_tpu_torch/kernels/csrc/{source}",
             "replaces": "climate_model_tpu/kernels/fused_substep.py:1047",
             "path": path, "launches": launches,
             # fields differ in units: the max is colp's (Pa); each field's
@@ -804,7 +1347,29 @@ def main() -> int:
             "max_err_over_tol": max(e / tol[f] for f, e in err.items()),
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            # ms and plain_ms are device time; the host's time to enqueue
+            # one call
+            "enqueue_ms": tm["enqueue_ms"],
+            "plain_enqueue_ms": tm["plain_enqueue_ms"]}
+
+    # a corrector with the physics epilogue also runs fused_substep.cu's
+    # launches; its source is the epilogue's
+    for kname, (counter, path, ekey) in VARIANTS.items():
+        epi = kname == "corrector_epilogue"
+        launches = (main_counts if path == "packed scan"
+                    else step_counts)[counter]
+        kernels.append(entry(
+            kname, "physics_epilogue.cu" if epi else "fused_substep.cu",
+            path, launches, errs[ekey], EPI_TOL if epi else FIELD_TOL,
+            timing[kname]))
+    overlap_counts = sharded_counts["overlap"]
+    for kname in shard_timing:
+        epi = kname.startswith("corrector")
+        kernels.append(entry(
+            kname, "physics_epilogue.cu" if epi else "fused_substep.cu",
+            "sharded packed scan", overlap_counts[kname], shard_errs[kname],
+            SHARD_EPI_TOL if epi else SHARD_TOL, shard_timing[kname]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(f"total {time.perf_counter() - T0:.1f}s", flush=True)

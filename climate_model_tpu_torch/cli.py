@@ -1,27 +1,36 @@
 """Command-line entry point.
 
-Port of the single-device ``run`` path of ``climate_model_tpu/cli.py``: build
-grid, state and forcing, step in chunks sized to the output cadence, fetch
-the diagnostics once per chunk, recompute dt per chunk with ``--adaptive-dt``
+Port of the ``run`` path of ``climate_model_tpu/cli.py``: build grid, state
+and forcing, step in chunks sized to the output cadence, fetch the
+diagnostics once per chunk, recompute dt per chunk with ``--adaptive-dt``
 and land exactly on the horizon. The chunks run ``model.py::
-make_chunk_runner``: the packed scan, whose corrector kernel carries the
-physics as its epilogue, for every config the kernels cover. Nothing is written to disk yet: output
-directories, restarts, NetCDF, TOML namelists, device meshes and the
+make_chunk_runner``: for ``backend='pallas'`` the packed scan, whose
+corrector kernel carries the physics as its epilogue, and on a device mesh
+its sharded form, whose blocks stay split across chunks and are gathered
+only for the diagnostics; for ``backend='jnp'`` the plain PyTorch per-step
+path, on any device. Nothing is written to disk yet: output directories,
+restarts, NetCDF, TOML namelists, a mesh with ``backend='jnp'`` and the
 ``bench``/``plot``/``profile`` subcommands raise "not ported yet".
 
 Usage:
   python -m climate_model_tpu_torch run --baseline 3 --days 0.1 --out-every-hours 1
+  python -m climate_model_tpu_torch run --baseline 4 --days 0.05 --halo-overlap
   python -m climate_model_tpu_torch run --nx 64 --ny 32 --nz 8 --physics all --device cpu
+  torchrun --nproc-per-node 4 -m climate_model_tpu_torch run --multihost \
+      --device cpu --nx 32 --ny 16 --nz 8 --physics all --dtype float64 \
+      --backend pallas --mesh-lat 2 --mesh-lon 2 --halo-overlap
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import List
 
 import torch
+import torch.distributed as tdist
 
 from .core.config import (GridConfig, ModelConfig, NumericsConfig,
                           PhysicsConfig, baseline_config, resolve_rad_interval)
@@ -65,7 +74,18 @@ def build_config(args) -> ModelConfig:
                                                       convection=True))
     if args.topo:
         cfg = cfg.replace(topo=args.topo)
-    return resolve_rad_interval(cfg)
+    if args.backend_override:
+        cfg = cfg.replace(backend=args.backend_override)
+    sh = cfg.sharding
+    if args.mesh_lat or args.mesh_lon:
+        # 1x1 overrides a preset's mesh: its grid on one device
+        sh = dataclasses.replace(sh, mesh_lat=args.mesh_lat or sh.mesh_lat,
+                                 mesh_lon=args.mesh_lon or sh.mesh_lon)
+    if args.sharding_mode:
+        sh = dataclasses.replace(sh, mode=args.sharding_mode)
+    if args.halo_overlap:
+        sh = dataclasses.replace(sh, halo_overlap=True)
+    return resolve_rad_interval(cfg.replace(sharding=sh))
 
 
 @dataclasses.dataclass
@@ -81,35 +101,74 @@ class RunResult:
     records: List[dict]           # the step-line record of each chunk
     wall_s: float                 # wall time of the chunk loop [s]
     min_dx: float                 # the CFL length adaptive dt uses [m]
+    path: str                     # what the chunks ran, as printed
     aborted: bool = False         # a non-finite state stopped the run
 
 
+def describe_path(cfg: ModelConfig, mesh=None) -> str:
+    """What ``make_chunk_runner(cfg, ...)`` runs, for the start line."""
+    from .model import takes_packed_scan
+
+    if not takes_packed_scan(cfg):
+        return "per-step (plain PyTorch dynamics, backend=jnp)"
+    if mesh is None:
+        return "packed scan (corrector with physics epilogue)"
+    sh = cfg.sharding
+    schedule = ("halo overlap" if sh.halo_overlap and sh.mesh_lat > 1
+                else "blocking")
+    return (f"sharded packed scan  mesh={sh.mesh_lat}x{sh.mesh_lon} "
+            f"({sh.mode}, {schedule}, {mesh.describe()})")
+
+
 def run(cfg: ModelConfig, device="cuda") -> RunResult:
-    """Run ``cfg`` for ``cfg.sim_days`` on one device (the single-device
-    branch of the reference's ``cmd_run``)."""
+    """Run ``cfg`` for ``cfg.sim_days``: on one device, or on the mesh of
+    ``cfg.sharding`` (``dist/mesh.py`` says where its shards run)."""
     from .core.grid import adaptive_cfl_dt, round_to
     from .core.init import initialize
     from .io.metrics import MetricsLogger, diagnostics
-    from .model import make_chunk_runner, takes_packed_scan
+    from .model import make_chunk_runner
 
-    if cfg.sharding.mesh_lat * cfg.sharding.mesh_lon > 1:
-        _not_ported("a device mesh (dist/)")
+    sh = cfg.sharding
+    mesh = None
+    if sh.mesh_lat * sh.mesh_lon > 1:
+        if cfg.backend != "pallas":
+            _not_ported("a device mesh with backend='jnp' (dist/halo.py, "
+                        "GSPMD 'auto'; pass --backend pallas)")
+        if sh.mode != "shard_map":
+            # the kernels compose with a mesh only through the explicit
+            # halo exchange (the reference's cli.py:162-171)
+            if not tdist.is_initialized() or tdist.get_rank() == 0:
+                print("note: pallas backend on a device mesh requires "
+                      "sharding mode 'shard_map'; switching mode auto -> "
+                      "shard_map", flush=True)
+            cfg = cfg.replace(sharding=dataclasses.replace(
+                sh, mode="shard_map"))
     state, forcing, grid = initialize(cfg, device=device)
+    if cfg.sharding.mesh_lat * cfg.sharding.mesh_lon > 1:
+        from .dist.mesh import make_mesh, validate_divisibility
+        from .dist.sharding import gather, shard
+        mesh = make_mesh(cfg, device=state.device)
+        validate_divisibility(cfg, mesh)
+    p0 = mesh is None or mesh.rank in (None, 0)
     dtype = state.dtype
     dt = grid.dt
     n_total = max(int(cfg.sim_days * 86400.0 / dt), 1)
     chunk = min(max(int(cfg.out_every_hours * 3600.0 / dt), 1), n_total)
     gc = cfg.grid
-    logger = MetricsLogger(grid_points=gc.nx * gc.ny * gc.nz)
+    logger = MetricsLogger(grid_points=gc.nx * gc.ny * gc.nz, quiet=not p0)
     min_dx = min(float(torch.min(grid.dx)), grid.dy)
 
     dev = state.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    path = ("packed scan (corrector with physics epilogue)"
-            if takes_packed_scan(cfg) else "per-step")
-    print(f"grid {gc.nx}x{gc.ny}x{gc.nz}  dt={dt:.1f}s  steps={n_total}  "
-          f"chunk={chunk}  device={dev} ({name})  path={path}", flush=True)
+    path = describe_path(cfg, mesh)
+    if p0:
+        print(f"grid {gc.nx}x{gc.ny}x{gc.nz}  dt={dt:.1f}s  steps={n_total}  "
+              f"chunk={chunk}  device={dev} ({name})  path={path}",
+              flush=True)
     t0 = time.time()
+    if mesh is not None:
+        # the blocks stay split across chunks
+        state = shard(mesh, state, grid, forcing)
     done = 0
     logger._t_last = t0
     adaptive = cfg.numerics.adaptive_dt
@@ -132,43 +191,67 @@ def run(cfg: ModelConfig, device="cuda") -> RunResult:
         chunks.append(n)
         dts.append(grid.dt)
         state = make_chunk_runner(cfg, n)(state, grid, forcing)
-        diag = diagnostics(state, grid, forcing, cfg)
+        # a sharded run's diagnostics are of the gathered global state, the
+        # same on every rank: so is the dt taken from their max wind
+        diag = diagnostics(state if mesh is None else gather(state), grid,
+                           forcing, cfg)
         t_now = diag.t
         done += n
         rec = logger.log_chunk(diag, extra={"dt": grid.dt} if adaptive
                                else None)
         records.append(rec)
         if rec["nan"]:
-            print("!! non-finite state detected; aborting", flush=True)
+            if p0:
+                print("!! non-finite state detected; aborting", flush=True)
             aborted = True
             break
         if adaptive:
-            dt_new = adaptive_cfl_dt(min_dx, cfg.numerics.cfl,
-                                     rec["max_wind"])
+            dt_new = adaptive_cfl_dt(min_dx, cfg.numerics.cfl, diag.max_wind)
             dt_new = max(dt_new, 0.05 * dt)   # floor against a wind spike
             grid = grid.replace(dt=round_to(dt_new, dtype))
+    if mesh is not None:
+        state = gather(state)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.time() - t0
     gps = gc.nx * gc.ny * gc.nz * done / wall
-    print(f"done: {done} steps in {wall:.1f}s  ({gps/1e6:.2f} M grid-points/s)",
-          flush=True)
+    if p0:
+        print(f"done: {done} steps in {wall:.1f}s  "
+              f"({gps/1e6:.2f} M grid-points/s)", flush=True)
     return RunResult(state=state, grid=grid, forcing=forcing, steps=done,
                      chunks=chunks, dts=dts, records=records, wall_s=wall,
-                     min_dx=min_dx, aborted=aborted)
+                     min_dx=min_dx, path=path, aborted=aborted)
+
+
+def init_multihost(device) -> torch.device:
+    """``torch.distributed`` from the launcher's environment (``torchrun``
+    sets MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE and LOCAL_RANK): NCCL
+    with one card per rank (``cuda:LOCAL_RANK``) on ``cuda``, gloo on
+    ``cpu``. Returns this rank's device."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    tdist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                             init_method="env://")
+    return dev
 
 
 def cmd_run(args) -> int:
     for flag, what in (("out_dir", "--out-dir (NetCDF output, restarts)"),
                        ("restart_from", "--restart-from (checkpoints)"),
                        ("restart_every_days", "--restart-every-days"),
-                       ("topo_file", "--topo-file (io/topo.py)"),
-                       ("mesh_lat", "--mesh-lat (dist/)"),
-                       ("mesh_lon", "--mesh-lon (dist/)")):
+                       ("topo_file", "--topo-file (io/topo.py)")):
         if getattr(args, flag):
             _not_ported(what)
-    result = run(build_config(args), device=args.device)
-    return 2 if result.aborted else 0
+    cfg = build_config(args)
+    if not args.multihost:
+        return 2 if run(cfg, device=args.device).aborted else 0
+    device = init_multihost(args.device)
+    try:
+        return 2 if run(cfg, device=device).aborted else 0
+    finally:
+        tdist.destroy_process_group()
 
 
 def _cmd_not_ported(args) -> int:
@@ -209,8 +292,25 @@ def make_parser() -> argparse.ArgumentParser:
     for flag in ("--out-dir", "--restart-from", "--restart-every-days",
                  "--topo-file"):
         pr.add_argument(flag, default=None, help="not ported yet")
-    pr.add_argument("--mesh-lat", type=int, default=0, help="not ported yet")
-    pr.add_argument("--mesh-lon", type=int, default=0, help="not ported yet")
+    pr.add_argument("--backend", dest="backend_override", default=None,
+                    choices=["jnp", "pallas"],
+                    help="'pallas': the CUDA kernels (packed scan); 'jnp': "
+                         "plain PyTorch operators on any device")
+    pr.add_argument("--mesh-lat", type=int, default=0,
+                    help="device-mesh latitude extent (domain "
+                         "decomposition); 1x1 runs a preset's grid unsharded")
+    pr.add_argument("--mesh-lon", type=int, default=0,
+                    help="device-mesh longitude extent")
+    pr.add_argument("--sharding-mode", default=None,
+                    choices=["auto", "shard_map"],
+                    help="'auto' switches to 'shard_map' with the kernels")
+    pr.add_argument("--halo-overlap", action="store_true",
+                    help="overlap the lat halo exchange with the main "
+                         "kernels (seam strips)")
+    pr.add_argument("--multihost", action="store_true",
+                    help="one shard per rank: initialise torch.distributed "
+                         "from the launcher's environment (NCCL on cuda, "
+                         "gloo on cpu)")
     pr.set_defaults(fn=cmd_run)
 
     for name in ("bench", "plot", "profile"):

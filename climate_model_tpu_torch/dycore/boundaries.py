@@ -4,8 +4,9 @@ Port of the single-device half of ``climate_model_tpu/dycore/boundaries.py``.
 There is no allocated halo: operators are written against these global-array
 neighbor shifts. Axis -1 is longitude (periodic), axis -2 latitude (rigid
 walls). Shifts are named by the SOURCE of the data:
-``west(a)[..., i] = a[..., i-1]``. The shard-aware mode of the reference
-(``_ShardCtx``/``shard_mode``) comes with the distributed slice.
+``west(a)[..., i] = a[..., i-1]``. The reference's per-operator shard mode
+(``_ShardCtx``/``shard_mode``, the ``backend='jnp'`` mesh path) is not
+ported yet.
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
 """Time integration: Matsuno predictor-corrector and the chunk loop.
 
 Port of the Matsuno half of ``climate_model_tpu/dycore/stepper.py``. The
-reference's ``lax.scan`` loop is a Python loop (``run_scan``). The dynamics
-step is the fused substep kernel, launched twice a step (predictor, then
-corrector) on the plain State layout (``kernels/fused_substep.py``); on CPU
-tensors the kernel wrappers take the plain ``substep``. ``step_matsuno`` is
-the plain step: the reference the tests and ``chip_smoke.py`` hold the
-kernel path against, and the CPU path for the per-term tendency switches.
-Euler and RK4 come in a later slice.
+reference's ``lax.scan`` loop is a Python loop (``run_scan``). With
+``backend='pallas'`` the dynamics step is the fused substep kernel, launched
+twice a step (predictor, then corrector) on the plain State layout
+(``kernels/fused_substep.py``); on CPU tensors the kernel wrappers take the
+plain ``substep``. ``step_matsuno`` is
+the plain step: what ``backend='jnp'`` runs on any device (the per-term
+tendency switches included), and the reference the tests and
+``chip_smoke.py`` hold the kernel path against. Euler and RK4 come in a
+later slice.
 """
 
 from __future__ import annotations
@@ -52,24 +54,36 @@ def _fused_matsuno_step_fn(cfg: ModelConfig):
     return step
 
 
-def dynamics_step_fn(cfg: ModelConfig):
-    """The dynamics stepper for ``cfg``: ``step(state, grid, forcing)``.
-    It launches the substep kernels; only a config that turns a tendency
-    off (a debug switch the kernel does not carry) takes the plain
-    ``step_matsuno``, and that on the CPU only."""
+def check_pallas(cfg: ModelConfig) -> None:
+    """The reference's two refusals of ``backend='pallas'``
+    (``climate_model_tpu/dycore/stepper.py:145-154``): the kernels carry
+    Matsuno only, and every tendency."""
     num = cfg.numerics
     if num.time_stepping != "matsuno":
-        raise ValueError(f"time_stepping {num.time_stepping!r} is not ported "
-                         "yet; choose from ['matsuno']")
-    if (num.wind_tendency and num.colp_tendency and num.temperature_tendency
-            and num.moisture_tendency):
+        raise ValueError("backend='pallas' supports matsuno only")
+    if not (num.wind_tendency and num.colp_tendency
+            and num.temperature_tendency and num.moisture_tendency):
+        raise ValueError("backend='pallas' requires all tendencies on "
+                         "(per-term switches are a jnp-backend debug "
+                         "feature)")
+
+
+def dynamics_step_fn(cfg: ModelConfig):
+    """The dynamics stepper for ``cfg``: ``step(state, grid, forcing)``.
+    As in the reference, ``cfg.backend`` decides: ``'pallas'`` launches the
+    substep kernels (on CPU tensors their plain version) and refuses what
+    they do not carry (``check_pallas``); any other backend (``'jnp'``)
+    takes the plain ``step_matsuno`` on whatever device the state is on.
+    Euler and RK4 are not ported yet."""
+    if cfg.backend == "pallas":
+        check_pallas(cfg)
         return _fused_matsuno_step_fn(cfg)
+    ts = cfg.numerics.time_stepping
+    if ts != "matsuno":
+        raise ValueError(f"time_stepping {ts!r} is not ported yet; choose "
+                         "from ['matsuno']")
 
     def step(state: State, grid: Grid, forcing: Forcing) -> State:
-        if state.u.device.type != "cpu":
-            raise ValueError("the per-tendency switches are a CPU debug "
-                             "feature: the substep kernel computes every "
-                             "tendency")
         return step_matsuno(state, grid, forcing, cfg)
 
     return step

@@ -3,6 +3,9 @@
 Port of ``climate_model_tpu/io/metrics.py``: the diagnostics are computed on
 the device once per chunk and fetched in one transfer; ``MetricsLogger``
 prints the step line (the JSONL file of the reference is not ported yet).
+A sharded run computes them on its gathered global state, on every rank:
+global sums, and the maximum wind over every shard, from which each rank takes
+the same adaptive dt. Only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -90,9 +93,11 @@ def diagnostics(state: State, grid: Grid, forcing=None,
 
 @dataclasses.dataclass
 class MetricsLogger:
-    """Host-side step line, one per chunk."""
+    """Host-side step line, one per chunk (silent with ``quiet``: the ranks
+    other than 0 of a sharded run)."""
 
     grid_points: int = 0
+    quiet: bool = False
     _t_last: float = dataclasses.field(default_factory=time.time)
     _step_last: int = 0
 
@@ -112,11 +117,12 @@ class MetricsLogger:
         )
         if extra:
             rec.update(extra)
-        print(f"step {step:7d}  day {rec['t_days']:8.3f}  "
-              f"max|V| {rec['max_wind']:7.2f} m/s  "
-              f"COLP {rec['mean_colp']:9.1f} Pa  "
-              f"POTT {rec['mean_pott']:7.2f} K  "
-              f"{gps/1e6:8.2f} Mgp/s", flush=True)
+        if not self.quiet:
+            print(f"step {step:7d}  day {rec['t_days']:8.3f}  "
+                  f"max|V| {rec['max_wind']:7.2f} m/s  "
+                  f"COLP {rec['mean_colp']:9.1f} Pa  "
+                  f"POTT {rec['mean_pott']:7.2f} K  "
+                  f"{gps/1e6:8.2f} Mgp/s", flush=True)
         self._t_last = now
         self._step_last = step
         return rec

@@ -22,9 +22,39 @@
 // wrap); latitude has rigid walls: south/north "clamp" neighbours replicate
 // the edge row, "zero" neighbours read 0 beyond it, and v's south-wall row is
 // held at 0 (climate_model_tpu_torch/dycore/boundaries.py). Per-latitude
-// geometry is one (ny, 11) table in GEO_FIELDS order (kernels/fused_substep.py).
-// None of the TPU kernel's Mosaic machinery (lane padding, ghost columns and
-// rows, K2 head slots, VMEM tile budget, manual DMA) is carried over.
+// geometry is one (ny, 11) table in GEO_FIELDS order
+// (kernels/fused_substep.py). None of the TPU kernel's Mosaic machinery (lane
+// padding, K2 head slots, VMEM tile budget, manual DMA) is carried over.
+//
+// Shards (climate_model_tpu_torch/dist/packed_halo.py, the port of
+// climate_model_tpu/dist/packed_halo.py). The shard-local variant is these
+// launches on a shard's block, unchanged: the lon index still wraps, so
+// the outermost columns of a block narrower than the circle read the far
+// side's ghost columns. That is wrong data, as the TPU kernel's clamp
+// (make_fused_substep_packed(..., wrap_lon=False),
+// climate_model_tpu/kernels/fused_substep.py:392-398) is, and the chain
+// radius below keeps it in the ghost columns, whose outputs belong to the
+// neighbouring shard and are overwritten by the next exchange. The v wall
+// comes from the block's rows of the global mask. Latitude needs no
+// argument: a block's ghost rows are ordinary rows, and the wall rules of
+// rows 0 and ny-1 run where the block ends, which is the pole on a
+// polar-edge shard and a ghost row elsewhere. The seam strips of the
+// halo-overlap schedule are the same launches again, on a strip-shaped
+// block (3 freshly exchanged ghost rows and 6 rows of the shard).
+//
+// Why 3 ghost rows and columns suffice. Launch 2 at (j, i) reads launch 1's
+// outputs at (j, i), (j, i-1) and (j-1, i), and the inputs at most two
+// columns west (colp of the face flux uflx(j, i-1)), two rows south (colp of
+// vflx(j-1, i)), one column east and one row north; launch 1 reads one
+// column and one row around. The physics epilogue (physics_epilogue.cu)
+// reads the post-dynamics fields one column and one row around. So the
+// corrector's final field at (j, i) depends on its inputs within 3 columns
+// west, 3 rows south, 2 columns east and 2 rows north, and the wrong edge
+// rules of a block (the wrapped edge columns, the wall rows) reach no
+// further in. With 3 ghost rows and columns on every side that has a
+// neighbour (dist/sharding.py: HALO, HALO_N, GX, the reference's radii)
+// every interior output is exact; with 2 the west and south edge of the
+// interior is not (chip_smoke.py plants that fault).
 //
 // Two launches per substep, because the horizontal stencils of the update
 // read column-integrated intermediates at NEIGHBOUR columns:

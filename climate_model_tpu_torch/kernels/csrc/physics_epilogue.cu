@@ -29,11 +29,13 @@
 // version this kernel is held to.
 //
 // Layout and edges: the plain State layout, (nz, ny, nx) and (ny, nx) fp32.
-// Longitude wraps; the cell-centre v reads 0 north of the last row; the
-// face averages clamp at the south wall (dycore/boundaries.py); v is
-// multiplied by vmask when one is given and zeroed on row 0 otherwise,
-// after the drag and after the diffusion, where the TPU kernel calls
-// apply_wall.
+// Longitude wraps (on a shard's block too: fused_substep.cu's header says
+// why the block's 3 ghost rows and columns keep the wrong edge columns out
+// of the interior, for this launch as well); the cell-centre v reads 0 north
+// of the last row; the face averages clamp at the south wall
+// (dycore/boundaries.py); v is multiplied by vmask when one is given and
+// zeroed on row 0 otherwise, after the drag and after the diffusion, where
+// the TPU kernel calls apply_wall.
 //
 // Why one thread per column, and why it recomputes its neighbours: the
 // drag at the west (south) face needs the stress of column (j, i-1)
@@ -42,8 +44,11 @@
 // surface fluxes and the profile of its west and south columns from the
 // post-dynamics fields, which no thread of this launch writes: no thread
 // reads what another writes, and no ordering between blocks is needed.
-// The per-column arrays are held in local memory (kMaxNz levels); the
-// wrapper refuses taller columns.
+// A thread keeps 15 column arrays (five fields, the convective K, a
+// neighbour's pott, and its own and a face's height profile): in local
+// memory for columns of up to kMaxNz levels; for taller columns in its
+// slice of a device workspace that the wrapper allocates (kColArrays * nz
+// floats per column, epilogue_kernel<false>), so every nz >= 2 runs.
 //
 // What bounds it on the card: bytes. With launches 1-2 the corrector must
 // read the 16 3-D fields of the corrector and about ten 2-D fields and write
@@ -62,7 +67,8 @@ namespace {
 
 using namespace cm;
 
-constexpr int kMaxNz = 64;
+constexpr int kMaxNz = 64;      // tallest column held in local memory
+constexpr int kColArrays = 15;  // column arrays per thread
 
 struct Epi {
   // post-dynamics fields (launch 2's output) and COLP_new (launch 1's)
@@ -72,6 +78,7 @@ struct Epi {
   const float *land, *evap_eff, *hsurf, *vmask, *sigma_vb, *dsigma;
   float *u_out, *v_out, *pott_out, *qv_out, *qc_out;
   float *tsurf_out, *rain_out, *soil_out;
+  float* work;  // kColArrays * nz floats per column, or null (nz <= kMaxNz)
   int nz, ny, nx;
   float dt, ptop, frac;
   int w_srf, w_trb, w_mic, w_soil, w_conv;
@@ -151,8 +158,22 @@ __device__ float bottom_heating(const Epi& e, const Surf& s) {
 // hydrostatic suffix sum from the surface up (operators.py::
 // diagnose_geopotential), so the walk runs bottom to top.
 struct Profile {
-  float dzc[kMaxNz], rc[kMaxNz], dzvb[kMaxNz], rvb[kMaxNz];
+  float *dzc, *rc, *dzvb, *rvb;
 };
+
+// The profile whose four arrays start at p, stride apart.
+__device__ Profile profile_at(float* p, int stride) {
+  return Profile{p, p + stride, p + 2 * stride, p + 3 * stride};
+}
+
+__device__ void copy_profile(int nz, const Profile& src, Profile& dst) {
+  for (int k = 0; k < nz; ++k) {
+    dst.dzc[k] = src.dzc[k];
+    dst.rc[k] = src.rc[k];
+    dst.dzvb[k] = src.dzvb[k];
+    dst.rvb[k] = src.rvb[k];
+  }
+}
 
 __device__ void column_profile(const Epi& e, float cn, float hs,
                                const float* pt, Profile& pr) {
@@ -216,6 +237,7 @@ __device__ void load_pott(const Epi& e, int j, int i, float dpott_b,
   pt[e.nz - 1] = pt[e.nz - 1] + dpott_b;
 }
 
+template <bool kLocal>
 __global__ void epilogue_kernel(Epi e) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y;
@@ -225,7 +247,16 @@ __global__ void epilogue_kernel(Epi e) {
   const int js = j > 0 ? j - 1 : 0;
   const int id2 = e.at2(j, i);
 
-  float pt[kMaxNz], qv[kMaxNz], qc[kMaxNz], u[kMaxNz], v[kMaxNz];
+  // the thread's column arrays: local memory, or its workspace slice
+  float in_local[kLocal ? kColArrays * kMaxNz : 1];
+  const int stride = kLocal ? kMaxNz : nz;
+  float* buf = kLocal ? in_local
+                      : e.work + (size_t)id2 * kColArrays * (size_t)nz;
+  float* pt = buf;
+  float* qv = buf + stride;
+  float* qc = buf + 2 * stride;
+  float* u = buf + 3 * stride;
+  float* v = buf + 4 * stride;
   for (int k = 0; k < nz; ++k) {
     const int id = e.at(k, j, i);
     pt[k] = e.pott[id];
@@ -282,11 +313,12 @@ __global__ void epilogue_kernel(Epi e) {
 
   // ---- turbulence ----
   if (e.w_trb) {
-    Profile own, nb;
+    Profile own = profile_at(buf + 7 * stride, stride);
+    Profile nb = profile_at(buf + 11 * stride, stride);
     column_profile(e, cn, e.hsurf[id2], pt, own);
     // moist-convective K at the interior borders (turbulence.py::
     // convective_k), from the post-surface column
-    float kk[kMaxNz];
+    float* kk = buf + 5 * stride;
     if (e.w_conv) {
       float rh_up = 0.f, th_up = 0.f;
       for (int k = 0; k < nz; ++k) {
@@ -313,14 +345,14 @@ __global__ void epilogue_kernel(Epi e) {
       qc[k] = relu(qc[k]);
     }
     // u with the profile averaged over the west column and this one
-    float col[kMaxNz];
+    float* col = buf + 6 * stride;
     load_pott(e, j, iw, dpott_w, col);
     column_profile(e, e.colp[e.at2(j, iw)], e.hsurf[e.at2(j, iw)], col, nb);
     face_profile(nz, own, nb);
     diffuse(e, u, nullptr, e.k_mom, nb);
     // v with the south column (clamped at the wall)
     if (js == j) {
-      nb = own;
+      copy_profile(nz, own, nb);
     } else {
       load_pott(e, js, i, dpott_s, col);
       column_profile(e, e.colp[e.at2(js, i)], e.hsurf[e.at2(js, i)], col,
@@ -377,7 +409,9 @@ __global__ void epilogue_kernel(Epi e) {
 
 // Plain C interface, loaded with ctypes (kernels/fused_substep.py), called
 // after cm_fused_substep_f32 on the same stream. vmask may be null (the
-// index rule). Returns cudaGetLastError() after the launch; 0 is success.
+// index rule). work: kColArrays * nz floats per column when nz > kMaxNz,
+// else ignored (may be null). Returns cudaGetLastError() after the launch;
+// 0 is success.
 extern "C" int cm_physics_epilogue_f32(
     const float* u, const float* v, const float* pott, const float* qv,
     const float* qc, const float* colp,
@@ -387,20 +421,25 @@ extern "C" int cm_physics_epilogue_f32(
     const float* vmask, const float* sigma_vb, const float* dsigma,
     float* u_out, float* v_out, float* pott_out, float* qv_out,
     float* qc_out, float* tsurf_out, float* rain_out, float* soil_out,
-    int nz, int ny, int nx, float dt, float ptop, float frac,
+    float* work, int nz, int ny, int nx, float dt, float ptop,
+    float frac,
     int w_srf, int w_trb, int w_mic, int w_soil, int w_conv,
     float drag, float soil_cap, float ocean_cap, float qc_thr,
     float k_scalar, float k_mom, float sm_cap, float conv_k, float conv_rh,
     void* stream) {
-  if (nz < 2 || nz > kMaxNz) return (int)cudaErrorInvalidValue;
+  if (nz < 2 || (nz > kMaxNz && !work)) return (int)cudaErrorInvalidValue;
   Epi e{u, v, pott, qv, qc, colp, tsurf, rain, soil, swflx, lwflx,
         land, evap_eff, hsurf, vmask, sigma_vb, dsigma,
         u_out, v_out, pott_out, qv_out, qc_out, tsurf_out, rain_out, soil_out,
-        nz, ny, nx, dt, ptop, frac, w_srf, w_trb, w_mic, w_soil, w_conv,
-        drag, soil_cap, ocean_cap, qc_thr, k_scalar, k_mom, sm_cap, conv_k,
-        conv_rh};
+        nz > kMaxNz ? work : nullptr, nz, ny, nx, dt, ptop, frac,
+        w_srf, w_trb, w_mic, w_soil, w_conv, drag, soil_cap, ocean_cap,
+        qc_thr, k_scalar, k_mom, sm_cap, conv_k, conv_rh};
   const int threads = 128;
   const dim3 cols((nx + threads - 1) / threads, ny);
-  epilogue_kernel<<<cols, threads, 0, static_cast<cudaStream_t>(stream)>>>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nz <= kMaxNz)
+    epilogue_kernel<true><<<cols, threads, 0, s>>>(e);
+  else
+    epilogue_kernel<false><<<cols, threads, 0, s>>>(e);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,12 @@ make_fused_substep_packed`` that the Matsuno paths launch: the predictor
 (``same_base=True``) and the corrector (``same_base=False``), with the
 radiative source and horizontal diffusion switched by launch arguments; the
 v wall either by row index or from a ``(ny,)`` mask (``wall_mask=True``);
-and the packed scan's corrector, which also runs the physics epilogue
-(surface, turbulence and microphysics, ``phys=``). The kernel sources are
+the packed scan's corrector, which also runs the physics epilogue
+(surface, turbulence and microphysics, ``phys=``); and, on the sharded
+packed path (``dist/packed_halo.py``), the same launches on a shard's block
+and on the seam strips of the halo-overlap schedule (the header of
+``csrc/fused_substep.cu`` says why the lon wrap, wrong at a block's edge,
+stays in its ghost columns). The kernel sources are
 ``csrc/fused_substep.cu`` (the substep, two launches) and
 ``csrc/physics_epilogue.cu`` (the epilogue, a third launch); their headers
 say how each is split into launches and what bounds it on the card.
@@ -15,9 +19,12 @@ say how each is split into launches and what bounds it on the card.
 * ``predictor`` / ``corrector`` are the wrappers. On a CUDA tensor they
   launch the kernels (fp32 only) or raise; on a CPU tensor they call the
   plain version. Each counts its launches per variant in plain integer
-  attributes: ``predictor.launches`` / ``.masked_launches`` (index rule /
-  mask), ``corrector.launches`` / ``.masked_launches`` (without the
-  epilogue) and ``corrector.epilogue_launches``.
+  attributes. On a whole grid (``part="grid"``): ``predictor.launches`` /
+  ``.masked_launches`` (index rule / mask), ``corrector.launches`` /
+  ``.masked_launches`` (without the epilogue) and
+  ``corrector.epilogue_launches``. On a shard's block and on the south and
+  north seam strips: ``.shard_launches``, ``.south_strip_launches`` and
+  ``.north_strip_launches`` of each wrapper.
 * ``fused_substep_plain`` is the plain version: the stepper's ``substep``,
   then, with ``phys``, the port's own surface, turbulence and microphysics
   splits on the pressure of the new colp. The CPU tests use it, and
@@ -65,12 +72,16 @@ PHYS_FIELDS = ("surface", "turbulence", "microphysics", "drag_coef",
                "diff_coef_scalar", "diff_coef_momentum", "soil_moisture",
                "soil_moist_cap", "convection", "conv_diffusivity",
                "conv_rh_crit")
-MAX_NZ_EPILOGUE = 64     # kMaxNz of csrc/physics_epilogue.cu
+# Columns taller than kMaxNz of csrc/physics_epilogue.cu keep their
+# kColArrays column arrays in a workspace the wrapper allocates.
+EPILOGUE_LOCAL_NZ = 64
+EPILOGUE_COL_ARRAYS = 15
+PARTS = ("grid", "shard", "south_strip", "north_strip")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "cm_fused_substep_f32": [_P] * 27 + [_I] * 3 + [_F] * 3 + [_I] * 3 + [_P],
-    "cm_physics_epilogue_f32": [_P] * 25 + [_I] * 3 + [_F] * 3 + [_I] * 5
+    "cm_physics_epilogue_f32": [_P] * 26 + [_I] * 3 + [_F] * 3 + [_I] * 5
                                + [_F] * 9 + [_P],
 }
 
@@ -279,9 +290,6 @@ def _validate(ev: State, base: State | None, grid: Grid, forcing: Forcing,
         if not isinstance(phys, tuple) or len(phys) != len(PHYS_FIELDS):
             raise ValueError(f"phys: expected a tuple of {len(PHYS_FIELDS)} "
                              f"parameters {PHYS_FIELDS}, got {phys!r}")
-        if dev.type == "cuda" and nz > MAX_NZ_EPILOGUE:
-            raise ValueError(f"phys: the epilogue kernel takes at most "
-                             f"{MAX_NZ_EPILOGUE} levels, got {nz}")
         for f in _FIELDS2:
             _check(f"base.{f}", getattr(base, f), s2, dev, dtype)
         for f in ("land_mask", "evap_eff"):
@@ -329,6 +337,8 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
         if phys is None:
             return b.replace(colp=colp, **out)
         new2 = {f: empty((ny, nx)) for f in _FIELDS2_OUT}
+        work = (empty((ny * nx * EPILOGUE_COL_ARRAYS * nz,))
+                if nz > EPILOGUE_LOCAL_NZ else None)
         p = dict(zip(PHYS_FIELDS, phys))
         err = lib.cm_physics_epilogue_f32(
             *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
@@ -337,7 +347,7 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
             forcing.hsurf.data_ptr(), _ptr(vmask), grid.sigma_vb.data_ptr(),
             grid.dsigma.data_ptr(),
             *(out[f].data_ptr() for f in _FIELDS3),
-            *(new2[f].data_ptr() for f in _FIELDS2_OUT),
+            *(new2[f].data_ptr() for f in _FIELDS2_OUT), _ptr(work),
             nz, ny, nx, float(dt), float(grid.ptop),
             _autoconv_frac(dt, p["qc_autoconv_time"]) if p["microphysics"]
             else 0.0,
@@ -356,11 +366,30 @@ def _autoconv_frac(dt: float, tau: float) -> float:
     return float(one - np.exp(x))
 
 
+def _check_part(part: str):
+    if part not in PARTS:
+        raise ValueError(f"part {part!r}: expected one of {PARTS}")
+
+
+def _count(fn, part: str, masked: bool, epilogue: bool = False):
+    if part != "grid":
+        name = f"{part}_launches"
+    elif epilogue:
+        name = "epilogue_launches"
+    else:
+        name = "masked_launches" if masked else "launches"
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
 def predictor(ev: State, grid: Grid, forcing: Forcing, dt: float, *,
-              with_rad: bool, with_diff: bool, vmask=None) -> State:
+              with_rad: bool, with_diff: bool, vmask=None,
+              part: str = "grid") -> State:
     """Matsuno predictor substep (tendencies at ``ev``, advanced from it).
     ``vmask``: the v wall as a (ny,) row mask (``wall_mask``) instead of
-    the row index."""
+    the row index. ``part`` names what the block is, for the launch
+    counters: ``"grid"``, ``"shard"``, ``"south_strip"`` or
+    ``"north_strip"``."""
+    _check_part(part)
     _validate(ev, None, grid, forcing, with_rad, vmask=vmask)
     if ev.u.device.type == "cpu":
         return fused_substep_plain(ev, None, grid, forcing, dt,
@@ -368,20 +397,19 @@ def predictor(ev: State, grid: Grid, forcing: Forcing, dt: float, *,
                                    vmask=vmask)
     out = _launch(ev, None, grid, forcing, dt, with_rad, with_diff, None,
                   vmask)
-    if vmask is None:
-        predictor.launches += 1
-    else:
-        predictor.masked_launches += 1
+    _count(predictor, part, vmask is not None)
     return out
 
 
 def corrector(ev: State, base: State, grid: Grid, forcing: Forcing,
               dt: float, *, with_rad: bool, with_diff: bool,
-              phys: tuple | None = None, vmask=None) -> State:
+              phys: tuple | None = None, vmask=None,
+              part: str = "grid") -> State:
     """Matsuno corrector substep (tendencies at the predicted ``ev``,
     advanced from the time-n ``base``). ``phys`` (``model.py::
-    phys_epilogue_tuple``) adds the physics epilogue; ``vmask`` as for the
-    predictor."""
+    phys_epilogue_tuple``) adds the physics epilogue; ``vmask`` and
+    ``part`` as for the predictor."""
+    _check_part(part)
     _validate(ev, base, grid, forcing, with_rad, phys, vmask)
     if ev.u.device.type == "cpu":
         return fused_substep_plain(ev, base, grid, forcing, dt,
@@ -389,19 +417,16 @@ def corrector(ev: State, base: State, grid: Grid, forcing: Forcing,
                                    phys=phys, vmask=vmask)
     out = _launch(ev, base, grid, forcing, dt, with_rad, with_diff, phys,
                   vmask)
-    if phys is not None:
-        corrector.epilogue_launches += 1
-    elif vmask is None:
-        corrector.launches += 1
-    else:
-        corrector.masked_launches += 1
+    _count(corrector, part, vmask is not None, epilogue=phys is not None)
     return out
 
 
 def reset_launch_counts():
     """Set every launch counter of the substep kernels to 0."""
-    predictor.launches = predictor.masked_launches = 0
-    corrector.launches = corrector.masked_launches = 0
+    for fn in (predictor, corrector):
+        for name in ("launches", "masked_launches", "shard_launches",
+                     "south_strip_launches", "north_strip_launches"):
+            setattr(fn, name, 0)
     corrector.epilogue_launches = 0
 
 

@@ -3,8 +3,9 @@
 Port of ``climate_model_tpu/model.py``. Two paths, as in the reference:
 
 * The **packed scan** (``make_packed_step_fn``), which ``make_chunk_runner``
-  takes for every config the kernels cover (Matsuno, every tendency on), as
-  the reference's default does (``CLIMATE_TPU_PACKED_SCAN=1``). A step is
+  takes for every ``backend='pallas'`` config, as the reference's default
+  does (``CLIMATE_TPU_PACKED_SCAN=1``); on a device mesh its sharded form,
+  ``dist/packed_halo.py::make_packed_sharded_runner``. A step is
   radiation on its interval, the predictor kernel, then one corrector that
   also runs surface, turbulence and microphysics as its epilogue, with the
   v wall passed as a row mask. The reference runs it on its packed
@@ -16,11 +17,13 @@ Port of ``climate_model_tpu/model.py``. Two paths, as in the reference:
   counterpart is the port's ``radiation_step``, which gates on the same
   ``step % rad_every_steps`` and writes the same three caches.
 * The **per-step path** (``make_step_fn`` + ``run_scan``, the reference's
-  ``CLIMATE_TPU_PACKED_SCAN=0``): radiation, the dynamics step (the substep
-  kernels, predictor then corrector), then the surface, turbulence and
-  microphysics splits in plain PyTorch. It serves the per-tendency debug
-  switches (CPU only), reference runs with the plain ``step_matsuno``, and
-  ``chip_smoke.py``, which drives it beside the packed scan.
+  ``CLIMATE_TPU_PACKED_SCAN=0``): radiation, the dynamics step, then the
+  surface, turbulence and microphysics splits in plain PyTorch. The
+  dynamics step follows ``cfg.backend`` (``dycore/stepper.py::
+  dynamics_step_fn``): the substep kernels for ``'pallas'``, the plain
+  ``step_matsuno`` for ``'jnp'``, which is what ``make_chunk_runner`` runs
+  for a ``'jnp'`` config on any device. ``chip_smoke.py`` also drives it
+  with the kernels beside the packed scan.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from .core.config import ModelConfig, check_rad_resolved
 from .core.grid import Grid
 from .core.state import Forcing, State
 from .dycore.operators import diagnose_pressure
-from .dycore.stepper import dynamics_step_fn, run_scan
+from .dycore.stepper import check_pallas, dynamics_step_fn, run_scan
 from .kernels.fused_substep import corrector, predictor, wall_mask
 from .physics.microphysics import microphysics_step
 from .physics.radiation import radiation_step
@@ -114,19 +117,34 @@ def make_packed_step_fn(cfg: ModelConfig):
 
 
 def takes_packed_scan(cfg: ModelConfig) -> bool:
-    """Whether ``make_chunk_runner`` takes the packed scan: the kernels
-    cover Matsuno with every tendency on; the per-tendency switches are a
-    debug feature of the per-step path."""
-    num = cfg.numerics
-    return (num.time_stepping == "matsuno" and num.wind_tendency
-            and num.colp_tendency and num.temperature_tendency
-            and num.moisture_tendency)
+    """Whether ``make_chunk_runner`` takes the packed scan (sharded on a
+    mesh): for ``backend='pallas'``, as in the reference
+    (``climate_model_tpu/model.py:151``). Such a config must also pass
+    ``check_pallas``."""
+    return cfg.backend == "pallas"
 
 
 def make_chunk_runner(cfg: ModelConfig, n_steps: int):
-    """``run(state, grid, forcing) -> state`` advancing ``n_steps``: the
-    packed scan where ``takes_packed_scan(cfg)``, else the per-step path."""
+    """``run(state, grid, forcing) -> state`` advancing ``n_steps``.
+
+    * ``backend='pallas'`` on one device: the packed scan; it raises the
+      reference's errors for what the kernels do not carry.
+    * ``backend='pallas'`` on a mesh (``mesh_lat * mesh_lon > 1``): the
+      sharded packed scan (``dist/packed_halo.py``), whatever the sharding
+      mode, as the reference's CLI takes it (``cli.py:181-192``). Its
+      ``run`` takes and returns a ``dist.sharding.ShardedState``, or a
+      global ``State`` that it splits and gathers around the run.
+    * any other backend (``'jnp'``): the per-step path with the plain
+      dynamics, on whatever device the state is on. On a mesh that is the
+      reference's per-operator halo path or GSPMD ``auto``, not ported
+      yet."""
+    sh = cfg.sharding
+    sharded = sh.mesh_lat * sh.mesh_lon > 1
     if not takes_packed_scan(cfg):
+        if sharded:
+            raise NotImplementedError(
+                "a device mesh with backend='jnp' (dist/halo.py, GSPMD "
+                "'auto') is not ported yet; use backend='pallas'")
         step = make_step_fn(cfg)
 
         def run(state: State, grid: Grid, forcing: Forcing) -> State:
@@ -134,6 +152,10 @@ def make_chunk_runner(cfg: ModelConfig, n_steps: int):
 
         return run
 
+    check_pallas(cfg)
+    if sharded:
+        from .dist.packed_halo import make_packed_sharded_runner
+        return make_packed_sharded_runner(cfg, n_steps)
     pstep = make_packed_step_fn(cfg)
 
     def run(state: State, grid: Grid, forcing: Forcing) -> State:

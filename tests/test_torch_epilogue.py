@@ -137,3 +137,13 @@ def test_epilogue_matches_pallas_interpret(shape, flags):
                                                base.tsurf.numpy()))
     assert p["microphysics"] == (not np.array_equal(want["rain"],
                                                     base.rain.numpy()))
+
+
+@pytest.mark.parametrize("flags", ["all", "convection_on"])
+def test_epilogue_tall_column_matches_pallas_interpret(flags):
+    """80 levels, more than the epilogue kernel keeps in local memory
+    (``EPILOGUE_LOCAL_NZ``; taller columns use the wrapper's workspace on
+    the card): the plain version against the reference kernel."""
+    nz = 80
+    assert nz > fs.EPILOGUE_LOCAL_NZ
+    test_epilogue_matches_pallas_interpret((16, 10, nz, 4), flags)

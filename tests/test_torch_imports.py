@@ -1,15 +1,17 @@
 """The port stands alone, and its kernel wrapper routes and refuses inputs.
 
-* Every module of ``climate_model_tpu_torch`` and ``chip_smoke`` imports in a
-  process where ``jax`` cannot be imported, and loads no module of the JAX
-  package.
+* Every module of ``climate_model_tpu_torch`` (``dist/`` included) and
+  ``chip_smoke`` imports in a process where ``jax`` cannot be imported, and
+  loads no module of the JAX package.
 * The substep wrappers check device, dtype, shape and contiguity, the
   physics-epilogue tuple and the wall mask, and take the plain version for
   CPU tensors; with the single-device mask the plain version equals the
   index rule bit for bit.
 * On a card (tests marked ``gpu``, which skip without one) the kernels agree
   with the plain version: the substep at a small size, the corrector with
-  the physics epilogue at config #3 with ``chip_smoke.py``'s bounds.
+  the physics epilogue at config #3 and on a 96-level column, and the
+  shard-local and seam-strip variants on blocks of a #4 state, with
+  ``chip_smoke.py``'s bounds.
 """
 
 import os
@@ -40,7 +42,9 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     mods = _port_modules()
-    assert "climate_model_tpu_torch.kernels.fused_substep" in mods
+    for name in ("kernels.fused_substep", "dist.mesh", "dist.sharding",
+                 "dist.comm", "dist.packed_halo"):
+        assert f"climate_model_tpu_torch.{name}" in mods, name
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -234,3 +238,35 @@ def test_kernel_refuses_float64_on_card(cuda_device):
     st, fo, gr = _small(dtype="float64", device=cuda_device)
     with pytest.raises(TypeError, match="dtype"):
         fs.predictor(st, gr, fo, gr.dt, **KW)
+
+
+@pytest.mark.gpu
+def test_tall_epilogue_matches_plain_on_card(cuda_device):
+    """The corrector with the physics epilogue on 96-level columns (the
+    kernel's workspace form) within ``chip_smoke.py``'s bounds."""
+    import chip_smoke as cs
+    bad = []
+    cs.check_tall(cuda_device, bad)
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+def test_shard_kernels_match_plain_on_card(cuda_device):
+    """The shard-local and seam-strip variants against their plain versions
+    on ``chip_smoke.py``'s check blocks of a noisy #4 state (interior,
+    polar-edge and lon-seam shards), over the interior they keep, within
+    its bounds (pinned for that state); each call counts once."""
+    import chip_smoke as cs
+
+    fs.reset_launch_counts()
+    bad = []
+    _, (blocks, _, _, _) = cs.check_shards(cs.noisy4(cuda_device),
+                                           cuda_device, bad)
+    torch.cuda.synchronize()
+    assert not bad, bad
+    for fn in (fs.predictor, fs.corrector):
+        assert fn.shard_launches == len(blocks)
+        for part in ("south_strip", "north_strip"):
+            want = sum(st.part == part for b in blocks for st in b.strips)
+            assert getattr(fn, f"{part}_launches") == want, part
+        assert fn.launches == fn.masked_launches == 0

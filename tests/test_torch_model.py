@@ -135,19 +135,28 @@ def test_fused_path_equals_plain_path():
 
 
 def test_tendency_switches_stay_on_cpu():
-    """A config that turns a tendency off takes the plain step, on the CPU
-    only: the kernel has no such switch, and no device falls back to plain."""
+    """The reference's backend rule: a config that turns a tendency off
+    raises with ``backend='pallas'`` (the kernels carry every tendency), on
+    any device and on both paths; with ``backend='jnp'`` it runs the plain
+    step, as it would on the card, and matches the reference's jnp run."""
     cfg = config3_small()
     off = cfg.replace(numerics=dataclasses.replace(cfg.numerics,
                                                    wind_tendency=False))
-    ts, tf, tg = tinit.initialize(off, device="cpu")
-    out = tmodel.make_chunk_runner(off, 1)(ts, tg, tf)
-    assert torch.isfinite(out.pott).all() and out.step == 1
-    step = tstep.dynamics_step_fn(off)
-    meta = ts.replace(u=torch.empty(ts.u.shape, dtype=ts.dtype,
-                                    device="meta"))
-    with pytest.raises(ValueError, match="CPU debug feature"):
-        step(meta, tg, tf)
+    for build in (tstep.dynamics_step_fn, tmodel.make_step_fn,
+                  lambda c: tmodel.make_chunk_runner(c, 1)):
+        with pytest.raises(ValueError, match="requires all tendencies on"):
+            build(off)
+    plain = off.replace(backend="jnp")
+    assert not tmodel.takes_packed_scan(plain)
+    ts, tf, tg = tinit.initialize(plain, device="cpu")
+    out = tmodel.make_chunk_runner(plain, 2)(ts, tg, tf)
+    assert torch.isfinite(out.pott).all() and out.step == 2
+    js, jf, jg = jinit.initialize(jax_cfg(plain))
+    ref = jmodel.make_chunk_runner(jax_cfg(plain), 2)(js, jg, jf)
+    for name in FIELDS:
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=1e-9, atol=1e-10, err_msg=name)
 
 
 ARGV = ["run", "--nx", "32", "--ny", "16", "--nz", "8", "--physics", "all",
@@ -189,7 +198,7 @@ def test_cli_run_adaptive_two_chunks(capsys):
 @pytest.mark.parametrize("argv,what", [
     (["run", "--out-dir", "out"], "--out-dir"),
     (["run", "--restart-from", "restart.npz"], "--restart-from"),
-    (["run", "--mesh-lat", "2"], "--mesh-lat"),
+    (["run", "--mesh-lat", "2"], "backend='jnp'"),
     (["run", "--config", "configs/x.toml"], "--config"),
     (["bench"], "bench"),
 ])
