@@ -27,7 +27,9 @@ and exits non-zero:
 4. timing   -- device time of each variant and its plain version, in
                turns (CUDA events over launches queued behind a sleep
                kernel, so that no host gap enters), with the host's time
-               per call beside it, against the bound of the card;
+               per call beside it, against the bound of the card; the
+               device time of each launch of a call apart (the substep,
+               the epilogue), from torch.profiler;
 5. main     -- the run command of config #3 (``run --baseline 3 --days 0.1
                --out-every-hours 1``: 253 steps in three chunks, adaptive
                dt, hourly radiation), which takes the packed scan, with
@@ -40,7 +42,8 @@ and exits non-zero:
                with its counters and sanity checks; the packed scan over
                the same steps, compared with it field by field; ms/step of
                both paths, in turns;
-7. breakdown -- each layer of a step timed alone;
+7. breakdown -- each layer of a step timed alone; the host's enqueue time
+               of a packed-scan step against its device time;
 8. sharded  -- BASELINE #4 (720x360x32) on its 2x4 mesh, 8 shards on the
                card: ``run --baseline 4 --days 0.05 --halo-overlap`` with
                every counter set to 0 just before and read just after (8
@@ -67,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -140,7 +144,7 @@ SEED = 5                         # the generator of the check states
 # must each break their EPI_TOL bound in one call, and the sound kernel
 # must stay within every bound.
 MOMENTUM_FAULTS = ("surface", "turbulence")
-# A column taller than the epilogue keeps in local memory: config #3's
+# A column taller than one warp's lanes (three levels a lane): config #3's
 # physics on a small grid with TALL_NZ levels, from the moist state. With
 # layers 3x thinner, the Exner factor's difference of two nearly equal
 # products (see EPI_TOL) loses 3x more to rounding: an H100 read pott
@@ -204,14 +208,13 @@ MASS_DRIFT = 1e-6                # relative drift of sum(colp*area)
 # Card peaks for the bound (H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-# Floating-point operations per grid point, counted from the sources and
-# rounded up. Substep (csrc/fused_substep.cu): column scans incl. one powf
-# per level ~35, three scalar advections ~135, two momentum equations ~140,
-# on-the-fly face fluxes ~40. Epilogue (csrc/physics_epilogue.cu, counting
-# powf and expf as 20): three column profiles ~180, the five diffusions ~50,
-# two face profiles ~16, microphysics ~80, the surface of three columns
-# spread over the levels ~10, convective K (when on) ~70 -> 350 with it
-# off.
+# Floating-point operations per grid point, rounded up (an upper count:
+# the bound is the bytes' at every shape run here). Substep: column scans
+# incl. one powf per level ~35, three scalar advections ~135, two momentum
+# equations ~140, face fluxes ~40. Epilogue (counting powf and expf as 20):
+# up to three column profiles ~180, the five diffusions ~50, two face
+# profiles ~16, microphysics ~80, the surface of three columns spread over
+# the levels ~10, convective K (when on) ~70 -> 350 with it off.
 FLOPS_PER_POINT = 350
 EPILOGUE_FLOPS_PER_POINT = 350
 
@@ -234,24 +237,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """A readable name of a kernel of csrc/ from its mangled one: the name
+    and its template arguments (the substep's same_base, the epilogue's
+    levels a lane)."""
+    m = re.search(r"\d([a-z_]+_kernel)(.*)", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2).split("Ev", 1)[0])
+    return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
+
+
 def ptxas_lines(log: str):
     """(kernel, lines) for each kernel in nvcc's -Xptxas -v output."""
     kernels, cur = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            mangled = line.split("'")[1]
-            for key, name in (("column_kernel", "column_kernel"),
-                              ("point_kernelILb1", "point_kernel<same_base=1>"),
-                              ("point_kernelILb0", "point_kernel<same_base=0>"),
-                              ("epilogue_kernelILb1",
-                               "epilogue_kernel<local columns>"),
-                              ("epilogue_kernelILb0",
-                               "epilogue_kernel<workspace columns>")):
-                if key in mangled:
-                    break
-            else:
-                name = mangled
-            cur = (name, [])
+            cur = (kernel_name(line.split("'")[1]), [])
             kernels.append(cur)
         elif cur and ("registers" in line or "spill" in line
                       or "smem" in line or "stack frame" in line):
@@ -312,6 +314,37 @@ def device_ms(fn, n=50, warmup=5) -> tuple:
             raise AssertionError("device time not separable from the "
                                  "host's: the stream ran dry during one call")
         n = max(1, n // 5)
+
+
+# The kernels' launches by the name the profiler gives them, and the short
+# name of each in the ``launch_ms`` split.
+LAUNCH_NAMES = (("substep_kernel", "substep"),
+                ("epilogue_kernel", "epilogue"))
+
+
+def launch_ms(fn, n=20, warmup=3):
+    """Device ms per call of each kernel launch of ``fn``, by launch
+    (``LAUNCH_NAMES``): the CUDA activity that ``torch.profiler`` records
+    over ``n`` calls, summed per kernel and divided by ``n``. None when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = next((getattr(ev, a) for a in ("self_device_time_total",
+                                            "self_cuda_time_total")
+                   if getattr(ev, a, None)), 0.0)
+        for key, short in LAUNCH_NAMES:
+            if key in ev.key and us:
+                split[short] = split.get(short, 0.0) + us / 1e3 / n
+    return split or None
 
 
 def field_errors(got, want, tol) -> dict:
@@ -661,11 +694,16 @@ def kernel_timing(name, kern, plain, bound, card) -> dict:
     (k1, kh1), (p1, ph1), (p2, ph2), (k2, kh2) = (
         device_ms(kern), device_ms(plain), device_ms(plain), device_ms(kern))
     (bound_ms, by), ms = bound, 0.5 * (k1 + k2)
+    split = launch_ms(kern)
     tm = dict(ms=ms, plain_ms=0.5 * (p1 + p2), bound_ms=bound_ms,
               bound_by=by, enqueue_ms=0.5 * (kh1 + kh2),
-              plain_enqueue_ms=0.5 * (ph1 + ph2))
+              plain_enqueue_ms=0.5 * (ph1 + ph2), launch_ms=split)
+    per_launch = ("not measured (the profiler saw no device time)"
+                  if split is None else ", ".join(
+                      f"{k} {v:.4f}" for k, v in split.items()))
     print(f"  {name}: kernel {ms:.4f} ms on the device ({k1:.4f}, "
-          f"{k2:.4f}), {tm['enqueue_ms']:.4f} ms host enqueue; plain "
+          f"{k2:.4f}; per launch, profiled: {per_launch}), "
+          f"{tm['enqueue_ms']:.4f} ms host enqueue; plain "
           f"{tm['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}), "
           f"{tm['plain_enqueue_ms']:.4f} ms enqueue; bound {bound_ms:.5f} ms "
           f"({by}; {100 * bound_ms / ms:.1f}% of it); no PyTorch library "
@@ -843,7 +881,7 @@ def breakdown(cfg, state, grid, forcing, step_ms, card):
          lambda: diagnostics(state, grid, forcing, cfg), 1.0 / 105,
          1.0 / 105),
     ]
-    sums = [0.0, 0.0]
+    sums, host_sums = [0.0, 0.0], [0.0, 0.0]
     for name, fn, packed_share, step_share in layers:
         dev_ms = timed(fn, n=20, warmup=3)
         torch.cuda.synchronize()
@@ -854,11 +892,17 @@ def breakdown(cfg, state, grid, forcing, step_ms, card):
         torch.cuda.synchronize()
         sums[0] += packed_share * dev_ms
         sums[1] += step_share * dev_ms
+        host_sums[0] += packed_share * host_ms
+        host_sums[1] += step_share * host_ms
         print(f"  {name}: back-to-back {dev_ms:.4f} ms, host enqueue "
               f"{host_ms:.4f} ms per call", flush=True)
     print(f"  layers summed per step: packed scan {sums[0]:.3f} ms (against "
           f"{step_ms:.3f} ms/step of the main path), per-step path "
           f"{sums[1]:.3f} ms [{card}]", flush=True)
+    print(f"  one packed-scan step, host against device: {host_sums[0]:.3f} "
+          f"ms of host enqueue, {sums[0]:.3f} ms of device time (layers "
+          f"summed as above; the larger bounds the step) [{card}]",
+          flush=True)
 
 
 def windy_state(state):
@@ -906,8 +950,8 @@ def check_momentum(ci: CheckInputs, bad: list):
 
 
 def check_tall(dev, bad: list):
-    """The epilogue corrector on a column of TALL_NZ levels (its workspace
-    form) against its plain version, on the moist state."""
+    """The epilogue corrector on a column of TALL_NZ levels (three levels a
+    lane of its warp) against its plain version, on the moist state."""
     b3 = baseline_config(3)
     cfg = resolve_rad_interval(b3.replace(grid=dataclasses.replace(
         b3.grid, nx=TALL_GRID[0], ny=TALL_GRID[1], nz=TALL_NZ)))
@@ -925,7 +969,7 @@ def check_tall(dev, bad: list):
                        fs.fused_substep_plain(*args, phys=phys, vmask=vm,
                                               **kw), TALL_TOL)
     print(f"  {TALL_NZ} levels on {TALL_GRID[0]}x{TALL_GRID[1]}, "
-          "corrector+epilogue (workspace columns) max|kernel-plain|: "
+          "corrector+epilogue max|kernel-plain|: "
           + show(per, TALL_TOL), flush=True)
     bad += [f"{TALL_NZ}-level epilogue: {x} over its bound"
             for x in over(per, TALL_TOL)]
@@ -1348,6 +1392,8 @@ def main() -> int:
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": None,
+            # device ms of each launch of one call (profiled)
+            "launch_ms": tm["launch_ms"],
             # ms and plain_ms are device time; the host's time to enqueue
             # one call
             "enqueue_ms": tm["enqueue_ms"],

@@ -31,4 +31,9 @@ constexpr float kMagnusB = 243.04f;
 constexpr float kTZeroC = 273.15f;
 constexpr float kRhoWater = 1000.0f;
 
+// Correctly rounded reciprocals of constant divisors (for div_rn of
+// column.cuh), rounded once from the double quotient of the float value.
+constexpr float kRecipG = (float)(1.0 / (double)kG);
+constexpr float kRecipPRef = (float)(1.0 / (double)kPRef);
+
 }  // namespace cm

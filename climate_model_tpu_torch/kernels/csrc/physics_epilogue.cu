@@ -3,12 +3,12 @@
 // Hopper (sm_90a), fp32.
 //
 // Replaces the epilogue of the TPU kernel climate_model_tpu/kernels/
-// fused_substep.py::make_fused_substep_packed with phys= (the body at
-// :777-989, launched by the packed scan's corrector, climate_model_tpu/
-// model.py:119-120). It is the third launch of that corrector: launches 1
-// and 2 (fused_substep.cu) write the post-dynamics u, v, pott, qv, qc and
-// COLP_new, this one writes the step's final fields. It computes, with
-// pressure and Exner factors of the NEW colp:
+// fused_substep.py::make_fused_substep_packed with phys= (the pallas_call at
+// :1047, the epilogue body at :778-989, launched by the packed scan's
+// corrector, climate_model_tpu/model.py:119-120). It is the second launch of
+// that corrector: the substep (fused_substep.cu) writes the post-dynamics u,
+// v, pott, qv, qc and COLP_new, this one writes the step's final fields. It
+// computes, with pressure and Exner factors of the NEW colp:
 //   surface      bulk sensible and latent fluxes (1 m/s gust floor on the
 //                cell-centre wind from u at the east face and v at the
 //                north face), the slab tsurf (land or ocean heat capacity),
@@ -26,7 +26,9 @@
 // adaptive dt and retuning rebuild nothing. The operator order and the
 // association of every expression follow the plain PyTorch splits
 // (physics/surface.py, turbulence.py, microphysics.py), which are the plain
-// version this kernel is held to.
+// version this kernel is held to, but for two sums that are warp-wide
+// trees here (column.cuh): the geopotential's suffix sum of the height
+// profile (suffix_sum) and the column's rain sum (column_sum).
 //
 // Layout and edges: the plain State layout, (nz, ny, nx) and (ny, nx) fp32.
 // Longitude wraps (on a shard's block too: fused_substep.cu's header says
@@ -37,80 +39,121 @@
 // zeroed on row 0 otherwise, after the drag and after the diffusion, where
 // the TPU kernel calls apply_wall.
 //
-// Why one thread per column, and why it recomputes its neighbours: the
-// drag at the west (south) face needs the stress of column (j, i-1)
-// ((j-1, i)), and the diffusion of u (v) needs the dz and rho profiles of
-// that column AFTER its surface heating. A thread therefore recomputes the
-// surface fluxes and the profile of its west and south columns from the
-// post-dynamics fields, which no thread of this launch writes: no thread
-// reads what another writes, and no ordering between blocks is needed.
-// A thread keeps 15 column arrays (five fields, the convective K, a
-// neighbour's pott, and its own and a face's height profile): in local
-// memory for columns of up to kMaxNz levels; for taller columns in its
-// slice of a device workspace that the wrapper allocates (kColArrays * nz
-// floats per column, epilogue_kernel<false>), so every nz >= 2 runs.
-//
-// What bounds it on the card: bytes. With launches 1-2 the corrector must
-// read the 16 3-D fields of the corrector and about ten 2-D fields and write
-// five 3-D and four 2-D fields: at config #3 (360x180x32 fp32, 8.3 MB per
-// 3-D field) about 135 MB, >= 40 us at 3.35 TB/s. This simple design moves
-// five more 3-D fields out and back (the post-dynamics scratch, ~83 MB),
-// re-reads the neighbour columns and keeps the column arrays in local
-// memory. A later version would run the epilogue on the tile of the point
-// launch, from shared memory, and write each field once.
+// What bounds it on the card: bytes. It must read the five post-dynamics
+// 3-D fields and about ten 2-D fields and write five 3-D and three 2-D
+// fields: at config #3 (360x180x32 fp32, 8.3 MB per 3-D field) about 84 MB,
+// >= 25 us at 3.35 TB/s. The design:
+//   * A block (threads_for<L>() threads: 16 warps at up to 32 levels, two
+//     blocks an SM; else 8) owns a tile of tj latitude rows x tx longitudes
+//     (kernels/fused_substep.py::launch_plan sizes it and its dynamic
+//     shared memory). It copies the tile's u, v, qv and qc, and pott of the
+//     tile with one column west and one row south, into shared memory with
+//     cp.async: a warp per (field, level, row) line, lanes along longitude,
+//     so each copy reads consecutive floats, kept as columns (level
+//     fastest, odd column stride: no bank conflicts either way). The bottom
+//     level of u and v comes in with one column and one row around, the
+//     2-D fields for the tile (and colp, tsurf and hsurf for its west
+//     column and south row), sigma_vb and dsigma likewise.
+//   * Neighbour columns once. The drag at the west (south) face needs the
+//     stress of column (j, i-1) ((j-1, i)), and the diffusion of u (v) the
+//     height profile of that column after its surface heating. So every
+//     column of the tile and of its west column and south row first gets its
+//     surface core (rho, wind, stresses, bottom heating; a thread per
+//     column) and then its height profile (dz and rho at centres and
+//     interior borders; a warp per column with the levels on the lanes)
+//     into shared memory. Only the halo columns are computed twice, by two
+//     tiles, identically.
+//   * Then one warp per column of the tile runs the physics with the column
+//     in registers (ceil(nz/32) levels a lane; at up to 32 levels ptxas
+//     reports no stack frame): each diffusion's border flux takes the level
+//     below from the next lane by a shuffle and the flux above from the
+//     previous lane, the convective K the level below likewise, the faces'
+//     profiles are the means of two columns' profiles read from shared
+//     memory, and the rain sum is a warp reduction. The results go back to
+//     shared memory and out with coalesced lines.
+// Measured on an H100 (PERF.md), the launch is not bound by bytes but by
+// the latency of the per-column work, at 32 warps an SM.
+// No thread reads what another block writes, so no ordering between blocks
+// is needed, and a column's arithmetic does not depend on where a tile
+// boundary falls.
 
 #include <cuda_runtime.h>
 
+#include "column.cuh"
 #include "constants.cuh"
 
 namespace {
 
 using namespace cm;
 
-constexpr int kMaxNz = 64;      // tallest column held in local memory
-constexpr int kColArrays = 15;  // column arrays per thread
+// threads a block: 16 warps where a column fits one register a lane (64
+// registers a thread, two blocks an SM), else 8
+template <int L>
+__host__ __device__ constexpr int threads_for() { return L == 1 ? 512 : 256; }
 
 struct Epi {
-  // post-dynamics fields (launch 2's output) and COLP_new (launch 1's)
+  // post-dynamics fields (the substep's output) and COLP_new
   const float *u, *v, *pott, *qv, *qc, *colp;
   // the 2-D state and forcing the physics reads
   const float *tsurf, *rain, *soil, *swflx, *lwflx;
   const float *land, *evap_eff, *hsurf, *vmask, *sigma_vb, *dsigma;
   float *u_out, *v_out, *pott_out, *qv_out, *qc_out;
   float *tsurf_out, *rain_out, *soil_out;
-  float* work;  // kColArrays * nz floats per column, or null (nz <= kMaxNz)
-  int nz, ny, nx;
+  int nz, ny, nx, tx, tj;
   float dt, ptop, frac;
   int w_srf, w_trb, w_mic, w_soil, w_conv;
   float drag, soil_cap, ocean_cap, qc_thr, k_scalar, k_mom, sm_cap, conv_k,
       conv_rh;
+};
 
-  __device__ int at(int k, int j, int i) const { return (k * ny + j) * nx + i; }
-  __device__ int at2(int j, int i) const { return j * nx + i; }
+// The surface core of a column, kept for its neighbours (shared memory).
+enum SurfSlot {
+  kRho = 0, kWind, kShflx, kPSfc, kDpSfc, kTaux, kTauy, kDpottB, kNSurf
+};
+// The height profile of a column (turbulence.py): layer thickness dzc and
+// density rc at the nz centres, centre-to-centre distance dzvb and density
+// rvb at the nz-1 interior borders (index kb: between levels kb and kb+1).
+enum ProfSlot { kDzc = 0, kRc, kDzvb, kRvb, kNProf };
+// Own fields of the tile in shared memory (pott lives with the halo).
+enum OwnSlot { kOwnU = 0, kOwnV, kOwnQv, kOwnQc, kNOwn };
+// 2-D fields of the tile with its west column and south row, and of the
+// tile alone.
+enum Ext2 { kColp = 0, kTsurf, kHsurf, kNExt2 };
+enum Own2 { kLand = 0, kEvapEff, kSwflx, kLwflx, kRain, kSoil, kNOwn2 };
+
+// Shared-memory layout of a tile, in floats; kernels/fused_substep.py::
+// epilogue_smem_floats is the same formula.
+struct Tile {
+  int nzp;     // column stride (odd)
+  int ex, ey;  // the tile with one column west and one row south
+  int bx, by;  // bottom u and v: the tile with one column and row around
+  int pott, own, prof, surf, ub, vb, ext2, xs, own2, sig, dsig, total;
+
+  __host__ __device__ Tile(int nz, int tx, int tj) {
+    nzp = nz | 1;
+    ex = tx + 1; ey = tj + 1;
+    bx = tx + 2; by = tj + 2;
+    const int e = ex * ey;
+    pott = 0;
+    own = pott + e * nzp;
+    prof = own + kNOwn * tx * tj * nzp;
+    surf = prof + kNProf * e * nzp;
+    ub = surf + kNSurf * e;
+    vb = ub + bx * by;
+    ext2 = vb + bx * by;
+    xs = ext2 + kNExt2 * e;
+    own2 = xs + e;
+    sig = own2 + kNOwn2 * tx * tj;
+    dsig = sig + nz + 1;
+    total = dsig + nz;
+  }
 };
 
 // x clipped below at 0, NaN passing through (torch.clamp(x, min=0))
 __device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }
 
-// Border pressures, Exner factors and the layer Exner factor of level k of
-// a column with COLP cn (operators.py::diagnose_pressure).
-struct Level {
-  float pvb_lo, pvb_hi, pvtfvb_lo, pvtfvb_hi, pvtf;
-};
-
-__device__ Level level(const Epi& e, float cn, int k) {
-  Level p;
-  p.pvb_lo = e.ptop + e.sigma_vb[k] * cn;
-  p.pvb_hi = e.ptop + e.sigma_vb[k + 1] * cn;
-  p.pvtfvb_lo = powf(p.pvb_lo / kPRef, kKappa);
-  p.pvtfvb_hi = powf(p.pvb_hi / kPRef, kKappa);
-  p.pvtf = (p.pvb_hi * p.pvtfvb_hi - p.pvb_lo * p.pvtfvb_lo)
-           / (kOnePlusKappa * (p.pvb_hi - p.pvb_lo));
-  return p;
-}
-
 // physics/thermo.py::qsat_water (Magnus)
-__device__ float qsat_water(float tair, float pair) {
+__device__ __forceinline__ float qsat_water(float tair, float pair) {
   const float t_c = tair - kTZeroC;
   const float es = kMagnusE0 * expf(kMagnusA * t_c / (t_c + kMagnusB));
   float denom = pair - kOneMinusEps * es;
@@ -118,299 +161,519 @@ __device__ float qsat_water(float tair, float pair) {
   return kEps * es / denom;
 }
 
-// The part of surface.py::surface_fluxes a column and its neighbours share.
-struct Surf {
-  float rho, wind, u_c, v_c, shflx, pvtf_b, p_sfc, dp_sfc;
-  __device__ float taux(float drag) const { return -rho * drag * wind * u_c; }
-  __device__ float tauy(float drag) const { return -rho * drag * wind * v_c; }
-};
-
-__device__ Surf surface_core(const Epi& e, int j, int i) {
-  const int kb = e.nz - 1;
-  const int ie = i == e.nx - 1 ? 0 : i + 1;
-  const float cn = e.colp[e.at2(j, i)];
-  const Level p = level(e, cn, kb);
-  Surf s;
-  s.pvtf_b = p.pvtf;
-  s.p_sfc = p.pvb_hi;
-  const float t_air = e.pott[e.at(kb, j, i)] * p.pvtf;
-  const float p_air = 0.5f * (p.pvb_lo + p.pvb_hi);
-  s.rho = p_air / (kRd * t_air);
-  s.u_c = 0.5f * (e.u[e.at(kb, j, i)] + e.u[e.at(kb, j, ie)]);
-  const float vn = j + 1 < e.ny ? e.v[e.at(kb, j + 1, i)] : 0.f;
-  s.v_c = 0.5f * (e.v[e.at(kb, j, i)] + vn);
-  s.wind = sqrtf(s.u_c * s.u_c + s.v_c * s.v_c + 1.f);
-  s.shflx = s.rho * kCp * e.drag * s.wind * (e.tsurf[e.at2(j, i)] - t_air);
-  s.dp_sfc = cn * e.dsigma[kb];
-  return s;
+// ---------------------------------------------------------------------------
+// The surface core of one column of the tile or its halo (surface.py::
+// surface_fluxes, the part a column and its neighbours share), a thread per
+// column: the surface border's Exner factor, then, with the surface on,
+// rho, wind, the sensible flux, the surface pressure and layer mass, the
+// stresses and the bottom layer's heating, into shared memory.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void surface_core(const Epi& e, const Tile& t,
+                                             float* sm, int j, int er,
+                                             int ec) {
+  const int nz = e.nz, kb = nz - 1;
+  const int c = er * t.ex + ec;
+  const int es = t.ex * t.ey;
+  const float* sig = sm + t.sig;
+  const float cn = sm[t.ext2 + kColp * es + c];
+  const float x_sfc = surface_exner(sig, e.ptop, cn, nz);
+  sm[t.xs + c] = x_sfc;
+  if (!e.w_srf) return;
+  // the bottom level's pressures and Exner factors, as Pressure has them
+  const float lo_b = e.ptop + sig[kb] * cn;
+  const float hi_b = e.ptop + sig[nz] * cn;
+  const float x_lo = powf(div_rn(lo_b, kPRef, kRecipPRef), kKappa);
+  const float pvtf_b = (hi_b * x_sfc - lo_b * x_lo)
+                       / (kOnePlusKappa * (hi_b - lo_b));
+  const float t_air = sm[t.pott + c * t.nzp + kb] * pvtf_b;
+  const float p_air = 0.5f * (lo_b + hi_b);
+  const float rho = p_air / (kRd * t_air);
+  const float* ub = sm + t.ub + er * t.bx + ec;
+  const float* vb = sm + t.vb + er * t.bx + ec;
+  const float u_c = 0.5f * (ub[0] + ub[1]);
+  const float vn = j + 1 < e.ny ? vb[t.bx] : 0.f;
+  const float v_c = 0.5f * (vb[0] + vn);
+  const float wind = sqrtf(u_c * u_c + v_c * v_c + 1.f);
+  const float tsurf = sm[t.ext2 + kTsurf * es + c];
+  const float shflx = rho * kCp * e.drag * wind * (tsurf - t_air);
+  const float dp_sfc = cn * sm[t.dsig + kb];
+  // bottom-layer heating of the sensible flux (surface.py::surface_step)
+  const float m_sfc = dp_sfc / kG;
+  float* sf = sm + t.surf + c;
+  sf[kRho * es] = rho;
+  sf[kWind * es] = wind;
+  sf[kShflx * es] = shflx;
+  sf[kPSfc * es] = hi_b;
+  sf[kDpSfc * es] = dp_sfc;
+  sf[kTaux * es] = -rho * e.drag * wind * u_c;
+  sf[kTauy * es] = -rho * e.drag * wind * v_c;
+  sf[kDpottB * es] = e.dt * shflx / (kCp * m_sfc) / pvtf_b;
 }
 
-// Bottom-layer heating of the sensible flux (surface.py::surface_step).
-__device__ float bottom_heating(const Epi& e, const Surf& s) {
-  const float m_sfc = s.dp_sfc / kG;
-  return e.dt * s.shflx / (kCp * m_sfc) / s.pvtf_b;
-}
-
-// Height-coordinate geometry of a column for the K-diffusion
-// (turbulence.py): layer thickness dzc and density rc at the nz centres,
-// centre-to-centre distance dzvb and density rvb at the nz-1 interior
-// borders (index kb: between levels kb and kb+1). The geopotential is the
-// hydrostatic suffix sum from the surface up (operators.py::
-// diagnose_geopotential), so the walk runs bottom to top.
-struct Profile {
-  float *dzc, *rc, *dzvb, *rvb;
-};
-
-// The profile whose four arrays start at p, stride apart.
-__device__ Profile profile_at(float* p, int stride) {
-  return Profile{p, p + stride, p + 2 * stride, p + 3 * stride};
-}
-
-__device__ void copy_profile(int nz, const Profile& src, Profile& dst) {
-  for (int k = 0; k < nz; ++k) {
-    dst.dzc[k] = src.dzc[k];
-    dst.rc[k] = src.rc[k];
-    dst.dzvb[k] = src.dzvb[k];
-    dst.rvb[k] = src.rvb[k];
+// ---------------------------------------------------------------------------
+// The height profile of one column of the tile or its halo, a warp per
+// column with the levels on the lanes.
+// ---------------------------------------------------------------------------
+template <int L>
+__device__ __forceinline__ void column_profile(const Epi& e, const Tile& t,
+                                               float* sm, int c) {
+  const int nz = e.nz, kb = nz - 1;
+  const int lane = lane_id();
+  const int es = t.ex * t.ey;
+  const float cn = sm[t.ext2 + kColp * es + c];
+  const float* ptc = sm + t.pott + c * t.nzp;
+  float pt[L];
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    const int k = m * 32 + lane;
+    pt[m] = k < nz ? ptc[k] : 0.f;
   }
-}
+  Pressure<L> p;
+  p.compute(sm + t.sig, e.ptop, cn, nz, sm[t.xs + c]);
+  const float dpott_b = e.w_srf ? sm[t.surf + kDpottB * es + c] : 0.f;
+  if (!e.w_trb) return;
 
-__device__ void column_profile(const Epi& e, float cn, float hs,
-                               const float* pt, Profile& pr) {
-  const float phivb_sfc = kG * hs;
-  float phivb_hi = phivb_sfc, suffix = 0.f;
-  float zc_below = 0.f, tair_below = 0.f;
-  for (int k = e.nz - 1; k >= 0; --k) {
-    const Level p = level(e, cn, k);
-    const float cppt = kCp * pt[k];
-    suffix = suffix + cppt * (p.pvtfvb_hi - p.pvtfvb_lo);
-    const float phivb_lo = phivb_sfc + suffix;
-    const float phi = phivb_hi + cppt * (p.pvtfvb_hi - p.pvtf);
-    const float zc = phi / kG;
-    pr.dzc[k] = phivb_lo / kG - phivb_hi / kG;
-    pr.rc[k] = (p.pvb_hi - p.pvb_lo) / (kG * pr.dzc[k]);
-    const float tair = pt[k] * p.pvtf;
-    if (k < e.nz - 1) {
-      pr.dzvb[k] = zc - zc_below;
-      pr.rvb[k] = p.pvb_hi / (kRd * (0.5f * (tair + tair_below)));
+  // the profile (turbulence.py), from the column after its surface heating;
+  // the geopotential is the hydrostatic suffix sum from the surface up
+  // (operators.py::diagnose_geopotential)
+  add_at_level(pt, kb, dpott_b);
+  float cppt[L], phivb_lo[L];
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    const int k = m * 32 + lane;
+    cppt[m] = kCp * pt[m];
+    phivb_lo[m] = k < nz ? cppt[m] * (p.x_hi[m] - p.x_lo[m]) : 0.f;
+  }
+  suffix_sum(phivb_lo);
+  const float phivb_sfc = kG * sm[t.ext2 + kHsurf * es + c];
+  float phivb_hi[L];
+#pragma unroll
+  for (int m = 0; m < L; ++m) phivb_lo[m] = phivb_sfc + phivb_lo[m];
+  level_below(phivb_lo, phivb_hi);
+  float zc[L], tair[L];
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    const int k = m * 32 + lane;
+    if (k == kb) phivb_hi[m] = phivb_sfc;
+    const float phi = phivb_hi[m] + cppt[m] * (p.x_hi[m] - p.pvtf[m]);
+    zc[m] = div_rn(phi, kG, kRecipG);
+    tair[m] = pt[m] * p.pvtf[m];
+  }
+  float zc_below[L], tair_below[L];
+  level_below(zc, zc_below);
+  level_below(tair, tair_below);
+  float* pr = sm + t.prof + c * t.nzp;
+  const int plane = t.ex * t.ey * t.nzp;
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    const int k = m * 32 + lane;
+    if (k < nz) {
+      const float dzc = div_rn(phivb_lo[m], kG, kRecipG)
+                        - div_rn(phivb_hi[m], kG, kRecipG);
+      pr[kDzc * plane + k] = dzc;
+      pr[kRc * plane + k] = (p.hi[m] - p.lo[m]) / (kG * dzc);
+      if (k < kb) {
+        pr[kDzvb * plane + k] = zc[m] - zc_below[m];
+        pr[kRvb * plane + k] =
+            p.hi[m] / (kRd * (0.5f * (tair[m] + tair_below[m])));
+      }
     }
-    zc_below = zc;
-    tair_below = tair;
-    phivb_hi = phivb_lo;
   }
 }
 
-// Face profile: the mean of a column's and its neighbour's (in place in nb).
-__device__ void face_profile(int nz, const Profile& own, Profile& nb) {
-  for (int k = 0; k < nz; ++k) {
-    nb.dzc[k] = 0.5f * (nb.dzc[k] + own.dzc[k]);
-    nb.rc[k] = 0.5f * (nb.rc[k] + own.rc[k]);
-    if (k < nz - 1) {
-      nb.dzvb[k] = 0.5f * (nb.dzvb[k] + own.dzvb[k]);
-      nb.rvb[k] = 0.5f * (nb.rvb[k] + own.rvb[k]);
+// The divisors of a K-diffusion step on a profile: the layer mass rc * dzc
+// and the border distance dzvb, with their reciprocals (div_rn), shared by
+// the diffusions on the same profile.
+template <int L>
+struct Divisors {
+  float mass[L], r_mass[L], dzvb[L], r_dzvb[L], rvb[L];
+
+  __device__ __forceinline__ Divisors(const float (&dzc)[L],
+                                      const float (&rc)[L],
+                                      const float (&dzvb_)[L],
+                                      const float (&rvb_)[L]) {
+#pragma unroll
+    for (int m = 0; m < L; ++m) {
+      mass[m] = rc[m] * dzc[m];
+      r_mass[m] = rcp(mass[m]);
+      dzvb[m] = dzvb_[m];
+      r_dzvb[m] = rcp(dzvb_[m]);
+      rvb[m] = rvb_[m];
     }
   }
-}
+};
 
 // One explicit K-diffusion step of the column x, in place: upward-positive
-// flux at the interior borders, zero at top and bottom. kk is the
-// diffusivity per border (null: the constant k).
-__device__ void diffuse(const Epi& e, float* x, const float* kk, float k,
-                        const Profile& pr) {
-  float f_top = 0.f;
-  for (int l = 0; l < e.nz; ++l) {
-    float f_bot = 0.f;
-    if (l < e.nz - 1) {
-      const float grad = (x[l] - x[l + 1]) / pr.dzvb[l];
-      f_bot = -(kk ? kk[l] : k) * pr.rvb[l] * grad;
+// flux at the interior borders, zero at top and bottom; kk is the
+// diffusivity per border.
+template <int L>
+__device__ __forceinline__ void diffuse(float (&x)[L], const float (&kk)[L],
+                                        const Divisors<L>& d, int nz,
+                                        float dt) {
+  const int lane = lane_id();
+  float xb[L], f[L], ft[L];
+  level_below(x, xb);
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    const int k = m * 32 + lane;
+    f[m] = 0.f;
+    if (k < nz - 1) {
+      const float grad = div_rn(x[m] - xb[m], d.dzvb[m], d.r_dzvb[m]);
+      f[m] = -kk[m] * d.rvb[m] * grad;
     }
-    x[l] = x[l] + e.dt * (f_bot - f_top) / (pr.rc[l] * pr.dzc[l]);
-    f_top = f_bot;
+  }
+  level_above(f, ft);
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    const int k = m * 32 + lane;
+    const float f_top = k > 0 ? ft[m] : 0.f;
+    if (k < nz)
+      x[m] = x[m] + div_rn(dt * (f[m] - f_top), d.mass[m], d.r_mass[m]);
   }
 }
 
-// pott column of (j, i) from the post-dynamics field, its bottom layer
-// raised by dpott_b (that column's surface heating)
-__device__ void load_pott(const Epi& e, int j, int i, float dpott_b,
-                          float* pt) {
-  for (int k = 0; k < e.nz; ++k) pt[k] = e.pott[e.at(k, j, i)];
-  pt[e.nz - 1] = pt[e.nz - 1] + dpott_b;
+// The profile of slot c (or, with c2 >= 0, the face profile: the mean of
+// slot c2's and slot c's, in that order) into registers.
+template <int L>
+__device__ __forceinline__ void load_profile(const Tile& t, const float* sm,
+                                             int c, int c2, int nz,
+                                             float (&dzc)[L], float (&rc)[L],
+                                             float (&dzvb)[L],
+                                             float (&rvb)[L]) {
+  const int lane = lane_id();
+  const int plane = t.ex * t.ey * t.nzp;
+  const float* a = sm + t.prof + c * t.nzp;
+  const float* b = sm + t.prof + (c2 >= 0 ? c2 : c) * t.nzp;
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    const int k = m * 32 + lane;
+    const int kk = k < nz ? k : nz - 1;
+    const int kv = k < nz - 1 ? k : 0;
+    dzc[m] = a[kDzc * plane + kk];
+    rc[m] = a[kRc * plane + kk];
+    dzvb[m] = a[kDzvb * plane + kv];
+    rvb[m] = a[kRvb * plane + kv];
+    if (c2 >= 0) {
+      dzc[m] = 0.5f * (b[kDzc * plane + kk] + dzc[m]);
+      rc[m] = 0.5f * (b[kRc * plane + kk] + rc[m]);
+      dzvb[m] = 0.5f * (b[kDzvb * plane + kv] + dzvb[m]);
+      rvb[m] = 0.5f * (b[kRvb * plane + kv] + rvb[m]);
+    }
+  }
 }
 
-template <bool kLocal>
-__global__ void epilogue_kernel(Epi e) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  if (i >= e.nx) return;
-  const int nz = e.nz, kb = nz - 1;
-  const int iw = i == 0 ? e.nx - 1 : i - 1;
-  const int js = j > 0 ? j - 1 : 0;
-  const int id2 = e.at2(j, i);
-
-  // the thread's column arrays: local memory, or its workspace slice
-  float in_local[kLocal ? kColArrays * kMaxNz : 1];
-  const int stride = kLocal ? kMaxNz : nz;
-  float* buf = kLocal ? in_local
-                      : e.work + (size_t)id2 * kColArrays * (size_t)nz;
-  float* pt = buf;
-  float* qv = buf + stride;
-  float* qc = buf + 2 * stride;
-  float* u = buf + 3 * stride;
-  float* v = buf + 4 * stride;
-  for (int k = 0; k < nz; ++k) {
-    const int id = e.at(k, j, i);
-    pt[k] = e.pott[id];
-    qv[k] = e.qv[id];
-    qc[k] = e.qc[id];
-    u[k] = e.u[id];
-    v[k] = e.v[id];
+// ---------------------------------------------------------------------------
+// The physics of one column (jr, x) of the tile, in registers.
+// ---------------------------------------------------------------------------
+template <int L>
+__device__ __forceinline__ void column_physics(const Epi& e, const Tile& t,
+                                               float* sm, int j0, int i0,
+                                               int jr, int x) {
+  const int nz = e.nz, kb = nz - 1, nx = e.nx;
+  const int lane = lane_id();
+  const int j = j0 + jr, i = i0 + x;
+  const int id2 = j * nx + i;
+  const int c = (jr + 1) * t.ex + x + 1;           // this column's slot
+  const int cw = c - 1;                             // the west column's
+  const int cs = j == 0 ? c : c - t.ex;             // the south (clamped)
+  const int o = jr * e.tx + x;                      // own-field column
+  float* ptc = sm + t.pott + c * t.nzp;
+  const int own_plane = e.tx * e.tj * t.nzp;
+  float* ou = sm + t.own + kOwnU * own_plane + o * t.nzp;
+  float* ov = sm + t.own + kOwnV * own_plane + o * t.nzp;
+  float* oqv = sm + t.own + kOwnQv * own_plane + o * t.nzp;
+  float* oqc = sm + t.own + kOwnQc * own_plane + o * t.nzp;
+  float pt[L], qv[L], qc[L], u[L], v[L];
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    const int k = m * 32 + lane;
+    const int kk = k < nz ? k : 0;
+    pt[m] = ptc[kk];
+    u[m] = ou[kk];
+    v[m] = ov[kk];
+    qv[m] = oqv[kk];
+    qc[m] = oqc[kk];
   }
-  const float cn = e.colp[id2];
-  const float land = e.land[id2];
-  float tsurf = e.tsurf[id2], rain = e.rain[id2], sm = e.soil[id2];
+  const int es = t.ex * t.ey;
+  const float* own2 = sm + t.own2 + o;
+  const int own2_plane = e.tx * e.tj;
+  const float cn = sm[t.ext2 + kColp * es + c];
+  const float land = own2[kLand * own2_plane];
+  float tsurf = sm[t.ext2 + kTsurf * es + c];
+  float rain = own2[kRain * own2_plane], sm_ = own2[kSoil * own2_plane];
   // the v wall (apply_wall of the TPU kernel); "+ 0" as in fused_substep.cu
   const float vm = e.vmask ? e.vmask[j] : 0.f;
   auto wall = [&]() {
-    for (int k = 0; k < nz; ++k)
-      v[k] = e.vmask ? v[k] * vm + 0.f : (j == 0 ? 0.f : v[k]);
+#pragma unroll
+    for (int m = 0; m < L; ++m)
+      v[m] = e.vmask ? v[m] * vm + 0.f : (j == 0 ? 0.f : v[m]);
   };
 
   // ---- surface ----
-  float dpott_w = 0.f, dpott_s = 0.f;   // the west and south bottom heating
   if (e.w_srf) {
-    const Surf c = surface_core(e, j, i);
-    const Surf w = surface_core(e, j, iw);
-    const Surf s = js == j ? c : surface_core(e, js, i);
-    const float qsat_s = qsat_water(tsurf, c.p_sfc);
-    float eff = e.evap_eff[id2];
+    auto surf = [&](int slot, int col) { return sm[t.surf + slot * es + col]; };
+    const float qsat_s = qsat_water(tsurf, surf(kPSfc, c));
+    float eff = own2[kEvapEff * own2_plane];
     if (e.w_soil) {
-      float frac = sm / e.sm_cap;
+      float frac = sm_ / e.sm_cap;
       frac = frac < 0.f ? 0.f : (frac > 1.f ? 1.f : frac);
       eff = land > 0.5f ? frac : 1.f;
     }
-    const float evap =
-        c.rho * e.drag * c.wind * eff * relu(qsat_s - qv[kb]);
+    const float evap = surf(kRho, c) * e.drag * surf(kWind, c) * eff
+                       * relu(qsat_s - at_level(qv, kb));
     const float lhflx = kLv * evap;
     const float heat_cap = land > 0.5f ? e.soil_cap : e.ocean_cap;
-    const float net = e.swflx[id2] + e.lwflx[id2] - c.shflx - lhflx;
+    const float net = own2[kSwflx * own2_plane] + own2[kLwflx * own2_plane]
+                      - surf(kShflx, c) - lhflx;
     tsurf = tsurf + e.dt * net / heat_cap;
 
-    const float m_sfc = c.dp_sfc / kG;
-    pt[kb] = pt[kb] + bottom_heating(e, c);
-    qv[kb] = qv[kb] + e.dt * evap / m_sfc;
-    const float m_u = 0.5f * (w.dp_sfc + c.dp_sfc) / kG;
-    const float m_v = 0.5f * (s.dp_sfc + c.dp_sfc) / kG;
-    u[kb] = u[kb] + e.dt * 0.5f * (w.taux(e.drag) + c.taux(e.drag)) / m_u;
-    v[kb] = v[kb] + e.dt * 0.5f * (s.tauy(e.drag) + c.tauy(e.drag)) / m_v;
+    const float m_sfc = surf(kDpSfc, c) / kG;
+    add_at_level(pt, kb, surf(kDpottB, c));
+    add_at_level(qv, kb, e.dt * evap / m_sfc);
+    const float m_u = 0.5f * (surf(kDpSfc, cw) + surf(kDpSfc, c)) / kG;
+    const float m_v = 0.5f * (surf(kDpSfc, cs) + surf(kDpSfc, c)) / kG;
+    add_at_level(u, kb,
+                 e.dt * 0.5f * (surf(kTaux, cw) + surf(kTaux, c)) / m_u);
+    add_at_level(v, kb,
+                 e.dt * 0.5f * (surf(kTauy, cs) + surf(kTauy, c)) / m_v);
     wall();
     if (e.w_soil && land > 0.5f) {
-      float dried = sm - e.dt * evap / kRhoWater;
-      sm = dried < 0.f ? 0.f : (dried > e.sm_cap ? e.sm_cap : dried);
+      const float dried = sm_ - e.dt * evap / kRhoWater;
+      sm_ = dried < 0.f ? 0.f : (dried > e.sm_cap ? e.sm_cap : dried);
     }
-    dpott_w = bottom_heating(e, w);
-    dpott_s = bottom_heating(e, s);
   }
+
+  Pressure<L> p;
+  p.compute(sm + t.sig, e.ptop, cn, nz, sm[t.xs + c]);
 
   // ---- turbulence ----
   if (e.w_trb) {
-    Profile own = profile_at(buf + 7 * stride, stride);
-    Profile nb = profile_at(buf + 11 * stride, stride);
-    column_profile(e, cn, e.hsurf[id2], pt, own);
-    // moist-convective K at the interior borders (turbulence.py::
-    // convective_k), from the post-surface column
-    float* kk = buf + 5 * stride;
+    float dzc[L], rc[L], dzvb[L], rvb[L], kk[L];
+    load_profile(t, sm, c, -1, nz, dzc, rc, dzvb, rvb);
+#pragma unroll
+    for (int m = 0; m < L; ++m) kk[m] = e.k_scalar;
     if (e.w_conv) {
-      float rh_up = 0.f, th_up = 0.f;
-      for (int k = 0; k < nz; ++k) {
-        const Level p = level(e, cn, k);
-        const float tair = pt[k] * p.pvtf;
-        const float qs = qsat_water(tair, 0.5f * (p.pvb_lo + p.pvb_hi));
-        const float rh = qv[k] / (qs < 1e-10f ? 1e-10f : qs);
-        const float th_es = pt[k] * expf(kLv * qs / (kCp * tair));
-        if (k > 0) {
-          const bool fire = (rh_up < rh ? rh_up : rh) > e.conv_rh
-                            && th_up < th_es;
-          kk[k - 1] = e.k_scalar + (fire ? e.conv_k : 0.f);
-        }
-        rh_up = rh;
-        th_up = th_es;
+      // moist-convective K at the interior borders (turbulence.py::
+      // convective_k), from the post-surface column
+      float rh[L], th[L], rh_b[L], th_b[L];
+#pragma unroll
+      for (int m = 0; m < L; ++m) {
+        const float tair = pt[m] * p.pvtf[m];
+        const float qs = qsat_water(tair, 0.5f * (p.lo[m] + p.hi[m]));
+        rh[m] = qv[m] / (qs < 1e-10f ? 1e-10f : qs);
+        th[m] = pt[m] * expf(kLv * qs / (kCp * tair));
+      }
+      level_below(rh, rh_b);
+      level_below(th, th_b);
+#pragma unroll
+      for (int m = 0; m < L; ++m) {
+        const bool fire = (rh[m] < rh_b[m] ? rh[m] : rh_b[m]) > e.conv_rh
+                          && th[m] < th_b[m];
+        kk[m] = e.k_scalar + (fire ? e.conv_k : 0.f);
       }
     }
-    const float* ks = e.w_conv ? kk : nullptr;
-    diffuse(e, pt, ks, e.k_scalar, own);
-    diffuse(e, qv, ks, e.k_scalar, own);
-    diffuse(e, qc, ks, e.k_scalar, own);
-    for (int k = 0; k < nz; ++k) {
-      qv[k] = relu(qv[k]);
-      qc[k] = relu(qc[k]);
+    {
+      const Divisors<L> d(dzc, rc, dzvb, rvb);
+      diffuse(pt, kk, d, nz, e.dt);
+      diffuse(qv, kk, d, nz, e.dt);
+      diffuse(qc, kk, d, nz, e.dt);
+    }
+#pragma unroll
+    for (int m = 0; m < L; ++m) {
+      qv[m] = relu(qv[m]);
+      qc[m] = relu(qc[m]);
+      kk[m] = e.k_mom;
     }
     // u with the profile averaged over the west column and this one
-    float* col = buf + 6 * stride;
-    load_pott(e, j, iw, dpott_w, col);
-    column_profile(e, e.colp[e.at2(j, iw)], e.hsurf[e.at2(j, iw)], col, nb);
-    face_profile(nz, own, nb);
-    diffuse(e, u, nullptr, e.k_mom, nb);
+    load_profile(t, sm, c, cw, nz, dzc, rc, dzvb, rvb);
+    diffuse(u, kk, Divisors<L>(dzc, rc, dzvb, rvb), nz, e.dt);
     // v with the south column (clamped at the wall)
-    if (js == j) {
-      copy_profile(nz, own, nb);
-    } else {
-      load_pott(e, js, i, dpott_s, col);
-      column_profile(e, e.colp[e.at2(js, i)], e.hsurf[e.at2(js, i)], col,
-                     nb);
-    }
-    face_profile(nz, own, nb);
-    diffuse(e, v, nullptr, e.k_mom, nb);
+    load_profile(t, sm, c, cs, nz, dzc, rc, dzvb, rvb);
+    diffuse(v, kk, Divisors<L>(dzc, rc, dzvb, rvb), nz, e.dt);
     wall();
   }
 
   // ---- microphysics ----
   if (e.w_mic) {
-    float rain_sum = 0.f;
-    for (int k = 0; k < nz; ++k) {
-      const Level p = level(e, cn, k);
-      const float tair = pt[k] * p.pvtf;
-      const float qs = qsat_water(tair, 0.5f * (p.pvb_lo + p.pvb_hi));
+    float rain_k[L];
+#pragma unroll
+    for (int m = 0; m < L; ++m) {
+      const int k = m * 32 + lane;
+      rain_k[m] = 0.f;
+      if (k >= nz) continue;
+      const float tair = pt[m] * p.pvtf[m];
+      const float qs = qsat_water(tair, 0.5f * (p.lo[m] + p.hi[m]));
       const float gamma = 1.f + kLv2 * qs / (kCpRv * (tair * tair));
-      const float dq = (qv[k] - qs) / gamma;
+      const float dq = (qv[m] - qs) / gamma;
       const float cond = relu(dq);
       const float ndq = relu(-dq);
-      const float evp = qc[k] < ndq ? qc[k] : ndq;
+      const float evp = qc[m] < ndq ? qc[m] : ndq;
       const float dqc = cond - evp;
-      qv[k] = qv[k] - dqc;
-      qc[k] = qc[k] + dqc;
-      pt[k] = pt[k] + kLvOverCp * dqc / p.pvtf;
-      const float to_rain = relu(qc[k] - e.qc_thr) * e.frac;
-      qc[k] = relu(qc[k] - to_rain);
-      qv[k] = relu(qv[k]);
-      rain_sum = rain_sum + to_rain * (cn * e.dsigma[k]);
+      qv[m] = qv[m] - dqc;
+      qc[m] = qc[m] + dqc;
+      pt[m] = pt[m] + kLvOverCp * dqc / p.pvtf[m];
+      const float to_rain = relu(qc[m] - e.qc_thr) * e.frac;
+      qc[m] = relu(qc[m] - to_rain);
+      qv[m] = relu(qv[m]);
+      rain_k[m] = to_rain * (cn * sm[t.dsig + k]);
     }
-    const float rain_inc = rain_sum / kG;
+    const float rain_inc = column_sum(rain_k) / kG;
     rain = rain + rain_inc;
     if (e.w_soil && land > 0.5f) {
-      const float wet = sm + rain_inc / kRhoWater;
-      sm = wet > e.sm_cap ? e.sm_cap : wet;
+      const float wet = sm_ + rain_inc / kRhoWater;
+      sm_ = wet > e.sm_cap ? e.sm_cap : wet;
     }
   }
 
-  for (int k = 0; k < nz; ++k) {
-    const int id = e.at(k, j, i);
-    e.u_out[id] = u[k];
-    e.v_out[id] = v[k];
-    e.pott_out[id] = pt[k];
-    e.qv_out[id] = qv[k];
-    e.qc_out[id] = qc[k];
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    const int k = m * 32 + lane;
+    if (k < nz) {
+      ptc[k] = pt[m];
+      ou[k] = u[m];
+      ov[k] = v[m];
+      oqv[k] = qv[m];
+      oqc[k] = qc[m];
+    }
   }
-  e.tsurf_out[id2] = tsurf;
-  e.rain_out[id2] = rain;
-  e.soil_out[id2] = sm;
+  if (lane == 0) {
+    e.tsurf_out[id2] = tsurf;
+    e.rain_out[id2] = rain;
+    e.soil_out[id2] = sm_;
+  }
+}
+
+// A 3-D field's (level, row) lines of the tile from shared memory (columns
+// stride nzp apart, row r's first at r * w) back to device memory, a warp
+// per line, lanes along longitude: rows j0 + r < j0 + nrow, columns i0 + c
+// < i0 + ncol; (k, r) advance by carries, as in load_lines.
+template <int kWarps>
+__device__ __forceinline__ void store_lines(const float* sm, int nzp, int w,
+                                            float* dst, const Epi& e, int j0,
+                                            int i0, int nrow, int ncol) {
+  const int warp = threadIdx.x / 32, lane = lane_id();
+  int r = warp % nrow, k = warp / nrow;
+  const int dr = kWarps % nrow, dk = kWarps / nrow;
+  while (k < e.nz) {
+    float* row = dst + ((size_t)k * e.ny + j0 + r) * e.nx + i0;
+    for (int c = lane; c < ncol; c += 32) row[c] = sm[(r * w + c) * nzp + k];
+    r += dr;
+    k += dk;
+    if (r >= nrow) { r -= nrow; ++k; }
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(threads_for<L>(), L == 1 ? 2 : 1)
+epilogue_kernel(Epi e) {
+  constexpr int kWarps = threads_for<L>() / 32;
+  extern __shared__ float sm[];
+  const int nz = e.nz, ny = e.ny, nx = e.nx, kb = nz - 1;
+  const Tile t(nz, e.tx, e.tj);
+  const int i0 = blockIdx.x * e.tx, j0 = blockIdx.y * e.tj;
+  const int ncol = min(e.tx, nx - i0), nrow = min(e.tj, ny - j0);
+  const int warp = threadIdx.x / 32;
+  const int es = t.ex * t.ey, own_plane = e.tx * e.tj * t.nzp;
+
+  // 1. load: pott with the west column and south row, the bottom level of
+  // u and v with one column and row around, colp, tsurf and hsurf likewise,
+  // the tile's u, v, qv, qc and other 2-D fields, sigma_vb and dsigma
+  auto row3 = [&](const float* f, int k, int j) {
+    return f + ((size_t)k * ny + clamp_row(j, ny)) * nx;
+  };
+  load_lines<kWarps>(sm, 1, nz, t.ey, t.ex, i0 - 1, nx, t.nzp,
+                     [&](int, int k, int r, const float*& row, int& off) {
+                       row = row3(e.pott, k, j0 - 1 + r);
+                       off = t.pott + r * t.ex * t.nzp + k;
+                     });
+  load_lines<kWarps>(sm, 2, 1, t.by, t.bx, i0 - 1, nx, 1,
+                     [&](int q, int, int r, const float*& row, int& off) {
+                       row = row3(q ? e.v : e.u, kb, j0 - 1 + r);
+                       off = (q ? t.vb : t.ub) + r * t.bx;
+                     });
+  load_lines<kWarps>(sm, kNExt2, 1, t.ey, t.ex, i0 - 1, nx, 1,
+                     [&](int q, int, int r, const float*& row, int& off) {
+                       const float* f = q == kColp ? e.colp
+                                      : q == kTsurf ? e.tsurf : e.hsurf;
+                       row = row3(f, 0, j0 - 1 + r);
+                       off = t.ext2 + q * es + r * t.ex;
+                     });
+  for (int q = threadIdx.x; q <= nz; q += threads_for<L>()) {
+    sm[t.sig + q] = e.sigma_vb[q];
+    if (q < nz) sm[t.dsig + q] = e.dsigma[q];
+  }
+  load_lines<kWarps>(sm, kNOwn, nz, e.tj, e.tx, i0, nx, t.nzp,
+                     [&](int q, int k, int r, const float*& row, int& off) {
+                       const float* f = q == kOwnU ? e.u : q == kOwnV ? e.v
+                                      : q == kOwnQv ? e.qv : e.qc;
+                       row = row3(f, k, j0 + r);
+                       off = t.own + q * own_plane + r * e.tx * t.nzp + k;
+                     });
+  load_lines<kWarps>(sm, kNOwn2, 1, e.tj, e.tx, i0, nx, 1,
+                     [&](int q, int, int r, const float*& row, int& off) {
+                       const float* f = q == kLand ? e.land
+                                      : q == kEvapEff ? e.evap_eff
+                                      : q == kSwflx ? e.swflx
+                                      : q == kLwflx ? e.lwflx
+                                      : q == kRain ? e.rain : e.soil;
+                       row = row3(f, 0, j0 + r);
+                       off = t.own2 + q * e.tx * e.tj + r * e.tx;
+                     });
+  wait_copies();
+  __syncthreads();
+
+  // 2. the surface core, then the profile, of the tile, its west column and
+  // south row (the columns the physics reads: see active)
+  auto active = [&](int er, int ec) {
+    return !(er > nrow || ec > ncol || (er == 0 && (ec == 0 || j0 == 0)));
+  };
+  for (int c = threadIdx.x; c < es; c += threads_for<L>()) {
+    const int er = c / t.ex, ec = c % t.ex;
+    if (active(er, ec)) surface_core(e, t, sm, j0 - 1 + er, er, ec);
+  }
+  __syncthreads();
+  if (e.w_trb) {
+    for (int c = warp; c < es; c += kWarps) {
+      const int er = c / t.ex, ec = c % t.ex;
+      if (active(er, ec)) column_profile<L>(e, t, sm, c);
+    }
+    __syncthreads();
+  }
+
+  // 3. the physics, one warp per column of the tile
+  for (int o = warp; o < e.tx * e.tj; o += kWarps) {
+    const int jr = o / e.tx, x = o % e.tx;
+    if (jr < nrow && x < ncol) column_physics<L>(e, t, sm, j0, i0, jr, x);
+  }
+  __syncthreads();
+
+  // 4. store the tile's five fields
+  store_lines<kWarps>(sm + t.pott + (t.ex + 1) * t.nzp, t.nzp, t.ex,
+                      e.pott_out, e, j0, i0, nrow, ncol);
+#pragma unroll
+  for (int q = 0; q < kNOwn; ++q)
+    store_lines<kWarps>(sm + t.own + q * own_plane, t.nzp, e.tx,
+                        q == kOwnU ? e.u_out : q == kOwnV ? e.v_out
+                        : q == kOwnQv ? e.qv_out : e.qc_out,
+                        e, j0, i0, nrow, ncol);
+}
+
+template <int L>
+int launch(const Epi& e, dim3 grid, int smem, cudaStream_t s) {
+  static int opted = 48 * 1024;                   // the default limit
+  const int err = allow_smem(epilogue_kernel<L>, smem, opted);
+  if (err) return err;
+  epilogue_kernel<L><<<grid, threads_for<L>(), smem, s>>>(e);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes (kernels/fused_substep.py), called
 // after cm_fused_substep_f32 on the same stream. vmask may be null (the
-// index rule). work: kColArrays * nz floats per column when nz > kMaxNz,
-// else ignored (may be null). Returns cudaGetLastError() after the launch;
+// index rule). tx, tj and smem_bytes are the tile plan (launch_plan); a
+// plan whose shared memory falls short of the tile's layout, 2 > nz > 128
+// or a tx over 32 is refused. Returns cudaGetLastError() after the launch;
 // 0 is success.
 extern "C" int cm_physics_epilogue_f32(
     const float* u, const float* v, const float* pott, const float* qv,
@@ -421,25 +684,28 @@ extern "C" int cm_physics_epilogue_f32(
     const float* vmask, const float* sigma_vb, const float* dsigma,
     float* u_out, float* v_out, float* pott_out, float* qv_out,
     float* qc_out, float* tsurf_out, float* rain_out, float* soil_out,
-    float* work, int nz, int ny, int nx, float dt, float ptop,
-    float frac,
+    int nz, int ny, int nx, int tx, int tj, int smem_bytes,
+    float dt, float ptop, float frac,
     int w_srf, int w_trb, int w_mic, int w_soil, int w_conv,
     float drag, float soil_cap, float ocean_cap, float qc_thr,
     float k_scalar, float k_mom, float sm_cap, float conv_k, float conv_rh,
     void* stream) {
-  if (nz < 2 || (nz > kMaxNz && !work)) return (int)cudaErrorInvalidValue;
+  if (nz < 2 || nz > 128 || tx < 1 || tx > 32 || tj < 1
+      || smem_bytes < (int)sizeof(float) * Tile(nz, tx, tj).total)
+    return (int)cudaErrorInvalidValue;
   Epi e{u, v, pott, qv, qc, colp, tsurf, rain, soil, swflx, lwflx,
         land, evap_eff, hsurf, vmask, sigma_vb, dsigma,
         u_out, v_out, pott_out, qv_out, qc_out, tsurf_out, rain_out, soil_out,
-        nz > kMaxNz ? work : nullptr, nz, ny, nx, dt, ptop, frac,
+        nz, ny, nx, tx, tj, dt, ptop, frac,
         w_srf, w_trb, w_mic, w_soil, w_conv, drag, soil_cap, ocean_cap,
         qc_thr, k_scalar, k_mom, sm_cap, conv_k, conv_rh};
-  const int threads = 128;
-  const dim3 cols((nx + threads - 1) / threads, ny);
+  const dim3 grid((nx + tx - 1) / tx, (ny + tj - 1) / tj);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nz <= kMaxNz)
-    epilogue_kernel<true><<<cols, threads, 0, s>>>(e);
-  else
-    epilogue_kernel<false><<<cols, threads, 0, s>>>(e);
-  return (int)cudaGetLastError();
+  switch ((nz + 31) / 32) {
+    case 1: return launch<1>(e, grid, smem_bytes, s);
+    case 2: return launch<2>(e, grid, smem_bytes, s);
+    case 3: return launch<3>(e, grid, smem_bytes, s);
+    case 4: return launch<4>(e, grid, smem_bytes, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,13 +12,16 @@ packed path (``dist/packed_halo.py``), the same launches on a shard's block
 and on the seam strips of the halo-overlap schedule (the header of
 ``csrc/fused_substep.cu`` says why the lon wrap, wrong at a block's edge,
 stays in its ghost columns). The kernel sources are
-``csrc/fused_substep.cu`` (the substep, two launches) and
-``csrc/physics_epilogue.cu`` (the epilogue, a third launch); their headers
-say how each is split into launches and what bounds it on the card.
+``csrc/fused_substep.cu`` (the substep, one launch) and
+``csrc/physics_epilogue.cu`` (the epilogue, a second launch), with the
+warp-per-column helpers of ``csrc/column.cuh``; their headers say how a
+block's tile, its halo and the warp scans work and what bounds each on the
+card. ``launch_plan`` sizes the tiles and their shared memory.
 
 * ``predictor`` / ``corrector`` are the wrappers. On a CUDA tensor they
-  launch the kernels (fp32 only) or raise; on a CPU tensor they call the
-  plain version. Each counts its launches per variant in plain integer
+  launch the kernels (fp32, 2 to ``MAX_NZ`` levels) or raise; on a CPU
+  tensor they call the plain version. Each counts its launches per variant
+  in plain integer
   attributes. On a whole grid (``part="grid"``): ``predictor.launches`` /
   ``.masked_launches`` (index rule / mask), ``corrector.launches`` /
   ``.masked_launches`` (without the epilogue) and
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import glob
 import hashlib
 import os
@@ -72,18 +76,100 @@ PHYS_FIELDS = ("surface", "turbulence", "microphysics", "drag_coef",
                "diff_coef_scalar", "diff_coef_momentum", "soil_moisture",
                "soil_moist_cap", "convection", "conv_diffusivity",
                "conv_rh_crit")
-# Columns taller than kMaxNz of csrc/physics_epilogue.cu keep their
-# kColArrays column arrays in a workspace the wrapper allocates.
-EPILOGUE_LOCAL_NZ = 64
-EPILOGUE_COL_ARRAYS = 15
 PARTS = ("grid", "shard", "south_strip", "north_strip")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "cm_fused_substep_f32": [_P] * 27 + [_I] * 3 + [_F] * 3 + [_I] * 3 + [_P],
-    "cm_physics_epilogue_f32": [_P] * 26 + [_I] * 3 + [_F] * 3 + [_I] * 5
+    "cm_fused_substep_f32": [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 3 + [_P],
+    "cm_physics_epilogue_f32": [_P] * 25 + [_I] * 6 + [_F] * 3 + [_I] * 5
                                + [_F] * 9 + [_P],
 }
+
+# ---------------------------------------------------------------------------
+# Launch plan
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448         # shared memory a block may use (H100: 227 KB)
+SMEM_TWO_BLOCKS = 115_712    # ... with two blocks on an SM (228 KB, 1 KB each)
+SMS = 132                    # streaming multiprocessors of the H100
+MAX_NZ = 128                 # 4 levels a lane of a warp (csrc/column.cuh)
+TILE_WIDTHS = (32, 16, 8)    # longitudes a tile, widest first
+
+
+def substep_smem_floats(nz: int, tx: int, tj: int) -> int:
+    """Shared memory of a substep tile of tj rows x tx longitudes, in
+    floats (``Tile`` of ``csrc/fused_substep.cu``): the five fields with
+    one column and row around; the scans' wwind, phi with its layer part,
+    pvtf, COLP_new, base COLP, dCOLP/dt and the surface Exner factor for
+    the tile with one column west and one row south; the COLP patch with
+    two columns and rows around; the geometry of the rows with one around;
+    sigma_vb and dsigma."""
+    nzp, nwp = nz | 1, (nz + 1) | 1
+    e = (tx + 1) * (tj + 1)
+    return (5 * (tj + 2) * (tx + 2) * nzp + e * (nwp + 3 * nzp + 4)
+            + (tj + 3) * (tx + 3) + (tj + 2) * len(GEO_FIELDS) + 2 * nz + 1)
+
+
+def epilogue_smem_floats(nz: int, tx: int, tj: int) -> int:
+    """Shared memory of an epilogue tile, in floats (``Tile`` of
+    ``csrc/physics_epilogue.cu``): pott, the 4 profile arrays, the 8
+    surface scalars, 3 2-D fields and the surface Exner factor of the tile
+    with one column west and one row south; the tile's u, v, qv, qc and 6
+    2-D fields; the bottom u and v with one column and row around; sigma_vb
+    and dsigma."""
+    nzp = nz | 1
+    e = (tx + 1) * (tj + 1)
+    return (e * nzp + 4 * tx * tj * nzp + 4 * e * nzp + 8 * e
+            + 2 * (tx + 2) * (tj + 2) + 4 * e + 6 * tx * tj + 2 * nz + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    tx: int                  # longitudes a tile
+    tj: int                  # latitude rows a tile
+    grid: tuple              # blocks along (lon, lat)
+    smem_bytes: int          # dynamic shared memory a block
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    substep: TilePlan
+    epilogue: TilePlan
+
+
+def _tile(floats, nz: int, ny: int, nx: int, rows: tuple,
+          budget: int) -> TilePlan:
+    """The widest tile of one row whose shared memory fits a block; then
+    the most rows of ``rows`` whose shared memory is at most ``budget``
+    bytes while the grid keeps two blocks for each SM."""
+    tx = next((w for w in TILE_WIDTHS if 4 * floats(nz, w, 1) <= SMEM_LIMIT),
+              None)
+    if tx is None:
+        raise ValueError(f"no tile of {nz} levels fits {SMEM_LIMIT} bytes "
+                         "of shared memory")
+    gx = -(-nx // tx)
+    tj = next((n for n in rows if 4 * floats(nz, tx, n) <= budget
+               and gx * -(-ny // n) >= 2 * SMS), 1)
+    return TilePlan(tx=tx, tj=tj, grid=(gx, -(-ny // tj)),
+                    smem_bytes=4 * floats(nz, tx, tj))
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(nz: int, ny: int, nx: int) -> LaunchPlan:
+    """The tiles, grids and dynamic shared memory of the substep and
+    epilogue launches on a (nz, ny, nx) block, computed once per shape.
+    Raises ValueError on a shape the kernels do not take: fewer than 2 or
+    more than ``MAX_NZ`` levels, or an empty grid."""
+    if not 2 <= nz <= MAX_NZ:
+        raise ValueError(f"the kernels take 2 to {MAX_NZ} levels, not {nz}")
+    if ny < 1 or nx < 1:
+        raise ValueError(f"empty grid {ny}x{nx}")
+    return LaunchPlan(
+        # the substep runs one block of 16 warps an SM, the epilogue two
+        # blocks an SM at up to 32 levels
+        substep=_tile(substep_smem_floats, nz, ny, nx, (3, 2), SMEM_LIMIT),
+        epilogue=_tile(epilogue_smem_floats, nz, ny, nx, (2,),
+                       SMEM_TWO_BLOCKS))
 
 
 @dataclasses.dataclass
@@ -307,19 +393,20 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
     nz, ny, nx = ev.u.shape
     s3 = (nz, ny, nx)
     b = ev if base is None else base
+    plan = launch_plan(nz, ny, nx)
 
     def empty(shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     geo = geo_table(grid)
     out = {f: empty(s3) for f in _FIELDS3}
-    # with the epilogue, the substep writes the post-dynamics fields to
-    # scratch and the epilogue writes the outputs
+    # with the epilogue, the substep writes the post-dynamics fields, which
+    # the epilogue reads, and the epilogue writes the outputs
     dyn = {f: empty(s3) for f in _FIELDS3} if phys is not None else out
     colp = empty((ny, nx))
-    wwind, phi, pvtf = empty((nz + 1, ny, nx)), empty(s3), empty(s3)
     rad_ptr = ev.dpottdt_rad.data_ptr() if with_rad else None
     lib = _lib()
+    sp, ep = plan.substep, plan.epilogue
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cm_fused_substep_f32(
@@ -328,8 +415,8 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
             forcing.hsurf.data_ptr(), rad_ptr, geo.data_ptr(),
             grid.sigma_vb.data_ptr(), grid.dsigma.data_ptr(), _ptr(vmask),
             *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
-            wwind.data_ptr(), phi.data_ptr(), pvtf.data_ptr(),
-            nz, ny, nx, float(dt), float(grid.dy), float(grid.ptop),
+            nz, ny, nx, sp.tx, sp.tj, sp.smem_bytes,
+            float(dt), float(grid.dy), float(grid.ptop),
             int(base is None), int(with_rad), int(with_diff), stream)
         if err != 0:
             raise RuntimeError(f"fused_substep launch failed: CUDA error "
@@ -337,8 +424,6 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
         if phys is None:
             return b.replace(colp=colp, **out)
         new2 = {f: empty((ny, nx)) for f in _FIELDS2_OUT}
-        work = (empty((ny * nx * EPILOGUE_COL_ARRAYS * nz,))
-                if nz > EPILOGUE_LOCAL_NZ else None)
         p = dict(zip(PHYS_FIELDS, phys))
         err = lib.cm_physics_epilogue_f32(
             *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
@@ -347,8 +432,9 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
             forcing.hsurf.data_ptr(), _ptr(vmask), grid.sigma_vb.data_ptr(),
             grid.dsigma.data_ptr(),
             *(out[f].data_ptr() for f in _FIELDS3),
-            *(new2[f].data_ptr() for f in _FIELDS2_OUT), _ptr(work),
-            nz, ny, nx, float(dt), float(grid.ptop),
+            *(new2[f].data_ptr() for f in _FIELDS2_OUT),
+            nz, ny, nx, ep.tx, ep.tj, ep.smem_bytes,
+            float(dt), float(grid.ptop),
             _autoconv_frac(dt, p["qc_autoconv_time"]) if p["microphysics"]
             else 0.0,
             *(int(bool(p[f])) for f in _EPI_SWITCHES),

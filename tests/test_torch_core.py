@@ -22,6 +22,8 @@ from climate_model_tpu_torch.core import grid as tgrid
 from climate_model_tpu_torch.core import init as tinit
 from climate_model_tpu_torch.io import convert
 
+from ._torch_threads import torch_threads  # noqa: F401 (fixture)
+
 
 def to_numpy(obj) -> dict:
     """Dict of NumPy arrays from a dataclass of either package (what the

@@ -51,6 +51,8 @@ from climate_model_tpu_torch.kernels import fused_substep as fs
 
 from .test_torch_core import jax_cfg
 
+from ._torch_threads import torch_threads  # noqa: F401 (fixture)
+
 N_STEPS = 4
 FIELDS = sharding.STATE_FIELDS
 REF_TOL = dict(rtol=1e-9, atol=1e-10)

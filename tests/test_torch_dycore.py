@@ -26,6 +26,8 @@ from climate_model_tpu_torch.dycore import tendencies as ttnd
 
 from .test_torch_core import jax_cfg, jax_inputs, port_inputs, small_cfg
 
+from ._torch_threads import torch_threads  # noqa: F401 (fixture)
+
 TOL = dict(rtol=1e-11, atol=1e-11)
 SIZES = [dict(nx=16, ny=10, nz=4), dict(nx=32, ny=16, nz=8)]
 

@@ -29,6 +29,8 @@ from climate_model_tpu_torch.core.config import (GridConfig, ModelConfig,
 from climate_model_tpu_torch.core.init import initialize
 from climate_model_tpu_torch.kernels import fused_substep as fs
 
+from ._torch_threads import torch_threads  # noqa: F401 (fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -242,8 +244,9 @@ def test_kernel_refuses_float64_on_card(cuda_device):
 
 @pytest.mark.gpu
 def test_tall_epilogue_matches_plain_on_card(cuda_device):
-    """The corrector with the physics epilogue on 96-level columns (the
-    kernel's workspace form) within ``chip_smoke.py``'s bounds."""
+    """The corrector with the physics epilogue on 96-level columns (three
+    levels a lane of the epilogue's warps) within ``chip_smoke.py``'s
+    bounds."""
     import chip_smoke as cs
     bad = []
     cs.check_tall(cuda_device, bad)

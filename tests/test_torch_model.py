@@ -35,6 +35,8 @@ from climate_model_tpu_torch.physics import radiation as trad
 
 from .test_torch_core import jax_cfg
 
+from ._torch_threads import torch_threads  # noqa: F401 (fixture)
+
 FIELDS = ("u", "v", "colp", "pott", "qv", "qc", "tsurf", "rain",
           "soil_moist", "dpottdt_rad", "swflx_sfc", "lwflx_sfc")
 

@@ -28,6 +28,8 @@ from climate_model_tpu_torch.physics import turbulence as tturb
 
 from .test_torch_core import jax_cfg, jax_inputs, port_inputs, small_cfg
 
+from ._torch_threads import torch_threads  # noqa: F401 (fixture)
+
 FULL = dict(microphysics=True, radiation=True, surface=True, turbulence=True)
 FIELDS = ("u", "v", "pott", "qv", "qc", "tsurf", "rain", "soil_moist",
           "dpottdt_rad", "swflx_sfc", "lwflx_sfc")

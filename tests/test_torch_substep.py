@@ -19,6 +19,8 @@ from climate_model_tpu_torch.kernels import fused_substep as fs
 
 from .test_torch_core import jax_cfg, jax_inputs, port_inputs, small_cfg
 
+from ._torch_threads import torch_threads  # noqa: F401 (fixture)
+
 TOL = dict(rtol=1e-10, atol=1e-10)
 OUT = ("u", "v", "pott", "qv", "qc", "colp")
 
