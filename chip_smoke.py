@@ -36,7 +36,7 @@ and exits non-zero:
                every launch and call counter set to 0 just before and read
                just after: one masked predictor and one epilogue corrector
                a step, no other launch and no plain physics split; cadence,
-               dt and fields are checked. Nothing is written to disk;
+               dt and fields are checked. No file is written;
 6. per-step -- the per-step path (``run_scan(make_step_fn(cfg), ...)``) for
                the first chunk of the run, from the same initial state,
                with its counters and sanity checks; the packed scan over
@@ -55,7 +55,22 @@ and exits non-zero:
                fault (the lon exchange left out, the lat exchange left out,
                ghosts of 2) against the unsharded grid;
 9. backend  -- ``run --baseline 1`` (backend='jnp') on the card: the plain
-               path, no kernel launch, finite fields.
+               path, no kernel launch, finite fields;
+10. io      -- in a temporary directory that it removes: phase 5's run
+               with ``--out-dir`` (the NetCDF files, metrics.jsonl and the
+               checkpoint read back and held against the final state, and
+               ms/step with output beside phase 5's); the same horizon run
+               in two parts across a checkpoint, equal to it bit for bit
+               in every State field, with one metrics timeline and the same
+               last NetCDF file; planted faults (a resume with the
+               radiation cache zeroed must differ, a resume with ``--diff``
+               changed must be refused naming the field, and with
+               ``--force-resume`` must record the branch); #4's blocking
+               run on its 2x4 mesh in two parts, the checkpoint saved from
+               the gathered state, equal to the continuous run bit for bit;
+               the host ms of save_checkpoint, load_checkpoint and
+               NCWriter.write. It prints whether matplotlib imports, which
+               gates nothing.
 
 Phase 3 also holds the epilogue's momentum terms on a windy state
 (MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
@@ -70,9 +85,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -88,6 +106,9 @@ from climate_model_tpu_torch.dist.mesh import Mesh, make_mesh
 from climate_model_tpu_torch.dist.packed_halo import SeamStrip, row_mask
 from climate_model_tpu_torch.dycore.operators import diagnose_pressure
 from climate_model_tpu_torch.dycore.stepper import run_scan, step_matsuno
+from climate_model_tpu_torch.io.checkpoint import (load_checkpoint,
+                                                   save_checkpoint)
+from climate_model_tpu_torch.io.netcdf import NCWriter
 from climate_model_tpu_torch.kernels import fused_substep as fs
 from climate_model_tpu_torch.model import (make_chunk_runner, make_step_fn,
                                            phys_epilogue_tuple)
@@ -198,6 +219,19 @@ FAULT_STEPS = 20
 # ... and BASELINE #1 (backend='jnp') on the card for 0.05 days: the plain
 # per-step path, no kernel launch.
 BACKEND_ARGV = ["run", "--baseline", "1", "--days", "0.05"]
+# Phase 10 (io): config #3 with its files, continuous and split at half the
+# horizon (step 127 of 253, between the radiation refreshes at steps 105
+# and 210, so the resumed run needs the saved caches), and #4's blocking
+# run on its 2x4 mesh split at half its horizon. Bit for bit equality holds
+# because dt does not change across a resume: at these calm winds the
+# adapted dt equals the initial dt in fp32, at #3 (34.148 s) and at #4
+# (16.715 s).
+IO_SPLIT_DAYS = 0.05
+IO4_SPLIT_DAYS = 0.025
+IO_TIMING_REPS = 3
+NC_FIELDS = {"UWIND": "u", "VWIND": "v", "POTT": "pott", "QV": "qv",
+             "QC": "qc", "COLP": "colp", "RAIN": "rain", "TSURF": "tsurf",
+             "SOILMOIST": "soil_moist"}
 
 # Main-path sanity bounds (the repo's verification recipe for a short run):
 MAX_WIND = 100.0                 # m/s; beyond it the run is blowing up
@@ -1291,6 +1325,216 @@ def backend_path(dev, card: str):
           f"{res.records[-1]['max_wind']:.2f} m/s [{card}]", flush=True)
 
 
+def same_state(a, b) -> bool:
+    """Every field of two States equal bit for bit: the prognostic fields,
+    the radiation caches, ``t`` and ``step``."""
+    return (a.step == b.step and torch.equal(a.t, b.t)
+            and bitwise_equal(a, b, STATE_FIELDS))
+
+
+def nc_vars(path) -> dict:
+    from scipy.io import netcdf_file
+    with netcdf_file(path, "r", mmap=False) as f:
+        return {k: np.array(v[:]) for k, v in f.variables.items()}
+
+
+def metric_steps(out_dir) -> list:
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line)["step"] for line in f]
+
+
+def host_ms(fn, reps=IO_TIMING_REPS) -> float:
+    """Host wall ms per call of ``fn``, the card synchronised around."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / reps
+
+
+def io_path(dev, card: str, main_steady_ms: float):
+    """Phase 10: config #3 through ``cli.run`` with an out-dir, continuous
+    and split across a checkpoint, bit for bit; planted resume faults; #4
+    on its 2x4 mesh split across a checkpoint saved from the gathered
+    state; the io layer's times."""
+    try:
+        import matplotlib
+        probe = f"matplotlib {matplotlib.__version__} importable"
+    except ImportError as e:
+        probe = f"matplotlib not importable ({e})"
+    print(f"  probe (gates nothing): {probe}", flush=True)
+    bad = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        _io3(dev, card, main_steady_ms, root, bad)
+        _io4(dev, card, root, bad)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def _io3(dev, card, main_steady_ms, root, bad):
+    cfg = cli.build_config(cli.make_parser().parse_args(MAIN_ARGV))
+    a, b = os.path.join(root, "a"), os.path.join(root, "b")
+    # 1. continuous, with every file
+    reset_counts()
+    ra = cli.run(cfg, device=dev, out_dir=a)
+    counts = read_counts()
+    if counts["predictor_masked"] != ra.steps \
+            or counts["corrector_epilogue"] != ra.steps:
+        bad.append(f"#3 with output: counts {counts} for {ra.steps} steps")
+    n = len(ra.chunks)
+    want = sorted(["constants.nc", "metrics.jsonl", "restart.npz"]
+                  + [f"out_{i:04d}.nc" for i in range(n)])
+    if n != 3 or sorted(os.listdir(a)) != want:
+        bad.append(f"#3 with output: chunks {ra.chunks}, files "
+                   f"{sorted(os.listdir(a))}, expected {want}")
+    steps_a = metric_steps(a)
+    if len(steps_a) != n or steps_a != sorted(set(steps_a)) \
+            or steps_a[-1] != ra.steps:
+        bad.append(f"#3 metrics.jsonl steps {steps_a}")
+    ck = load_checkpoint(os.path.join(a, "restart.npz"), cfg, device=dev)
+    last = nc_vars(os.path.join(a, f"out_{n - 1:04d}.nc"))
+    s = ra.state
+    nc_ok = all(np.array_equal(last[k][0], getattr(s, f).cpu().numpy())
+                for k, f in NC_FIELDS.items())
+    nc_ok &= bool(last["time"][0] == np.float32(float(s.t) / 86400.0))
+    for k in ("TAIR", "PHI", "WWIND"):
+        nz = s.u.shape[0] + (k == "WWIND")
+        nc_ok &= last[k].shape == (1, nz) + tuple(s.u.shape[1:]) \
+            and bool(np.isfinite(last[k]).all())
+    steady = 1e3 * sum(r["wall_s"] for r in ra.records[1:]) \
+        / sum(ra.chunks[1:])
+    print(f"  #3 with --out-dir: {ra.steps} steps {ra.chunks}, files "
+          f"{sorted(os.listdir(a))}; metrics steps {steps_a}; checkpoint "
+          f"read back equal to the final state bit for bit: "
+          f"{same_state(ck, s)}; last NetCDF file equal to it (prognostic "
+          f"fields bit for bit, TAIR/PHI/WWIND finite): {nc_ok}; after the "
+          f"first chunk {steady:.3f} ms/step with output against "
+          f"{main_steady_ms:.3f} without (phase 5); wall ms of each chunk, "
+          f"the NetCDF write after the one before included: "
+          f"{[round(1e3 * r['wall_s'], 1) for r in ra.records]} [{card}]",
+          flush=True)
+    if not same_state(ck, s):
+        bad.append("#3 checkpoint read back differs from the final state")
+    if not nc_ok:
+        bad.append("#3 last NetCDF file differs from the final state")
+
+    # 2. split at half the horizon, resumed into the same out-dir
+    r1 = cli.run(cfg.replace(sim_days=IO_SPLIT_DAYS), device=dev, out_dir=b)
+    mid = os.path.join(root, "mid.npz")
+    shutil.copy(os.path.join(b, "restart.npz"), mid)
+    r2 = cli.run(cfg, device=dev, out_dir=b,
+                 restart_from=os.path.join(b, "restart.npz"))
+    steps_b = metric_steps(b)
+    nb = len(r1.chunks) + len(r2.chunks)
+    last_b = nc_vars(os.path.join(b, f"out_{nb - 1:04d}.nc"))
+    same_nc = last_b.keys() == last.keys() and all(
+        np.array_equal(last_b[k], v) for k, v in last.items())
+    same = same_state(r2.state, s)
+    print(f"  #3 split: {r1.steps} steps {r1.chunks}, then resumed at step "
+          f"{r2.start_step} for {r2.steps} steps {r2.chunks}; final state "
+          f"equal to the continuous run's bit for bit (every field, t, step, "
+          f"radiation caches): {same}; metrics steps {steps_b}; last NetCDF "
+          f"file equal to the continuous run's last: {same_nc} [{card}]",
+          flush=True)
+    if not same:
+        bad.append("#3 split run differs from the continuous run: "
+                   + str(state_diffs(r2.state, s)))
+    if r2.start_step != r1.steps or r1.steps + r2.steps != ra.steps:
+        bad.append(f"#3 resume started at {r2.start_step} and ran "
+                   f"{r2.steps} steps after {r1.steps}, of {ra.steps}")
+    if steps_b != sorted(set(steps_b)) or steps_b[0] != steps_a[0] \
+            or steps_b[-1] != steps_a[-1] or r1.steps not in steps_b:
+        bad.append(f"#3 split metrics steps {steps_b} against {steps_a}")
+    if not same_nc:
+        bad.append("#3 split run's last NetCDF file differs")
+    shutil.rmtree(b)
+
+    # 3. planted faults: each must break its gate
+    with np.load(mid) as z:
+        items = {k: z[k] for k in z.files}
+    items["dpottdt_rad"] = np.zeros_like(items["dpottdt_rad"])
+    zeroed = os.path.join(root, "zeroed.npz")
+    np.savez(zeroed, **items)
+    rz = cli.run(cfg, device=dev, restart_from=zeroed)
+    broke = not same_state(rz.state, s)
+    print(f"  planted fault, resume with the radiation cache zeroed: final "
+          f"state differs: {broke}; max|dpott| "
+          f"{float((rz.state.pott - s.pott).abs().max()):.3e} K", flush=True)
+    if not broke:
+        bad.append("resume with dpottdt_rad zeroed equals the sound run")
+    retuned = cli.build_config(cli.make_parser().parse_args(
+        MAIN_ARGV + ["--diff", "77.0"]))
+    try:
+        cli.run(retuned, device=dev, restart_from=mid)
+        refused = "not refused"
+    except ValueError as e:
+        refused = str(e)
+    ok = "numerics.diff_uv" in refused
+    print(f"  planted fault, resume with --diff 77: refused naming "
+          f"numerics.diff_uv: {ok}", flush=True)
+    if not ok:
+        bad.append(f"resume with --diff 77: {refused}")
+    branch = os.path.join(root, "branch")
+    cli.run(retuned, device=dev, restart_from=mid, force_resume=True,
+            out_dir=branch, no_nc=True)
+    with open(os.path.join(branch, "forced_branch.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    ok = len(recs) == 1 and recs[0]["step"] == r1.steps and \
+        recs[0]["mismatch"]["numerics.diff_uv"]["current"] == 77.0
+    print(f"  planted fault, --force-resume with --diff 77: "
+          f"forced_branch.jsonl {recs}", flush=True)
+    if not ok:
+        bad.append(f"forced resume recorded {recs}")
+
+    # 4. times at #3
+    path = os.path.join(root, "t3.npz")
+    save_ms = host_ms(lambda: save_checkpoint(path, s, cfg))
+    load_ms = host_ms(lambda: load_checkpoint(path, cfg, device=dev))
+    writer = NCWriter(os.path.join(root, "nc"))
+    writer.write(s, ra.grid, ra.forcing)          # constants.nc once
+    nc_ms = host_ms(lambda: writer.write(s, ra.grid, ra.forcing))
+    mb = os.path.getsize(path) / 1e6
+    nc_mb = os.path.getsize(os.path.join(root, "nc", "out_0001.nc")) / 1e6
+    print(f"  #3 io times, host ms per call (synchronised), mean of "
+          f"{IO_TIMING_REPS}: save_checkpoint {save_ms:.1f} ({mb:.1f} MB), "
+          f"load_checkpoint to the card {load_ms:.1f}, NCWriter.write "
+          f"{nc_ms:.1f} ({nc_mb:.1f} MB) [{card}]", flush=True)
+
+
+def _io4(dev, card, root, bad):
+    cfg = cli.build_config(cli.make_parser().parse_args(BLOCKING_ARGV))
+    c, d = os.path.join(root, "c"), os.path.join(root, "d")
+    rc = cli.run(cfg, device=dev, out_dir=c, no_nc=True)
+    r1 = cli.run(cfg.replace(sim_days=IO4_SPLIT_DAYS), device=dev,
+                 out_dir=d, no_nc=True)
+    r2 = cli.run(cfg, device=dev, out_dir=d, no_nc=True,
+                 restart_from=os.path.join(d, "restart.npz"))
+    same = same_state(r2.state, rc.state)
+    print(f"  #4 {rc.path}: {rc.steps} steps {rc.chunks} continuous; split "
+          f"{r1.steps} steps, saved from the gathered state, resumed onto "
+          f"the mesh at step {r2.start_step} for {r2.steps} steps; final "
+          f"state equal bit for bit: {same} [{card}]", flush=True)
+    if not same:
+        bad.append("#4 split run differs from the continuous run: "
+                   + str(state_diffs(r2.state, rc.state)))
+    if r2.start_step != r1.steps or r1.steps + r2.steps != rc.steps \
+            or "sharded" not in r2.path:
+        bad.append(f"#4 resume: {r2.path}, started at {r2.start_step}, "
+                   f"{r2.steps} steps after {r1.steps}, of {rc.steps}")
+    shutil.rmtree(d)
+    path = os.path.join(c, "restart.npz")
+    load_ms = host_ms(lambda: load_checkpoint(path, cfg, device=dev))
+    save_ms = host_ms(lambda: save_checkpoint(path, rc.state, cfg))
+    print(f"  #4 io times, host ms per call (synchronised), mean of "
+          f"{IO_TIMING_REPS}: save_checkpoint {save_ms:.1f} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB), load_checkpoint to the "
+          f"card {load_ms:.1f} [{card}]", flush=True)
+
+
 VARIANTS = {
     # name: (counter, path that launches it, errors key)
     "predictor": ("predictor", "per-step", "predictor"),
@@ -1375,6 +1619,12 @@ def main() -> int:
     t = time.perf_counter()
     backend_path(dev, card)
     phase("backend", t, "baseline 1 ran the plain path")
+
+    # ---- 10. io: files, checkpoints and resume ----
+    t = time.perf_counter()
+    io_path(dev, card, steady_ms)
+    phase("io", t, "#3 and #4 resumed bit for bit; each planted fault "
+          "breaks its gate")
 
     kernels = []
 

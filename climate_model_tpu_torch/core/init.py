@@ -4,8 +4,8 @@ Port of ``climate_model_tpu/core/init.py``: lapse-rate POTT profile, COLP
 reduced over topography, a zonal jet and a gaussian COLP low, and the
 synthetic topographies. Everything is computed in float64 NumPy with the same
 expressions as the reference and cast once, so the port starts bit-identical
-to the reference at every dtype. Reading topography from a NetCDF file
-(``topo_file``) is not ported yet and raises.
+to the reference at every dtype. ``topo_file`` reads the topography from a
+NetCDF elevation file instead (``io/topo.py``).
 """
 
 from __future__ import annotations
@@ -126,8 +126,8 @@ def initial_state_np(cfg: ModelConfig, kind: str = None,
 
     p = cfg.physics
     if topo_file:
-        raise NotImplementedError(
-            "topo_file (NetCDF topography, io/topo.py) is not ported yet")
+        from ..io.topo import load_topography
+        hsurf, land = load_topography(topo_file, grid_np)
     else:
         hsurf, land = synthetic_topography(grid_np, kind)
     albedo = np.where(land > 0.5, p.albedo_land, p.albedo_ocean)

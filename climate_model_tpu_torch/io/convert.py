@@ -4,7 +4,9 @@ A climate model has no weights: what crosses between the JAX reference and
 the port is state, forcing and grid. These functions take dicts keyed by the
 reference's dataclass field names, which is what ``np.asarray`` of each leaf
 of its ``State``/``Forcing``/``Grid`` gives, and build the port's
-dataclasses (or go the other way). Checkpoint files come with the io slice.
+dataclasses (or go the other way). ``io/checkpoint.py`` reads and writes
+its files through ``state_from_numpy`` and ``state_to_numpy``; both are
+exact for fp32 and fp64.
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ from ..core.state import Forcing, State, resolve_device
 
 
 def _tensor(a, device, dtype):
-    return torch.from_numpy(np.array(a, np.float64)).to(device, dtype)
+    a = np.asarray(a)
+    if a.dtype != torch.empty((), dtype=dtype).numpy().dtype:
+        a = a.astype(np.float64)     # cast once, by torch, to the dtype
+    elif not a.flags.writeable:
+        a = a.copy()
+    return torch.as_tensor(a).to(device, dtype)
 
 
 def state_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> State:

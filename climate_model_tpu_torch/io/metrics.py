@@ -2,8 +2,8 @@
 
 Port of ``climate_model_tpu/io/metrics.py``: the diagnostics are computed on
 the device once per chunk and fetched in one transfer; ``MetricsLogger``
-prints the step line (the JSONL file of the reference is not ported yet).
-A sharded run computes them on its gathered global state, on every rank:
+prints the step line and appends the same record, with the reference's
+keys, to a JSONL file. A sharded run computes them on its gathered global state, on every rank:
 global sums, and the maximum wind over every shard, from which each rank takes
 the same adaptive dt. Only rank 0 prints.
 """
@@ -11,8 +11,10 @@ the same adaptive dt. Only rank 0 prints.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -91,15 +93,54 @@ def diagnostics(state: State, grid: Grid, forcing=None,
         evap_rate=evap_rate, total_rain=total_rain, pw=pw)
 
 
+def _free_suffix(path: str) -> str:
+    """``path.1``, or the first of ``path.2``, ``path.3``, ... not taken."""
+    n = 1
+    while os.path.exists(f"{path}.{n}"):
+        n += 1
+    return f"{path}.{n}"
+
+
 @dataclasses.dataclass
 class MetricsLogger:
-    """Host-side step line, one per chunk (silent with ``quiet``: the ranks
-    other than 0 of a sharded run)."""
+    """Host-side step line and JSONL record, one per chunk (silent and with
+    no file with ``quiet`` and no ``jsonl_path``: the ranks other than 0 of
+    a sharded run)."""
 
+    jsonl_path: Optional[str] = None
     grid_points: int = 0
     quiet: bool = False
     _t_last: float = dataclasses.field(default_factory=time.time)
     _step_last: int = 0
+
+    def begin_session(self, resume_step: int = 0):
+        """Make the JSONL file read as one timeline with monotone steps. A
+        fresh run (``resume_step`` 0) moves a non-empty file aside to the
+        first free ``.1``, ``.2``, ... (the reference always takes ``.1``
+        and so overwrites an older rotation) and leaves an empty one; a
+        resume drops the lines past the resume step, an earlier session's
+        superseded future."""
+        if not (self.jsonl_path and os.path.exists(self.jsonl_path)):
+            return
+        if resume_step <= 0:
+            if os.path.getsize(self.jsonl_path) > 0:
+                rotated = _free_suffix(self.jsonl_path)
+                os.replace(self.jsonl_path, rotated)
+                if not self.quiet:
+                    print(f"note: previous run's {self.jsonl_path} rotated "
+                          f"to {rotated}", flush=True)
+            return
+        kept = []
+        with open(self.jsonl_path) as f:
+            for line in f:
+                try:
+                    if json.loads(line).get("step", 0) > resume_step:
+                        break
+                except json.JSONDecodeError:
+                    break
+                kept.append(line)
+        with open(self.jsonl_path, "w") as f:
+            f.writelines(kept)
 
     def log_chunk(self, d: StepDiagnostics, extra: dict | None = None):
         now = time.time()
@@ -123,6 +164,9 @@ class MetricsLogger:
                   f"COLP {rec['mean_colp']:9.1f} Pa  "
                   f"POTT {rec['mean_pott']:7.2f} K  "
                   f"{gps/1e6:8.2f} Mgp/s", flush=True)
+        if self.jsonl_path:
+            with open(self.jsonl_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
         self._t_last = now
         self._step_last = step
         return rec

@@ -156,13 +156,22 @@ def test_initialize_bitwise(topo, dtype):
     assert gr.dt == float(gj.dt) and gr.dy == float(gj.dy)
 
 
-def test_initialize_refuses_missing_card_and_topo_file():
+def test_initialize_refuses_missing_card_and_topo_file(tmp_path):
+    """No card: the default device raises. ``topo_file``: a file that is
+    not there raises; one that is loads (its island is land)."""
+    from .test_torch_io import elevation_file
+
     cfg = small_cfg()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tinit.initialize(cfg)            # the default device is cuda
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tinit.initialize(cfg.replace(topo_file="elevation.nc"), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        tinit.initialize(cfg.replace(topo_file=str(tmp_path / "none.nc")),
+                         device="cpu")
+    path = elevation_file(str(tmp_path / "etopo.nc"))
+    _, fo, _ = tinit.initialize(cfg.replace(topo_file=path), device="cpu")
+    assert float(fo.land_mask.max()) == 1.0
+    assert float(fo.hsurf[fo.land_mask < 0.5].abs().max()) == 0.0
 
 
 def test_convert_round_trip():

@@ -3,20 +3,25 @@ gloo backend on the CPU, 4 ranks on a (2, 2) mesh with halo overlap, one
 shard per rank (``dist/comm.py::DistExchange``).
 
 Each rank runs the port's ``run`` (two chunks, adaptive dt) on the small
-config of ``test_torch_dist.py`` and also checks the split/gather round trip
-and the wind that the adaptive dt is taken from (the diagnostics of the
-gathered state, so the same on every rank). The ranks do
+config of ``test_torch_dist.py``, with an out-dir, and also checks the
+split/gather round trip and the wind that the adaptive dt is taken from (the
+diagnostics of the gathered state, so the same on every rank). The ranks do
 the same arithmetic on the same blocks as the in-process mesh, so the
-gathered result must equal the in-process run bit for bit.
+gathered result must equal the in-process run bit for bit. The run's final
+checkpoint is one file per rank (``restart.npz.p0`` to ``.p3``), which the
+reference's loader and the port's reassemble into the gathered state; rank 0
+alone writes the metrics and NetCDF files.
 
-The test spawns its ranks itself, joins them within ``TIMEOUT_S`` and kills
-them if they are not done, so that a hang fails it rather than stalling the
-suite.
+A module fixture spawns the ranks once, joins them within ``TIMEOUT_S`` and
+kills them if they are not done, so that a hang fails the tests rather than
+stalling the suite.
 """
 
 import multiprocessing as mp
 import os
 import socket
+
+import pytest
 
 WORLD = 4
 MESH = (2, 2)
@@ -81,11 +86,12 @@ def _rank(rank: int, port: int, out: str):
         round_trip = all(torch.equal(getattr(back, n), getattr(s, n))
                          for n in fields)
         wind = max_wind(cfg, mesh, spiked(s), g, f)
-        res = cli.run(cfg, device="cpu")
+        res = cli.run(cfg, device="cpu", out_dir=f"{out}/run")
         torch.save(dict(rank=mesh.rank, local=mesh.local_shards,
                         round_trip=round_trip, wind=wind, dts=res.dts,
                         chunks=res.chunks, path=res.path,
-                        state={n: getattr(res.state, n) for n in fields}),
+                        state={n: getattr(res.state, n)
+                               for n in fields + ("t", "step")}),
                    f"{out}/rank{rank}.pt")
     finally:
         tdist.destroy_process_group()
@@ -97,12 +103,13 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def test_gloo_ranks_match_in_process(tmp_path):
-    import torch
-
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """The directory the ranks wrote to, once they all exited 0."""
+    out = tmp_path_factory.mktemp("ranks")
     ctx = mp.get_context("spawn")
     port = _free_port()
-    procs = [ctx.Process(target=_rank, args=(r, port, str(tmp_path)))
+    procs = [ctx.Process(target=_rank, args=(r, port, str(out)))
              for r in range(WORLD)]
     for p in procs:
         p.start()
@@ -114,12 +121,59 @@ def test_gloo_ranks_match_in_process(tmp_path):
         p.join()
     assert not hung, f"{len(hung)} ranks still running after {TIMEOUT_S} s"
     assert [p.exitcode for p in procs] == [0] * WORLD
+    return out
+
+
+def test_gloo_ranks_match_in_process(ranks):
+    import torch
+
     threads = torch.get_num_threads()
     torch.set_num_threads(1)       # as the ranks: small work, little CPU
     try:
-        _compare(tmp_path)
+        _compare(ranks)
     finally:
         torch.set_num_threads(threads)
+
+
+def test_gloo_checkpoint_set(ranks):
+    """One checkpoint file per rank, each its shard's interior under global
+    offsets; the reference's loader and the port's reassemble the set into
+    the gathered state bit for bit. Rank 0 alone wrote metrics and NetCDF
+    files, one a chunk."""
+    import numpy as np
+    import torch
+
+    from climate_model_tpu.io.checkpoint import load_checkpoint_ex
+    from climate_model_tpu_torch.io.checkpoint import load_checkpoint
+
+    from .test_torch_core import jax_cfg
+
+    run = ranks / "run"
+    got = torch.load(ranks / "rank0.pt")
+    n_files = len(got["chunks"])
+    assert sorted(os.listdir(run)) == sorted(
+        ["constants.nc", "metrics.jsonl"]
+        + [f"out_{i:04d}.nc" for i in range(n_files)]
+        + [f"restart.npz.p{r}" for r in range(WORLD)])
+    assert len(open(run / "metrics.jsonl").readlines()) == n_files
+    cfg = mp_cfg()
+    ny, nx = cfg.grid.ny // MESH[0], cfg.grid.nx // MESH[1]
+    with np.load(run / "restart.npz.p3") as z:
+        assert z[f"u@0,{ny},{nx}"].shape == (cfg.grid.nz, ny, nx)
+        assert z[f"tsurf@{ny},{nx}"].shape == (ny, nx)
+    path = str(run / "restart.npz")
+    ref, mismatch = load_checkpoint_ex(path, jax_cfg(cfg))
+    assert mismatch is None
+    mine = load_checkpoint(path, cfg, device="cpu")
+    for n, want in got["state"].items():
+        want = np.asarray(want.numpy() if isinstance(want, torch.Tensor)
+                          else want)
+        np.testing.assert_array_equal(np.asarray(getattr(ref, n)), want,
+                                      err_msg=n)
+        x = getattr(mine, n)
+        np.testing.assert_array_equal(
+            x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x),
+            want, err_msg=n)
 
 
 def _compare(tmp_path):
@@ -149,7 +203,8 @@ def _compare(tmp_path):
     assert len(want.chunks) >= 2
     for x in got:
         assert x["dts"] == want.dts and x["chunks"] == want.chunks
-        for n in sharding.STATE_FIELDS:
+        assert x["state"]["step"] == want.state.step
+        for n in sharding.STATE_FIELDS + ("t",):
             assert torch.equal(x["state"][n], getattr(want.state, n)), n
             np.testing.assert_array_equal(x["state"][n].numpy(),
                                           got[0]["state"][n].numpy())

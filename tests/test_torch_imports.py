@@ -45,7 +45,8 @@ def _port_modules():
 def test_port_imports_without_jax():
     mods = _port_modules()
     for name in ("kernels.fused_substep", "dist.mesh", "dist.sharding",
-                 "dist.comm", "dist.packed_halo"):
+                 "dist.comm", "dist.packed_halo", "core.namelist",
+                 "io.checkpoint", "io.netcdf", "io.topo", "io.plot"):
         assert f"climate_model_tpu_torch.{name}" in mods, name
     code = (
         "import sys, importlib\n"

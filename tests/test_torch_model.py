@@ -198,11 +198,9 @@ def test_cli_run_adaptive_two_chunks(capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["run", "--out-dir", "out"], "--out-dir"),
-    (["run", "--restart-from", "restart.npz"], "--restart-from"),
     (["run", "--mesh-lat", "2"], "backend='jnp'"),
-    (["run", "--config", "configs/x.toml"], "--config"),
     (["bench"], "bench"),
+    (["profile"], "profile"),
 ])
 def test_cli_unported_options_raise(argv, what):
     with pytest.raises(NotImplementedError, match=re.escape(what)):
