@@ -71,6 +71,20 @@ and exits non-zero:
                the host ms of save_checkpoint, load_checkpoint and
                NCWriter.write. It prints whether matplotlib imports, which
                gates nothing.
+11. bench   -- the bench slice through cli.main: ``bench --baseline 3``
+               (its JSON line; every counter set to 0 just before and read
+               just after: one masked predictor and one epilogue corrector
+               a step of its four chunks; its step time at least
+               STEP_FLOOR of the two kernels' device time from phase 4, and
+               0 < vs_hbm_roofline <= 1.05), ``bench --micro`` (pred_ms and
+               corr_ms within MICRO_TOL of phase 4's), ``profile`` on the
+               kernels and on the plain splits with a trace written,
+               ``bench --stability`` over 1050 steps, the budget identities
+               at #3 on the plain backend, ``bench --scaling --baseline 4
+               --halo-overlap`` (counted: 8 shard launches of each program
+               a step, 4 south-strip and 4 north-strip), and ``run
+               --stepper euler`` / ``rk4`` at 64x32x8 with the run's sanity
+               checks.
 
 Phase 3 also holds the epilogue's momentum terms on a windy state
 (MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
@@ -82,8 +96,10 @@ imports no JAX, and neither does this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
@@ -97,6 +113,8 @@ import numpy as np
 import torch
 
 from climate_model_tpu_torch import cli
+from climate_model_tpu_torch.bench.micro import device_ms, launch_ms
+from climate_model_tpu_torch.bench.roofline import substep_bound_ms
 from climate_model_tpu_torch.core.config import (baseline_config,
                                                  resolve_rad_interval)
 from climate_model_tpu_torch.core.grid import adaptive_cfl_dt, round_to
@@ -233,24 +251,38 @@ NC_FIELDS = {"UWIND": "u", "VWIND": "v", "POTT": "pott", "QV": "qv",
              "QC": "qc", "COLP": "colp", "RAIN": "rain", "TSURF": "tsurf",
              "SOILMOIST": "soil_moist"}
 
+# Phase 11 (bench): the bench and profile subcommands on the card, each
+# through cli.main with its one JSON line (or table) read back. bench's
+# defaults are 50 steps a chunk, one warm-up chunk and the best of 3.
+BENCH_ARGV = ["bench", "--baseline", "3"]
+BENCH_CHUNKS = 1 + 3
+MICRO_ARGV = ["bench", "--micro", "--baseline", "3"]
+PROFILE_ARGV = ["profile", "--baseline", "3"]
+PROFILE_JNP_ARGV = PROFILE_ARGV + ["--backend", "jnp"]
+STABILITY_ARGV = ["bench", "--stability", "--baseline", "3", "--steps",
+                  "1050", "--chunk", "105"]
+SCALING_ARGV = ["bench", "--scaling", "--baseline", "4", "--steps", "10",
+                "--halo-overlap"]
+SCALING_RUNS = 1 + 3             # measure_scaling: a warm run, best of 3
+STEPPER_ARGV = ["run", "--nx", "64", "--ny", "32", "--nz", "8", "--days",
+                "0.05", "--stepper"]
+# bench's step is the two kernels' device time and more: a wall time under
+# STEP_FLOOR of it means the enqueue was timed. bench --micro times the
+# same kernels as phase 4, chained from the initial state: within
+# MICRO_TOL of phase 4's device ms.
+STEP_FLOOR = 0.95
+MICRO_TOL = 0.15
+# The budget identities at #3 on the plain backend in fp32, for more than
+# one radiation interval, with the bounds of the reference's
+# tests/tpu/test_budget_identity_tpu.py (each global fp32 sum carries
+# ~1e-7 of the total in reduction error).
+BUDGET_STEPS = 120
+
 # Main-path sanity bounds (the repo's verification recipe for a short run):
 MAX_WIND = 100.0                 # m/s; beyond it the run is blowing up
 MEAN_COLP = (90_000.0, 91_000.0)  # Pa, area-weighted mean COLP
 POTT_RANGE = (280.0, 340.0)      # K, every cell
 MASS_DRIFT = 1e-6                # relative drift of sum(colp*area)
-
-# Card peaks for the bound (H100 SXM data sheet)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-# Floating-point operations per grid point, rounded up (an upper count:
-# the bound is the bytes' at every shape run here). Substep: column scans
-# incl. one powf per level ~35, three scalar advections ~135, two momentum
-# equations ~140, face fluxes ~40. Epilogue (counting powf and expf as 20):
-# up to three column profiles ~180, the five diffusions ~50, two face
-# profiles ~16, microphysics ~80, the surface of three columns spread over
-# the levels ~10, convective K (when on) ~70 -> 350 with it off.
-FLOPS_PER_POINT = 350
-EPILOGUE_FLOPS_PER_POINT = 350
 
 STATE_FIELDS = ("u", "v", "colp", "pott", "qv", "qc", "tsurf", "rain",
                 "soil_moist", "dpottdt_rad", "swflx_sfc", "lwflx_sfc")
@@ -309,78 +341,6 @@ def timed(fn, n=50, warmup=5) -> float:
     return e0.elapsed_time(e1) / n
 
 
-def device_ms(fn, n=50, warmup=5) -> tuple:
-    """(device ms, host ms) per call of ``fn``. The device time is that of
-    ``n`` calls' launches back to back on the stream: a sleep kernel holds
-    the stream while the host enqueues them, so the events between the
-    sleep and the last call see no host gap. The host time is that of ``n``
-    calls in a loop. A gap shows as the sleep's end reached before the host
-    is done: a host slower than the sleep, or more launches than the
-    device's queue holds (the plain versions launch hundreds of kernels a
-    call); then fewer calls are timed, down to one, and a gap there
-    refuses the time."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    host_ms = 1e3 * (time.perf_counter() - h0) / n
-    torch.cuda.synchronize()
-    c0, c1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    c0.record()
-    torch.cuda._sleep(1_000_000)
-    c1.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 1_000_000 / c0.elapsed_time(c1)
-    while True:
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(int((2.0 * host_ms * n + 5.0) * cycles_per_ms))
-        e0.record()
-        for _ in range(n):
-            fn()
-        e1.record()
-        gap = e0.query()           # the sleep ended before the host was done
-        torch.cuda.synchronize()
-        if not gap:
-            return e0.elapsed_time(e1) / n, host_ms
-        if n == 1:
-            raise AssertionError("device time not separable from the "
-                                 "host's: the stream ran dry during one call")
-        n = max(1, n // 5)
-
-
-# The kernels' launches by the name the profiler gives them, and the short
-# name of each in the ``launch_ms`` split.
-LAUNCH_NAMES = (("substep_kernel", "substep"),
-                ("epilogue_kernel", "epilogue"))
-
-
-def launch_ms(fn, n=20, warmup=3):
-    """Device ms per call of each kernel launch of ``fn``, by launch
-    (``LAUNCH_NAMES``): the CUDA activity that ``torch.profiler`` records
-    over ``n`` calls, summed per kernel and divided by ``n``. None when the
-    profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for ev in prof.key_averages():
-        us = next((getattr(ev, a) for a in ("self_device_time_total",
-                                            "self_cuda_time_total")
-                   if getattr(ev, a, None)), 0.0)
-        for key, short in LAUNCH_NAMES:
-            if key in ev.key and us:
-                split[short] = split.get(short, 0.0) + us / 1e3 / n
-    return split or None
-
-
 def field_errors(got, want, tol) -> dict:
     """max|got - want| of each field in ``tol``; raises on a non-finite
     field of ``got``."""
@@ -408,37 +368,6 @@ def bitwise_equal(a, b, fields=("u", "v", "pott", "qv", "qc", "colp")
     """Every field of ``a`` and ``b`` has the same bits."""
     return all(torch.equal(getattr(a, f).view(torch.int32),
                            getattr(b, f).view(torch.int32)) for f in fields)
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def substep_bound_ms(ev, base, grid, forcing, out, phys=None, vmask=None):
-    """Least time for one substep call: each input read once, each output
-    written once, at the card's memory rate; or its operations at the fp32
-    rate."""
-    reads = [getattr(ev, f) for f in ("u", "v", "pott", "qv", "qc", "colp",
-                                      "dpottdt_rad")]
-    if base is not None:
-        reads += [getattr(base, f) for f in ("u", "v", "pott", "qv", "qc",
-                                             "colp")]
-    reads += [forcing.hsurf, fs.geo_table(grid), grid.sigma_vb, grid.dsigma]
-    writes = [getattr(out, f) for f in ("u", "v", "pott", "qv", "qc", "colp")]
-    flops = FLOPS_PER_POINT
-    if vmask is not None:
-        reads.append(vmask)
-    if phys is not None:
-        reads += [getattr(base, f) for f in ("tsurf", "rain", "soil_moist",
-                                             "swflx_sfc", "lwflx_sfc")]
-        reads += [forcing.land_mask, forcing.evap_eff]
-        writes += [out.tsurf, out.rain, out.soil_moist]
-        flops += EPILOGUE_FLOPS_PER_POINT
-    t_bytes = nbytes(*reads, *writes) / PEAK_BYTES_PER_S
-    t_ops = flops * ev.u.numel() / PEAK_FP32_FLOPS
-    if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes"
-    return 1e3 * t_ops, "operations"
 
 
 def reset_counts():
@@ -1535,6 +1464,183 @@ def _io4(dev, card, root, bad):
           f"card {load_ms:.1f} [{card}]", flush=True)
 
 
+def cli_out(argv) -> str:
+    """``cli.main(argv)``'s standard output, printed as it ran; raises on a
+    non-zero return."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    print("".join(f"  | {line}\n" for line in out.splitlines()), end="",
+          flush=True)
+    if rc != 0:
+        raise AssertionError(f"{argv} returned {rc}")
+    return out
+
+
+def cli_json(argv) -> dict:
+    """The one JSON line that ``cli.main(argv)`` prints last."""
+    return json.loads(cli_out(argv).splitlines()[-1])
+
+
+def bench_counts(argv, want: dict, bad: list) -> dict:
+    """``cli_json(argv)`` with every counter set to 0 just before and read
+    just after; a count other than ``want``'s (0 where it names none) goes
+    into ``bad``."""
+    reset_counts()
+    rec = cli_json(argv)
+    counts = read_counts()
+    full = dict.fromkeys(counts, 0)
+    full.update(want)
+    if counts != full:
+        bad.append(f"{argv}: counts {counts}, expected {full}")
+    print(f"  counts {({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    return rec
+
+
+def budget_identities(dev, card: str, bad: list):
+    """The budget identities at #3 (``backend='jnp'``, fp32) on the card."""
+    from climate_model_tpu_torch.bench.budget import make_budget_scan
+    cfg = baseline_config(3).replace(backend="jnp")
+    state, forcing, grid = initialize(cfg, device=dev)
+    t = time.perf_counter()
+    _, rec = make_budget_scan(cfg, BUDGET_STEPS)(state, grid, forcing)
+    rec = {k: v.double().cpu().numpy() for k, v in rec.items()}
+    wall = time.perf_counter() - t
+    W, E = rec["w_total"][-1], rec["e_total"][-1]
+    evap = rec["w_srf_expect"]
+    resid = np.abs(rec["w_srf"] - evap)
+    leak = rec["w_dyn"] + rec["w_trb"] + rec["w_mic"]
+    e_resid = np.abs(rec["e_srf"] - rec["e_srf_expect"])
+    checks = [
+        (np.isfinite(W) and evap.min() > 0, f"W {W:.6e} kg finite, "
+         f"evaporation {evap.min():.4e} kg a step or more > 0"),
+        (resid.max() < 1e-6 * W, f"surface water identity "
+         f"{resid.max():.4e} < 1e-6 W"),
+        (abs((rec["w_srf"] - evap).sum()) < 5e-3 * evap.sum(),
+         f"summed {abs((rec['w_srf'] - evap).sum()):.4e} < 5e-3 of "
+         f"evaporation {evap.sum():.4e}"),
+        (abs(leak.sum()) < 0.02 * evap.sum(),
+         f"water leak {abs(leak.sum()):.4e} < 0.02 of evaporation"),
+        (e_resid.max() < 1e-6 * E, f"surface energy identity "
+         f"{e_resid.max():.4e} < 1e-6 E ({E:.6e} J)"),
+        (np.max(np.abs(rec["e_mic"])) < 1e-6 * E, f"microphysics energy "
+         f"{np.max(np.abs(rec['e_mic'])):.4e} < 1e-6 E")]
+    for ok, what in checks:
+        print(f"  {'ok ' if ok else 'BAD'} {what}", flush=True)
+        if not ok:
+            bad.append(f"budget: {what}")
+    print(f"  budget: {BUDGET_STEPS} steps of #3 (backend=jnp, fp32) in "
+          f"{wall:.2f}s [{card}]", flush=True)
+
+
+def bench_path(dev, card: str, timing: dict):
+    """Phase 11: the bench and profile subcommands on the card."""
+    bad = []
+    kind = torch.cuda.get_device_name(dev)
+    kern_ms = {k: timing[k]["ms"] for k in ("predictor_masked",
+                                            "corrector_epilogue")}
+    step_dev_ms = sum(kern_ms.values())
+
+    # throughput: one masked predictor and one epilogue corrector a step
+    cfg3 = baseline_config(3)
+    steps = cli.make_parser().parse_args(BENCH_ARGV).steps * BENCH_CHUNKS
+    every = cfg3.physics.rad_every_steps
+    rec = bench_counts(BENCH_ARGV, dict(
+        predictor_masked=steps, corrector_epilogue=steps,
+        radiation_refreshes=sum(1 for k in range(steps) if k % every == 0)),
+        bad)
+    ok = rec["step_time_ms"] >= STEP_FLOOR * step_dev_ms
+    print(f"  bench: {rec['step_time_ms']} ms/step, {rec['value']:.6e} "
+          f"grid-points/s, vs_hbm_roofline {rec['vs_hbm_roofline']}, "
+          f"vs_fp32_peak {rec['vs_fp32_peak']}; the two kernels' device "
+          f"time {step_dev_ms:.4f} ms a step (phase 4) [{card}]",
+          flush=True)
+    if not ok:
+        bad.append(f"bench step {rec['step_time_ms']} ms < {STEP_FLOOR} x "
+                   f"the kernels' device time {step_dev_ms:.4f} ms")
+    if not 0 < rec["vs_hbm_roofline"] <= 1.05:
+        bad.append(f"vs_hbm_roofline {rec['vs_hbm_roofline']}")
+    if rec["device"] != kind:
+        bad.append(f"bench device {rec['device']!r}, card {kind!r}")
+
+    # micro: the same kernels as phase 4, chained
+    rec = cli_json(MICRO_ARGV)
+    for key, k in (("pred_ms", "predictor_masked"),
+                   ("corr_ms", "corrector_epilogue")):
+        ratio = rec[key] / kern_ms[k]
+        print(f"  bench --micro {key} {rec[key]} ms against phase 4's {k} "
+              f"{kern_ms[k]:.4f} ms: {ratio:.3f} [{card}]", flush=True)
+        if abs(ratio - 1.0) > MICRO_TOL:
+            bad.append(f"micro {key} {rec[key]} not within {MICRO_TOL} of "
+                       f"{kern_ms[k]:.4f}")
+
+    # profile: the kernel rows, then the plain splits with a trace
+    out = cli_out(PROFILE_ARGV)
+    for row in ("predictor_kernel", "corrector_kernel(+physics epilogue)",
+                "radiation_amortized", "total_per_step"):
+        if row not in out:
+            bad.append(f"profile --baseline 3 lacks the row {row}")
+    tdir = tempfile.mkdtemp(prefix="cm_trace_")
+    try:
+        out = cli_out(PROFILE_JNP_ARGV + ["--trace-dir", tdir])
+        trace = os.path.join(tdir, "trace.json")
+        size = os.path.getsize(trace) if os.path.exists(trace) else 0
+        print(f"  profile trace: {size} bytes", flush=True)
+        if not size:
+            bad.append("profile --trace-dir wrote no trace")
+        for row in ("dynamics", "surface", "turbulence", "microphysics"):
+            if row not in out:
+                bad.append(f"profile --backend jnp lacks the row {row}")
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+
+    # stability over 10 radiation intervals
+    rec = cli_json(STABILITY_ARGV)
+    if not (rec["stable"] and rec["max_wind"] < MAX_WIND
+            and rec["steps_run"] == cli.make_parser().parse_args(
+                STABILITY_ARGV).steps):
+        bad.append(f"stability: {rec}")
+
+    budget_identities(dev, card, bad)
+
+    # scaling: #4 unsharded against its 2x4 mesh with halo overlap
+    cfg4 = baseline_config(4)
+    n_sh = cfg4.sharding.mesh_lat * cfg4.sharding.mesh_lon
+    steps = cli.make_parser().parse_args(SCALING_ARGV).steps * SCALING_RUNS
+    strips = cfg4.sharding.mesh_lon * (cfg4.sharding.mesh_lat - 1)
+    want = dict(predictor_masked=steps, corrector_epilogue=steps,
+                radiation_refreshes=SCALING_RUNS * (1 + n_sh))
+    for fn in ("predictor", "corrector"):
+        want.update({f"{fn}_shard": n_sh * steps,
+                     f"{fn}_south_strip": strips * steps,
+                     f"{fn}_north_strip": strips * steps})
+    rec = bench_counts(SCALING_ARGV, want, bad)
+    print(f"  scaling: gps 1x1 {rec['gps_1dev']:.6e}, mesh "
+          f"{rec['gps_ndev']:.6e}, ratio {rec['gps_ratio']} "
+          f"({rec['metric']}) [{card}]", flush=True)
+    if not (rec["gps_1dev"] > 0 and rec["gps_ndev"] > 0):
+        bad.append(f"scaling: {rec}")
+
+    # Euler and RK4 on the plain backend
+    for stepper in ("euler", "rk4"):
+        argv = STEPPER_ARGV + [stepper]
+        cfg, res, counts, _ = run_argv(argv, dev)
+        launched = {k: v for k, v in counts.items() if v}
+        if launched or cfg.numerics.time_stepping != stepper:
+            bad.append(f"{argv}: {cfg.numerics.time_stepping}, counts "
+                       f"{launched}")
+        print(f"  run --stepper {stepper}: {res.steps} steps on {res.path} "
+              f"[{card}]", flush=True)
+        try:
+            sanity(res.state, res.grid, initialize(cfg, device=dev)[0])
+        except AssertionError as e:
+            bad.append(f"{stepper}: {e}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 VARIANTS = {
     # name: (counter, path that launches it, errors key)
     "predictor": ("predictor", "per-step", "predictor"),
@@ -1625,6 +1731,12 @@ def main() -> int:
     io_path(dev, card, steady_ms)
     phase("io", t, "#3 and #4 resumed bit for bit; each planted fault "
           "breaks its gate")
+
+    # ---- 11. bench and profile on the card ----
+    t = time.perf_counter()
+    bench_path(dev, card, timing)
+    phase("bench", t, "bench, --micro, --stability, --scaling, profile, "
+          "the budget identities and Euler/RK4 on the card; every gate held")
 
     kernels = []
 

@@ -1,19 +1,21 @@
 """Command-line entry point.
 
-Port of ``climate_model_tpu/cli.py``'s ``run`` and ``plot``: build grid,
-state and forcing (or resume from a checkpoint and run only the remainder),
-step in chunks sized to the output cadence, fetch the diagnostics once per
-chunk, recompute dt per chunk with ``--adaptive-dt`` and land exactly on the
-horizon. With ``--out-dir`` a run writes a NetCDF snapshot after each chunk
-(unless ``--no-nc``), one JSONL metrics line a chunk, a checkpoint at the
-restart cadence and one at the end. The chunks run ``model.py::
+Port of ``climate_model_tpu/cli.py``. ``run`` builds grid, state and
+forcing (or resumes from a checkpoint and runs only the remainder), steps
+in chunks sized to the output cadence, fetches the diagnostics once per
+chunk, recomputes dt per chunk with ``--adaptive-dt`` and lands exactly on
+the horizon. With ``--out-dir`` a run writes a NetCDF snapshot after each
+chunk (unless ``--no-nc``), one JSONL metrics line a chunk, a checkpoint at
+the restart cadence and one at the end. The chunks run ``model.py::
 make_chunk_runner``: for ``backend='pallas'`` the packed scan, whose
 corrector kernel carries the physics as its epilogue, and on a device mesh
 its sharded form, whose blocks stay split across chunks and are gathered
 for the diagnostics and the files; for ``backend='jnp'`` the plain PyTorch
-per-step path, on any device. Not ported yet: a mesh with
-``backend='jnp'`` and the ``bench`` and ``profile`` subcommands, which
-raise "not ported yet".
+per-step path, on any device. ``bench`` prints one JSON line (throughput,
+or with ``--micro``, ``--scaling`` or ``--stability`` the other harnesses
+of ``bench/``); ``profile`` prints the per-subsystem breakdown. Every
+subcommand runs on the card unless given ``--device cpu``. Not ported yet:
+a mesh with ``backend='jnp'``, which raises "not ported yet".
 
 Usage:
   python -m climate_model_tpu_torch run --baseline 3 --days 0.1 --out-every-hours 1 --out-dir out3
@@ -21,6 +23,10 @@ Usage:
   python -m climate_model_tpu_torch run --baseline 4 --days 0.05 --halo-overlap
   python -m climate_model_tpu_torch run --config configs/baseline_1.toml --device cpu
   python -m climate_model_tpu_torch plot out3/out_0002.nc
+  python -m climate_model_tpu_torch bench --baseline 3
+  python -m climate_model_tpu_torch bench --micro --baseline 3
+  python -m climate_model_tpu_torch bench --scaling --baseline 4 --halo-overlap
+  python -m climate_model_tpu_torch profile --baseline 3 --backend jnp --trace-dir tr
   torchrun --nproc-per-node 4 -m climate_model_tpu_torch run --multihost \
       --device cpu --nx 32 --ny 16 --nz 8 --physics all --dtype float64 \
       --backend pallas --mesh-lat 2 --mesh-lon 2 --halo-overlap
@@ -342,8 +348,58 @@ def cmd_plot(args) -> int:
     return 0
 
 
-def _cmd_not_ported(args) -> int:
-    _not_ported(f"the '{args.cmd}' subcommand")
+def _bench_config(args) -> ModelConfig:
+    """The config of ``bench --scaling/--stability`` and ``profile``: the run
+    parser's defaults under the subcommand's own flags, through
+    ``build_config``."""
+    ns = vars(make_parser().parse_args(["run"]))
+    ns.update(vars(args))
+    return build_config(argparse.Namespace(**ns))
+
+
+def cmd_profile(args) -> int:
+    from .bench.profile import profile_subsystems
+    profile_subsystems(_bench_config(args), trace_dir=args.trace_dir,
+                       device=args.device)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    if args.micro:
+        from .bench.micro import micro_bench
+        result = micro_bench(baseline=args.baseline, iters=args.steps,
+                             dtype=args.dtype or "float32",
+                             device=args.device)
+    elif args.scaling or args.stability:
+        args.baseline = args.baseline or 3
+        cfg = _bench_config(args)
+        if args.backend:
+            cfg = cfg.replace(backend=args.backend)
+        if args.halo_overlap and cfg.backend != "pallas":
+            # only the kernels' path has the overlap schedule
+            # (dist/packed_halo.py); refuse rather than measure another
+            print("error: --halo-overlap requires backend=pallas")
+            return 2
+        if args.scaling:
+            from .bench.scaling import measure_scaling
+            result = measure_scaling(cfg, steps=args.steps,
+                                     device=args.device)
+        else:
+            from .bench.stability import probe_stability
+            result = probe_stability(cfg, steps=args.steps,
+                                     chunk=args.chunk, device=args.device)
+            # keep the JSON line one line: the trajectory's largest wind
+            # stands in for it
+            traj = result.pop("trajectory")
+            result["max_wind"] = max(max(r["max_u"], r["max_v"])
+                                     for r in traj)
+    else:
+        from .bench.throughput import run_benchmark
+        result = run_benchmark(baseline=args.baseline, steps=args.steps,
+                               dtype=args.dtype or "float32",
+                               backend=args.backend, device=args.device)
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -424,9 +480,51 @@ def make_parser() -> argparse.ArgumentParser:
                          "gloo on cpu)")
     pr.set_defaults(fn=cmd_run)
 
-    for name in ("bench", "profile"):
-        sp = sub.add_parser(name, help="not ported yet")
-        sp.set_defaults(fn=_cmd_not_ported)
+    device_help = "torch device (default cuda; 'cpu' runs the plain " \
+                  "versions, no device metric)"
+    pb = sub.add_parser("bench", help="throughput benchmark (one JSON line)")
+    pb.add_argument("--config", default=None)
+    pb.add_argument("--days", type=float, default=None)
+    pb.add_argument("--dtype", default=None)
+    pb.add_argument("--scaling", action="store_true",
+                    help="measure 1-device vs full-mesh scaling efficiency")
+    pb.add_argument("--micro", action="store_true",
+                    help="per-kernel chained micro-benchmark")
+    pb.add_argument("--stability", action="store_true",
+                    help="long-run blow-up probe (max-wind trajectory)")
+    pb.add_argument("--diff", type=float, default=None,
+                    help="override all horizontal-diffusion coefficients "
+                         "(stability probe)")
+    pb.add_argument("--chunk", type=int, default=100,
+                    help="steps per diagnostics fetch (stability probe)")
+    pb.add_argument("--halo-overlap", action="store_true",
+                    help="use the halo/compute-overlap schedule in the "
+                         "scaling measurement")
+    pb.add_argument("--baseline", type=int, default=3)
+    pb.add_argument("--steps", type=int, default=50)
+    pb.add_argument("--backend", default=None, choices=["jnp", "pallas"],
+                    help="override the preset's backend")
+    pb.add_argument("--device", default="cuda", help=device_help)
+    pb.set_defaults(fn=cmd_bench)
+
+    pp = sub.add_parser("profile",
+                        help="per-subsystem timing breakdown (+ trace)")
+    pp.add_argument("--config", default=None)
+    pp.add_argument("--baseline", type=int, default=0)
+    pp.add_argument("--nx", type=int, default=64)
+    pp.add_argument("--ny", type=int, default=32)
+    pp.add_argument("--nz", type=int, default=8)
+    pp.add_argument("--physics", default="all")
+    pp.add_argument("--stepper", default="matsuno")
+    pp.add_argument("--days", type=float, default=None)
+    pp.add_argument("--dtype", default=None)
+    pp.add_argument("--backend", dest="backend_override", default=None,
+                    choices=["jnp", "pallas"])
+    pp.add_argument("--trace-dir", default=None,
+                    help="write a torch.profiler Chrome trace of one "
+                         "dynamics step here (trace.json)")
+    pp.add_argument("--device", default="cuda", help=device_help)
+    pp.set_defaults(fn=cmd_profile)
 
     pl_ = sub.add_parser("plot", help="quicklook PNG from an out_XXXX.nc, "
                                       "a restart.npz checkpoint, or a "

@@ -1,22 +1,26 @@
-"""Time integration: Matsuno predictor-corrector and the chunk loop.
+"""Time integration: Matsuno predictor-corrector, Euler, RK4; the chunk loop.
 
-Port of the Matsuno half of ``climate_model_tpu/dycore/stepper.py``. The
-reference's ``lax.scan`` loop is a Python loop (``run_scan``). With
-``backend='pallas'`` the dynamics step is the fused substep kernel, launched
-twice a step (predictor, then corrector) on the plain State layout
+Port of ``climate_model_tpu/dycore/stepper.py``. The reference's
+``lax.scan`` loop is a Python loop (``run_scan``). With ``backend='pallas'``
+the dynamics step is the fused substep kernel, launched twice a step
+(predictor, then corrector) on the plain State layout
 (``kernels/fused_substep.py``); on CPU tensors the kernel wrappers take the
-plain ``substep``. ``step_matsuno`` is
-the plain step: what ``backend='jnp'`` runs on any device (the per-term
-tendency switches included), and the reference the tests and
-``chip_smoke.py`` hold the kernel path against. Euler and RK4 come in a
-later slice.
+plain ``substep``. The kernels carry Matsuno only, so that backend refuses
+Euler and RK4, as the reference's does. ``step_matsuno``, ``step_euler`` and
+``step_rk4`` are the plain steps: what ``backend='jnp'`` runs on whatever
+device the state is on (the per-term tendency switches included);
+``step_matsuno`` is also the reference the tests and ``chip_smoke.py`` hold
+the kernel path against.
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..core.config import ModelConfig
 from ..core.grid import Grid
 from ..core.state import Forcing, State
+from . import boundaries as bc
 from .tendencies import proceed, tendencies
 
 
@@ -36,6 +40,60 @@ def step_matsuno(state: State, grid: Grid, forcing: Forcing,
     predicted state and advances from the ORIGINAL t_n state."""
     pred = substep(state, state, grid.dt, grid, forcing, cfg)
     return substep(pred, state, grid.dt, grid, forcing, cfg)
+
+
+def step_euler(state: State, grid: Grid, forcing: Forcing,
+               cfg: ModelConfig) -> State:
+    """Forward Euler: one substep with the tendencies at t_n."""
+    return substep(state, state, grid.dt, grid, forcing, cfg)
+
+
+def step_rk4(state: State, grid: Grid, forcing: Forcing,
+             cfg: ModelConfig) -> State:
+    """Classical RK4 on the conserved variables
+    y = (COLP, COLP_u*u, COLP_v*v, COLP*POTT, COLP*QV, COLP*QC); the
+    mass-weighted update is exactly d(COLP*X)/dt integration, so RK4
+    composes linearly in y."""
+    dt = grid.dt
+    moist = cfg.numerics.moisture_tendency
+
+    def to_conserved(s: State):
+        cu = 0.5 * (bc.west(s.colp) + s.colp)[None]
+        cv = 0.5 * (bc.south_clamp(s.colp) + s.colp)[None]
+        return (s.colp, cu * s.u, cv * s.v, s.colp[None] * s.pott,
+                s.colp[None] * s.qv, s.colp[None] * s.qc)
+
+    def from_conserved(y) -> State:
+        colp, U, V, P, Qv, Qc = y
+        cu = 0.5 * (bc.west(colp) + colp)[None]
+        cv = 0.5 * (bc.south_clamp(colp) + colp)[None]
+        s = state.replace(colp=colp, u=U / cu,
+                          v=bc.enforce_v_walls(V / cv), pott=P / colp[None])
+        if moist:
+            s = s.replace(qv=torch.clamp(Qv / colp[None], min=0.0),
+                          qc=torch.clamp(Qc / colp[None], min=0.0))
+        return s
+
+    def f(y):
+        s = from_conserved(y)
+        t = tendencies(s, s.colp, dt, grid, forcing, cfg)
+        return (t.dcolpdt, t.dudt, t.dvdt, t.dpottdt, t.dqvdt, t.dqcdt)
+
+    y0 = to_conserved(state)
+
+    def axpy(a, ydot):
+        return tuple(yi + a * di for yi, di in zip(y0, ydot))
+
+    k1 = f(y0)
+    k2 = f(axpy(0.5 * dt, k1))
+    k3 = f(axpy(0.5 * dt, k2))
+    k4 = f(axpy(dt, k3))
+    y1 = tuple(yi + (dt / 6.0) * (a + 2.0 * b + 2.0 * c + d)
+               for yi, a, b, c, d in zip(y0, k1, k2, k3, k4))
+    return from_conserved(y1)
+
+
+_STEPPERS = {"matsuno": step_matsuno, "euler": step_euler, "rk4": step_rk4}
 
 
 def _fused_matsuno_step_fn(cfg: ModelConfig):
@@ -73,18 +131,20 @@ def dynamics_step_fn(cfg: ModelConfig):
     As in the reference, ``cfg.backend`` decides: ``'pallas'`` launches the
     substep kernels (on CPU tensors their plain version) and refuses what
     they do not carry (``check_pallas``); any other backend (``'jnp'``)
-    takes the plain ``step_matsuno`` on whatever device the state is on.
-    Euler and RK4 are not ported yet."""
+    takes the plain step of ``cfg.numerics.time_stepping`` (``_STEPPERS``)
+    on whatever device the state is on."""
     if cfg.backend == "pallas":
         check_pallas(cfg)
         return _fused_matsuno_step_fn(cfg)
     ts = cfg.numerics.time_stepping
-    if ts != "matsuno":
-        raise ValueError(f"time_stepping {ts!r} is not ported yet; choose "
-                         "from ['matsuno']")
+    try:
+        raw = _STEPPERS[ts]
+    except KeyError:
+        raise ValueError(f"unknown time_stepping {ts!r}; choose from "
+                         f"{sorted(_STEPPERS)}") from None
 
     def step(state: State, grid: Grid, forcing: Forcing) -> State:
-        return step_matsuno(state, grid, forcing, cfg)
+        return raw(state, grid, forcing, cfg)
 
     return step
 

@@ -24,6 +24,9 @@ Port of ``climate_model_tpu/model.py``. Two paths, as in the reference:
   ``step_matsuno`` for ``'jnp'``, which is what ``make_chunk_runner`` runs
   for a ``'jnp'`` config on any device. ``chip_smoke.py`` also drives it
   with the kernels beside the packed scan.
+
+``make_run_fn`` is the reference's name for the chunk runner (the bench's
+stability probe uses it).
 """
 
 from __future__ import annotations
@@ -116,6 +119,13 @@ def make_packed_step_fn(cfg: ModelConfig):
     return step
 
 
+# What a device mesh with backend='jnp' raises (the reference's per-operator
+# halo path and GSPMD 'auto' are the next slice of the port).
+JNP_MESH_NOT_PORTED = ("a device mesh with backend='jnp' (dist/halo.py, "
+                       "GSPMD 'auto') is not ported yet; use "
+                       "backend='pallas'")
+
+
 def takes_packed_scan(cfg: ModelConfig) -> bool:
     """Whether ``make_chunk_runner`` takes the packed scan (sharded on a
     mesh): for ``backend='pallas'``, as in the reference
@@ -142,9 +152,7 @@ def make_chunk_runner(cfg: ModelConfig, n_steps: int):
     sharded = sh.mesh_lat * sh.mesh_lon > 1
     if not takes_packed_scan(cfg):
         if sharded:
-            raise NotImplementedError(
-                "a device mesh with backend='jnp' (dist/halo.py, GSPMD "
-                "'auto') is not ported yet; use backend='pallas'")
+            raise NotImplementedError(JNP_MESH_NOT_PORTED)
         step = make_step_fn(cfg)
 
         def run(state: State, grid: Grid, forcing: Forcing) -> State:
@@ -165,3 +173,13 @@ def make_chunk_runner(cfg: ModelConfig, n_steps: int):
         return state
 
     return run
+
+
+def make_run_fn(cfg: ModelConfig, n_steps: int, donate: bool = True):
+    """``run(state, grid, forcing) -> state`` advancing ``n_steps``: the
+    chunk runner of ``make_chunk_runner``. ``donate`` is the reference's
+    (it donates the state's buffers to the jitted run) and does nothing
+    here: the port updates no buffer in place that the caller still holds,
+    so the caller's state stays valid either way."""
+    del donate
+    return make_chunk_runner(cfg, n_steps)

@@ -1,5 +1,6 @@
-"""The port's dycore operators, ``tendencies``, ``proceed`` and Matsuno step
-against the JAX jnp operators and the NumPy oracle (CPU, fp64).
+"""The port's dycore operators, ``tendencies``, ``proceed`` and its Matsuno,
+Euler and RK4 steps against the JAX jnp operators and the NumPy oracle
+(CPU, fp64), and the steppers' observed orders of convergence.
 
 Tolerance rtol=atol=1e-11 against the jnp forms: the two packages evaluate
 the same expressions in fp64 and differ only in summation order (cumsum/sum
@@ -170,14 +171,82 @@ def test_matsuno_steps_match(size):
                dict(rtol=1e-9, atol=1e-8))
 
 
-def test_unported_steppers_raise():
-    """Euler and RK4 run only on the plain backend in the reference, and
-    are not ported yet; with ``backend='pallas'`` the port raises the
-    reference's own error (``climate_model_tpu/dycore/stepper.py:145``)."""
+@pytest.mark.parametrize("n_steps", [1, 8])
+@pytest.mark.parametrize("stepper", ["euler", "rk4"])
+def test_euler_rk4_steps_match(stepper, n_steps):
+    """Euler and RK4 on the plain backend against the reference's
+    ``step_euler`` / ``step_rk4``, at the Matsuno comparison's tolerance."""
+    cfg, st, fo, (js, jf, jg), (ts, tf, tg) = _setup(SIZES[0])
+    jc = jax_cfg(cfg)
+    a, b = js, ts
+    jfn = getattr(jstep, f"step_{stepper}")
+    tfn = getattr(tstep, f"step_{stepper}")
+    for _ in range(n_steps):
+        a = jfn(a, jg, jf, jc)
+        b = tfn(b, tg, tf, cfg)
+    for name in ("u", "v", "colp", "pott", "qv", "qc"):
+        _close(getattr(b, name), getattr(a, name), f"{stepper} {name}")
+
+
+def _conv_run(cfg, stepper: str, dt: float, n_steps: int):
+    import dataclasses
+    from climate_model_tpu_torch.core.init import initialize
+    c = cfg.replace(numerics=dataclasses.replace(
+        cfg.numerics, time_stepping=stepper, dt=dt))
+    state, forcing, grid = initialize(c, device="cpu")
+    return tstep.run_scan(tstep.dynamics_step_fn(c), state, grid, forcing,
+                          n_steps)
+
+
+def _conv_err(a, b):
+    tot = 0.0
+    for name in ("u", "v", "colp", "pott"):
+        x, y = getattr(a, name).numpy(), getattr(b, name).numpy()
+        tot += float(np.mean((x - y) ** 2) / (np.mean(y ** 2) + 1.0))
+    return np.sqrt(tot)
+
+
+@pytest.fixture(scope="module")
+def conv_setup():
+    """The reference's convergence setup (``tests/unit/
+    test_stepper_convergence.py``) on the port: dry core, 32x16x4 fp64,
+    horizon 8 CFL steps, error against RK4 at dt/16."""
+    from climate_model_tpu_torch.core.config import NumericsConfig
+    from climate_model_tpu_torch.core.grid import make_grid
+    cfg = small_cfg(nx=32, ny=16, nz=4,
+                    numerics=NumericsConfig(moisture_tendency=False))
+    dt0 = float(make_grid(cfg.grid, cfg.numerics, dtype=torch.float64,
+                          device="cpu").dt)
+    n0 = 8
+    return cfg, dt0, n0, _conv_run(cfg, "rk4", dt0 / 16.0, n0 * 16)
+
+
+@pytest.mark.parametrize("stepper,levels,lo,hi", [
+    ("euler", 3, 0.7, 1.4), ("matsuno", 3, 0.7, 1.6),
+    ("rk4", 2, 3.5, float("inf"))])
+def test_convergence_order(conv_setup, stepper, levels, lo, hi):
+    """Observed temporal order on the port, with the reference's bounds
+    (``tests/unit/test_stepper_convergence.py:63-83``)."""
+    cfg, dt0, n0, ref = conv_setup
+    errs = [_conv_err(_conv_run(cfg, stepper, dt0 / 2 ** k, n0 * 2 ** k),
+                      ref) for k in range(levels)]
+    orders = [np.log2(errs[i] / errs[i + 1]) for i in range(levels - 1)]
+    assert errs[0] > errs[-1] > 0.0
+    assert lo < orders[-1] < hi, (orders, errs)
+
+
+def test_pallas_steppers_raise():
+    """Euler and RK4 run only on the plain backend, as in the reference:
+    with ``backend='pallas'`` the port raises the reference's own error
+    (``climate_model_tpu/dycore/stepper.py:145``), and an unknown stepper
+    raises the reference's list of choices."""
     cfg = small_cfg()
     for ts in ("euler", "rk4"):
         c = cfg.replace(numerics=cfg.numerics.__class__(time_stepping=ts))
-        with pytest.raises(ValueError, match="not ported"):
-            tstep.dynamics_step_fn(c.replace(backend="jnp"))
+        tstep.dynamics_step_fn(c.replace(backend="jnp"))
         with pytest.raises(ValueError, match="supports matsuno only"):
             tstep.dynamics_step_fn(c.replace(backend="pallas"))
+    c = cfg.replace(numerics=cfg.numerics.__class__(time_stepping="leap"))
+    with pytest.raises(ValueError, match=r"unknown time_stepping 'leap'; "
+                       r"choose from \['euler', 'matsuno', 'rk4'\]"):
+        tstep.dynamics_step_fn(c.replace(backend="jnp"))

@@ -46,7 +46,10 @@ def test_port_imports_without_jax():
     mods = _port_modules()
     for name in ("kernels.fused_substep", "dist.mesh", "dist.sharding",
                  "dist.comm", "dist.packed_halo", "core.namelist",
-                 "io.checkpoint", "io.netcdf", "io.topo", "io.plot"):
+                 "io.checkpoint", "io.netcdf", "io.topo", "io.plot",
+                 "bench.roofline", "bench.micro", "bench.throughput",
+                 "bench.profile", "bench.stability", "bench.budget",
+                 "bench.scaling", "bench.opcount"):
         assert f"climate_model_tpu_torch.{name}" in mods, name
     code = (
         "import sys, importlib\n"

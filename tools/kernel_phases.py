@@ -12,7 +12,7 @@ the git-ignored build directory, at the phase comments of the sources
 (``CUTS``); the script fails if a comment is gone. A cut kernel computes
 garbage: only its time is read. Times are device ms per call of the masked
 predictor (the substep launch) and of the corrector with the physics
-epilogue (``chip_smoke.launch_ms``: each launch apart, profiled).
+epilogue (``bench/micro.py::launch_ms``: each launch apart, profiled).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from climate_model_tpu_torch.bench.micro import launch_ms  # noqa: E402
 from climate_model_tpu_torch.kernels import fused_substep as fs  # noqa: E402
 
 # (name, file, the phase comment to return before)
@@ -84,11 +85,10 @@ def main() -> int:
     ev, base = cs.epilogue_args(ci)[:2]
     for name, path, marker in (("whole kernels", "", None), *CUTS):
         fs._loaded["lib"] = build_cut(name, path, marker)
-        pred = cs.launch_ms(lambda: fs.predictor(st, g, f, dt, vmask=vm,
-                                                 **kw))
-        corr = cs.launch_ms(lambda: fs.corrector(ev, base, g, f, dt,
-                                                 phys=ci.phys, vmask=vm,
-                                                 **kw))
+        pred = launch_ms(lambda: fs.predictor(st, g, f, dt, vmask=vm,
+                                              **kw))
+        corr = launch_ms(lambda: fs.corrector(ev, base, g, f, dt,
+                                              phys=ci.phys, vmask=vm, **kw))
         print(f"{name}: predictor {pred}; corrector+epilogue {corr} "
               f"(device ms per call, config #3) [{card}]", flush=True)
     fs._loaded.clear()
