@@ -84,7 +84,21 @@ and exits non-zero:
                --halo-overlap`` (counted: 8 shard launches of each program
                a step, 4 south-strip and 4 north-strip), and ``run
                --stepper euler`` / ``rk4`` at 64x32x8 with the run's sanity
-               checks.
+               checks;
+12. jnp mesh -- BASELINE #4 on the plain backend (``run --baseline 4
+               --backend jnp``, JNP_MESH_STEPS steps) on its 2x4 mesh in one
+               process: the per-operator halo path (``shard_map``, 8 shard
+               threads in lockstep), GSPMD ``auto`` (the global program on
+               the card) and the unsharded grid, each with every counter
+               set to 0 just before and read just after (no kernel
+               launch); ``shard_map`` against unsharded field by field
+               (JNP_MESH_TOL, and whether bit for bit), ``auto`` equal to
+               unsharded bit for bit, the run's sanity checks; then
+               JNP_FAULT_STEPS steps from the noisy #4 state, sound and
+               with each planted fault (the lon exchange left out, the lat
+               exchange left out, the v wall on every lat shard), each of
+               which must break a bound; ms/step of the three runs and the
+               shifts a step.
 
 Phase 3 also holds the epilogue's momentum terms on a windy state
 (MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
@@ -119,9 +133,10 @@ from climate_model_tpu_torch.core.config import (baseline_config,
                                                  resolve_rad_interval)
 from climate_model_tpu_torch.core.grid import adaptive_cfl_dt, round_to
 from climate_model_tpu_torch.core.init import initialize
-from climate_model_tpu_torch.dist import sharding
+from climate_model_tpu_torch.dist import halo, sharding
 from climate_model_tpu_torch.dist.mesh import Mesh, make_mesh
 from climate_model_tpu_torch.dist.packed_halo import SeamStrip, row_mask
+from climate_model_tpu_torch.dycore import boundaries as bc
 from climate_model_tpu_torch.dycore.operators import diagnose_pressure
 from climate_model_tpu_torch.dycore.stepper import run_scan, step_matsuno
 from climate_model_tpu_torch.io.checkpoint import (load_checkpoint,
@@ -237,6 +252,28 @@ FAULT_STEPS = 20
 # ... and BASELINE #1 (backend='jnp') on the card for 0.05 days: the plain
 # per-step path, no kernel launch.
 BACKEND_ARGV = ["run", "--baseline", "1", "--days", "0.05"]
+# Phase 12 (jnp mesh): BASELINE #4 on the plain backend over 0.00387 days,
+# 20 steps at 16.715 s in two chunks of 10, radiation refreshed at step 0:
+# on its 2x4 mesh in shard_map mode (the preset's), in auto mode, and
+# unsharded. The shard_map run takes 0.68-0.89 s a step
+# on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md).
+JNP_MESH_ARGV = ["run", "--baseline", "4", "--backend", "jnp", "--days",
+                 "0.00387", "--out-every-hours", "0.04645"]
+JNP_AUTO_ARGV = JNP_MESH_ARGV + ["--sharding-mode", "auto"]
+JNP_UNSHARDED_ARGV = JNP_MESH_ARGV + ["--mesh-lat", "1", "--mesh-lon", "1"]
+# Bounds on max|shard_map run - unsharded run| of the plain backend, after
+# those steps and after JNP_FAULT_STEPS steps from the noisy #4 state. An
+# H100 read 0 in every field in both cases (30 and 10 steps): bit for bit,
+# as the shifts copy values and every reduction runs along a column. The
+# bounds are the sharded packed scan's (SHARDED_TOL, 3-6 fp32 ulp of each
+# field's largest values, above the reference's fp32 error scale against
+# itself); each planted fault broke them by 3 to 11 orders of magnitude.
+JNP_MESH_TOL = dict(SHARDED_TOL)
+JNP_FAULT_STEPS = 3
+# the counters of the plain physics splits (every other counter of
+# read_counts is a kernel's)
+PLAIN_COUNTERS = ("radiation_refreshes", "surface_split", "turbulence_split",
+                  "microphysics_split")
 # Phase 10 (io): config #3 with its files, continuous and split at half the
 # horizon (step 127 of 253, between the radiation refreshes at steps 105
 # and 210, so the resumed run needs the saved caches), and #4's blocking
@@ -1652,6 +1689,126 @@ VARIANTS = {
 }
 
 
+def lat_zero_everywhere(side):
+    """A lat shift that takes zero rows at every shard edge (the lat
+    exchange left out)."""
+    def shift(a):
+        zero = torch.zeros_like(a[..., :1, :])
+        return (torch.cat([zero, a[..., :-1, :]], dim=-2) if side == "south"
+                else torch.cat([a[..., 1:, :], zero], dim=-2))
+    return shift
+
+
+def wall_on_every_shard(v):
+    return torch.cat([torch.zeros_like(v[..., :1, :]), v[..., 1:, :]],
+                     dim=-2)
+
+
+# planted faults of the per-operator halo path: replacements of shift
+# primitives of dycore/boundaries.py
+JNP_MESH_FAULTS = {
+    "lon exchange left out (west/east roll within the block)": dict(
+        west=lambda a: torch.roll(a, 1, dims=-1),
+        east=lambda a: torch.roll(a, -1, dims=-1)),
+    "lat exchange left out (zero rows at every shard edge)": dict(
+        south_zero=lat_zero_everywhere("south"),
+        south_clamp=lat_zero_everywhere("south"),
+        north_zero=lat_zero_everywhere("north"),
+        north_clamp=lat_zero_everywhere("north")),
+    "v wall on every lat shard": dict(enforce_v_walls=wall_on_every_shard),
+}
+
+
+@contextlib.contextmanager
+def planted(**prims):
+    """The shift primitives of ``prims`` replaced for the block."""
+    saved = {name: getattr(bc, name) for name in prims}
+    for name, fn in prims.items():
+        setattr(bc, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(bc, name, fn)
+
+
+def jnp_mesh_path(noisy, dev, card: str):
+    """Phase 12: BASELINE #4 on the plain backend on its 2x4 mesh in one
+    process (shard_map and auto) and unsharded, counted and compared; the
+    planted faults from the noisy #4 state."""
+    bad = []
+    runs = {}
+    for name, argv in (("shard_map", JNP_MESH_ARGV), ("auto", JNP_AUTO_ARGV),
+                       ("unsharded", JNP_UNSHARDED_ARGV)):
+        halo.make_sharded_step_fn.shifts = 0
+        halo.make_sharded_step_fn.waited_s = 0.0
+        runs[name] = run_argv(argv, dev)
+        cfg, res, counts, steady = runs[name]
+        launched = {k: v for k, v in counts.items()
+                    if k not in PLAIN_COUNTERS and v}
+        shifts = halo.make_sharded_step_fn.shifts
+        waited = halo.make_sharded_step_fn.waited_s
+        print(f"  {name}: {res.path}; {res.steps} steps {res.chunks}, "
+              f"{1e3 * res.wall_s / res.steps:.3f} ms/step, after the first "
+              f"chunk {steady:.3f} ms/step; {shifts / res.steps:.1f} shifts "
+              f"a step (a rendezvous each, and one at each chunk's end), "
+              f"{1e3 * waited / res.steps:.3f} ms a step of a shard "
+              f"thread's waits at them; "
+              f"kernel launches {launched or 0}; plain physics "
+              f"{ {k: counts[k] for k in PLAIN_COUNTERS} } [{card}]",
+              flush=True)
+        if launched:
+            bad.append(f"{name}: kernel launches {launched} on the plain "
+                       "path")
+        want_path = {"shard_map": "sharded per-step (plain PyTorch, "
+                                  "per-operator halos)  mesh=2x4",
+                     "auto": "GSPMD auto: the global program on 1 device",
+                     "unsharded": "per-step (plain PyTorch dynamics"}[name]
+        if not res.path.startswith(want_path):
+            bad.append(f"{name} took {res.path!r}")
+        if (shifts > 0) != (name == "shard_map"):
+            bad.append(f"{name}: {shifts} shifts")
+    s0, _, _ = initialize(runs["shard_map"][0], device=dev)
+    sanity(runs["shard_map"][1].state, runs["shard_map"][1].grid, s0)
+    base = runs["unsharded"][1]
+    for name in ("shard_map", "auto"):
+        res = runs[name][1]
+        if res.dts != base.dts or res.steps != base.steps:
+            bad.append(f"{name}: {res.steps} steps, dts {res.dts}; "
+                       f"unsharded {base.steps}, {base.dts}")
+        per = state_diffs(res.state, base.state)
+        same = bitwise_equal(res.state, base.state, STATE_FIELDS)
+        print(f"  {name} vs unsharded: bitwise equal {same}; "
+              + show({f: per[f] for f in JNP_MESH_TOL}, JNP_MESH_TOL),
+              flush=True)
+        if name == "auto" and not same:
+            bad.append("auto in one process differs from unsharded")
+        bad += [f"{name} vs unsharded: {x} over its bound"
+                for x in over({f: per[f] for f in JNP_MESH_TOL},
+                              JNP_MESH_TOL)]
+    cfg = runs["shard_map"][0]
+    _, s0, f0, g0 = noisy
+    g0 = g0.replace(dt=base.dts[0])
+    cfg1 = runs["unsharded"][0]
+    want = make_chunk_runner(cfg1, JNP_FAULT_STEPS)(s0, g0, f0)
+    for fault, prims in (("none (sound)", {}), *JNP_MESH_FAULTS.items()):
+        with planted(**prims):
+            got = make_chunk_runner(cfg, JNP_FAULT_STEPS)(s0, g0, f0)
+        per = state_diffs(got, want)
+        per = {f: per[f] for f in JNP_MESH_TOL}
+        same = bitwise_equal(got, want, STATE_FIELDS)
+        print(f"  noisy #4 state, {JNP_FAULT_STEPS} steps, shard_map, planted "
+              f"fault: {fault}; vs unsharded, bitwise equal {same}: "
+              + show(per, JNP_MESH_TOL), flush=True)
+        if fault == "none (sound)":
+            bad += [f"sound shard_map run from the noisy state: {x} over its "
+                    "bound" for x in over(per, JNP_MESH_TOL)]
+        elif not over(per, JNP_MESH_TOL):
+            bad.append(f"the {fault} stays within every bound")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 def main() -> int:
     # ---- 1. device ----
     t = time.perf_counter()
@@ -1737,6 +1894,13 @@ def main() -> int:
     bench_path(dev, card, timing)
     phase("bench", t, "bench, --micro, --stability, --scaling, profile, "
           "the budget identities and Euler/RK4 on the card; every gate held")
+
+    # ---- 12. the plain backend on #4's mesh ----
+    t = time.perf_counter()
+    jnp_mesh_path(noisy, dev, card)
+    phase("jnp mesh", t, "#4 on backend=jnp on 2x4 in one process, "
+          "shard_map and auto against the unsharded grid, no kernel launch; "
+          "each planted fault breaks a bound")
 
     kernels = []
 

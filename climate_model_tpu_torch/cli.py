@@ -11,16 +11,20 @@ make_chunk_runner``: for ``backend='pallas'`` the packed scan, whose
 corrector kernel carries the physics as its epilogue, and on a device mesh
 its sharded form, whose blocks stay split across chunks and are gathered
 for the diagnostics and the files; for ``backend='jnp'`` the plain PyTorch
-per-step path, on any device. ``bench`` prints one JSON line (throughput,
+per-step path, on any device, and on a device mesh either the per-operator
+halo path (sharding mode ``shard_map``; its ghost-free blocks stay split
+across chunks, as the packed scan's do) or GSPMD ``auto`` (the global
+program: on DTensors across ranks, on the mesh's one device in one
+process; ``dist/halo.py``). ``bench`` prints one JSON line (throughput,
 or with ``--micro``, ``--scaling`` or ``--stability`` the other harnesses
 of ``bench/``); ``profile`` prints the per-subsystem breakdown. Every
-subcommand runs on the card unless given ``--device cpu``. Not ported yet:
-a mesh with ``backend='jnp'``, which raises "not ported yet".
+subcommand runs on the card unless given ``--device cpu``.
 
 Usage:
   python -m climate_model_tpu_torch run --baseline 3 --days 0.1 --out-every-hours 1 --out-dir out3
   python -m climate_model_tpu_torch run --baseline 3 --days 0.2 --out-every-hours 1 --out-dir out3 --restart-from out3/restart.npz
   python -m climate_model_tpu_torch run --baseline 4 --days 0.05 --halo-overlap
+  python -m climate_model_tpu_torch run --baseline 4 --days 0.004 --backend jnp
   python -m climate_model_tpu_torch run --config configs/baseline_1.toml --device cpu
   python -m climate_model_tpu_torch plot out3/out_0002.nc
   python -m climate_model_tpu_torch bench --baseline 3
@@ -46,10 +50,6 @@ import torch.distributed as tdist
 
 from .core.config import (GridConfig, ModelConfig, NumericsConfig,
                           PhysicsConfig, baseline_config, resolve_rad_interval)
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 def build_config(args) -> ModelConfig:
@@ -128,6 +128,9 @@ def describe_path(cfg: ModelConfig, mesh=None) -> str:
     from .model import takes_packed_scan
 
     if not takes_packed_scan(cfg):
+        if mesh is not None:
+            from .dist.halo import describe
+            return describe(cfg, mesh)
         return "per-step (plain PyTorch dynamics, backend=jnp)"
     if mesh is None:
         return "packed scan (corrector with physics epilogue)"
@@ -166,15 +169,12 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
     from .io.checkpoint import load_checkpoint_ex, save_checkpoint
     from .io.metrics import MetricsLogger, diagnostics
     from .io.netcdf import NCWriter
-    from .model import make_chunk_runner
+    from .model import make_chunk_runner, takes_packed_scan
 
     sh = cfg.sharding
     mesh = None
     if sh.mesh_lat * sh.mesh_lon > 1:
-        if cfg.backend != "pallas":
-            _not_ported("a device mesh with backend='jnp' (dist/halo.py, "
-                        "GSPMD 'auto'; pass --backend pallas)")
-        if sh.mode != "shard_map":
+        if cfg.backend == "pallas" and sh.mode != "shard_map":
             # the kernels compose with a mesh only through the explicit
             # halo exchange (the reference's cli.py:162-171)
             if not tdist.is_initialized() or tdist.get_rank() == 0:
@@ -184,11 +184,17 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
             cfg = cfg.replace(sharding=dataclasses.replace(
                 sh, mode="shard_map"))
     state, forcing, grid = initialize(cfg, device=device)
+    blocks = None              # the ghost widths of the blocks, if split
     if cfg.sharding.mesh_lat * cfg.sharding.mesh_lon > 1:
+        from .dist.halo import NO_HALO, takes_blocks
         from .dist.mesh import make_mesh, validate_divisibility
-        from .dist.sharding import gather, shard
+        from .dist.sharding import Halo, gather, shard
         mesh = make_mesh(cfg, device=state.device)
         validate_divisibility(cfg, mesh)
+        if takes_packed_scan(cfg):
+            blocks = Halo()
+        elif takes_blocks(cfg, mesh):
+            blocks = NO_HALO
     p0 = mesh is None or mesh.rank in (None, 0)
     ckpt = os.path.join(out_dir, "restart.npz") if out_dir else None
     if (not restart_from and auto_resume and ckpt
@@ -230,9 +236,9 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
     start = done = state.step
     t_now = float(state.t)
     t0 = time.time()
-    if mesh is not None:
+    if blocks is not None:
         # the blocks stay split across chunks
-        state = shard(mesh, state, grid, forcing)
+        state = shard(mesh, state, grid, forcing, blocks)
     logger._t_last = t0
     logger._step_last = done
     restart_every = max(int(cfg.restart_every_days * 86400.0 / dt), 1)
@@ -258,7 +264,7 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
         state = make_chunk_runner(cfg, n)(state, grid, forcing)
         # a sharded run's diagnostics and files are of the gathered global
         # state, the same on every rank: so is the dt taken from its wind
-        whole = state if mesh is None else gather(state)
+        whole = state if blocks is None else gather(state)
         diag = diagnostics(whole, grid, forcing, cfg)
         t_now = diag.t
         done += n
@@ -288,7 +294,7 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
               f"({gps/1e6:.2f} M grid-points/s)", flush=True)
     if ckpt and not aborted:
         save_checkpoint(ckpt, state, cfg)
-    if mesh is not None:
+    if blocks is not None:
         state = gather(state)
     return RunResult(state=state, grid=grid, forcing=forcing,
                      start_step=start, steps=done - start, chunks=chunks,
@@ -470,10 +476,13 @@ def make_parser() -> argparse.ArgumentParser:
                     help="device-mesh longitude extent")
     pr.add_argument("--sharding-mode", default=None,
                     choices=["auto", "shard_map"],
-                    help="'auto' switches to 'shard_map' with the kernels")
+                    help="'auto' switches to 'shard_map' with the kernels; "
+                         "with --backend jnp it runs the global program "
+                         "(on DTensors across ranks)")
     pr.add_argument("--halo-overlap", action="store_true",
                     help="overlap the lat halo exchange with the main "
-                         "kernels (seam strips)")
+                         "kernels (seam strips); does nothing with "
+                         "--backend jnp")
     pr.add_argument("--multihost", action="store_true",
                     help="one shard per rank: initialise torch.distributed "
                          "from the launcher's environment (NCCL on cuda, "

@@ -28,9 +28,23 @@ Semantics, as the reference's:
 
 Fields are lists (one per local shard) of lists of block tensors, written
 in place.
+
+The per-operator halo path of the plain backend (``dist/halo.py``) needs a
+one-cell halo at every neighbour shift instead (``dycore/boundaries.py``,
+shard mode): ``Edges``, one interface with two implementations beside the
+two above:
+
+* ``LocalEdges``: every shard in this process, one thread each, meeting at
+  every shift (a rendezvous that checks that the threads run in lockstep,
+  aborts them all when one fails, and times out rather than hang);
+* ``DistEdges``: one shard per rank; each shift's slab goes to its
+  neighbour with ``batch_isend_irecv``.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import torch
 import torch.distributed as tdist
@@ -235,3 +249,151 @@ class DistExchange(Exchange):
 def make_exchange(mesh: Mesh, layouts: list) -> Exchange:
     return DistExchange(mesh, layouts) if mesh.distributed \
         else LocalExchange(mesh, layouts)
+
+
+# ---------------------------------------------------------------------------
+# One-cell halos of the shift primitives (dist/halo.py)
+# ---------------------------------------------------------------------------
+
+# the direction the data of a shift travels, by the side it comes from
+_TRAVELS = {"west": _EAST, "east": _WEST, "south": _NORTH, "north": _SOUTH}
+_OPPOSITE = {"west": "east", "east": "west", "south": "north",
+             "north": "south"}
+# seconds a shard thread waits for the others at a rendezvous
+RENDEZVOUS_TIMEOUT_S = 120.0
+
+
+class LockstepError(RuntimeError):
+    """The shard threads of one process left lockstep: at the same
+    rendezvous they ran different shifts, or shifts of different shapes."""
+
+
+class Aborted(Exception):
+    """Another shard thread failed; this one stops (its error is not the
+    run's)."""
+
+
+def _show(key) -> str:
+    op, shape = key
+    return f"{op} on {shape}" if shape else op
+
+
+class Edges:
+    """What a shift primitive under shard mode needs: ``swap(shard, key,
+    side, slab)`` posts ``shard``'s edge ``slab`` and returns the slab that
+    the neighbour on ``side`` posted for the same shift (None past a chain
+    end). ``key`` names the shift (primitive, shape of its operand).
+    ``shifts[shard]`` counts the shifts a shard made."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.shifts = [0] * mesh.size
+
+    def neighbour(self, shard: int, side: str):
+        """The shard on ``side``: the lon ring always, the lat chain where
+        it goes on (None at a polar end)."""
+        a, b = self.mesh.index(shard)
+        if side in ("west", "east"):
+            return self.mesh.shard(a, b - 1 if side == "west" else b + 1)
+        a += -1 if side == "south" else 1
+        return self.mesh.shard(a, b) if 0 <= a < self.mesh.n_lat else None
+
+    def swap(self, shard: int, key, side: str, slab):
+        raise NotImplementedError
+
+    def finish(self, shard: int):
+        """``shard`` has run to its end."""
+
+
+class LocalEdges(Edges):
+    """Every shard in this process, one thread each. At each shift every
+    thread posts its slab and its shift's key in a slot, waits on a barrier,
+    checks that its key is shard 0's, and reads its neighbour's slot. The
+    slots alternate between two sets, so that a slot is written again only
+    after the next barrier, which no thread passes before every thread has
+    read the last shift's slots. ``finish`` is a rendezvous too, so that a
+    thread that ends early is caught. A thread that fails calls ``fail``:
+    the barrier is aborted, every other thread raises ``Aborted`` at its
+    next wait, and ``error`` holds the first failure. A wait longer than
+    ``timeout`` seconds raises ``TimeoutError``. ``waited[shard]`` sums the
+    seconds a shard's thread spent waiting at the barrier.
+
+    On a card all threads enqueue on one stream, so the order of enqueue,
+    which the barriers fix, is the order of execution."""
+
+    def __init__(self, mesh: Mesh, timeout: float = RENDEZVOUS_TIMEOUT_S):
+        super().__init__(mesh)
+        n = mesh.size
+        self.timeout = timeout
+        self.error = None
+        self._barrier = threading.Barrier(n)
+        self._slots = ([None] * n, [None] * n)
+        self._meets = [0] * n
+        self._lock = threading.Lock()
+        self.waited = [0.0] * n
+
+    def swap(self, shard: int, key, side: str, slab):
+        slots = self._meet(shard, key, slab)
+        self.shifts[shard] += 1
+        nb = self.neighbour(shard, side)
+        return None if nb is None else slots[nb][1]
+
+    def finish(self, shard: int):
+        self._meet(shard, ("end of run", ()), None)
+
+    def _meet(self, shard: int, key, slab) -> list:
+        k = self._meets[shard]
+        self._meets[shard] = k + 1
+        slots = self._slots[k & 1]
+        slots[shard] = (key, slab)
+        t0 = time.perf_counter()
+        try:
+            self._barrier.wait(self.timeout)
+        except threading.BrokenBarrierError:
+            if self.error is not None:
+                raise Aborted() from None
+            raise TimeoutError(
+                f"shard {shard} waited more than {self.timeout} s for the "
+                f"other shards at rendezvous {k} ({_show(key)})") from None
+        self.waited[shard] += time.perf_counter() - t0
+        lead = slots[0][0]
+        if key != lead:
+            raise LockstepError(
+                f"shards out of lockstep at rendezvous {k}: shard {shard} "
+                f"runs {_show(key)}, shard 0 runs {_show(lead)}")
+        return slots
+
+    def fail(self, exc: BaseException):
+        """Record ``exc`` if it is the first failure; abort the barrier."""
+        with self._lock:
+            if self.error is None:
+                self.error = exc
+        self._barrier.abort()
+
+
+class DistEdges(Edges):
+    """One shard per rank of ``torch.distributed``: each shift sends this
+    rank's slab to the neighbour opposite ``side`` and receives the slab of
+    the neighbour on ``side``, tagged by the direction the data travels (on
+    a lon ring of 2 both neighbours are one rank)."""
+
+    def swap(self, shard: int, key, side: str, slab):
+        self.shifts[shard] += 1
+        src = self.neighbour(shard, side)
+        dst = self.neighbour(shard, _OPPOSITE[side])
+        tag = _TRAVELS[side]
+        ops, buf = [], None
+        if dst is not None:
+            ops.append(tdist.P2POp(tdist.isend, slab.contiguous(), dst,
+                                   tag=tag))
+        if src is not None:
+            buf = torch.empty(slab.shape, dtype=slab.dtype,
+                              device=slab.device)
+            ops.append(tdist.P2POp(tdist.irecv, buf, src, tag=tag))
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+        return buf
+
+
+def make_edges(mesh: Mesh) -> Edges:
+    return DistEdges(mesh) if mesh.distributed else LocalEdges(mesh)

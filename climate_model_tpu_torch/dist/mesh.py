@@ -58,6 +58,11 @@ class Mesh:
                 f"{self.device}")
 
 
+def in_process_group() -> bool:
+    """Whether ``torch.distributed`` is initialised in this process."""
+    return tdist.is_available() and tdist.is_initialized()
+
+
 def make_mesh(cfg: ModelConfig = None, mesh_lat: int = None,
               mesh_lon: int = None, device="cuda") -> Mesh:
     """The mesh of ``cfg`` (or of the extents given), placed by the rule of
@@ -67,7 +72,7 @@ def make_mesh(cfg: ModelConfig = None, mesh_lat: int = None,
         mesh_lon = mesh_lon or cfg.sharding.mesh_lon
     mesh_lat, mesh_lon = mesh_lat or 1, mesh_lon or 1
     device = torch.device(device)
-    if tdist.is_available() and tdist.is_initialized():
+    if in_process_group():
         world = tdist.get_world_size()
         if world != mesh_lat * mesh_lon:
             raise ValueError(

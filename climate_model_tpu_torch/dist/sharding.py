@@ -16,6 +16,13 @@ there as on one device. The radii are the reference's
 ``kernels/csrc/fused_substep.cu`` works out why 3 suffices for the port's
 three launches. Static fields (forcing, per-latitude geometry) get their
 ghost rows and columns from the global arrays once, when they are split.
+The plain backend's per-operator halo path (``dist/halo.py``) runs on
+ghost-free blocks (``Halo(0, 0, 0)``).
+
+GSPMD ``auto`` across ranks runs the global program on
+``torch.distributed.tensor.DTensor``s (``to_dtensors``/``from_dtensors``):
+each rank's ghost-free block becomes its local shard of a DTensor over a
+``DeviceMesh`` with dims ``("lat", "lon")``, placed by the same tables.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as tdist
 
 from ..core.grid import Grid
 from ..core.state import Forcing, State
@@ -204,3 +212,90 @@ def gather(ss: ShardedState) -> State:
              for s, lay in zip(ss.states, ss.layouts)])
         fields[f] = assemble(parts, lays_all)
     return first.replace(**fields)
+
+
+# ---------------------------------------------------------------------------
+# GSPMD 'auto' across ranks: the blocks as DTensors
+# ---------------------------------------------------------------------------
+
+# the reference's state_pspec: these by (lat, lon), the other fields by
+# (None, lat, lon), t and step replicated
+_STATE_2D_FIELDS = {"colp", "tsurf", "rain", "soil_moist", "swflx_sfc",
+                    "lwflx_sfc"}
+_DEVICE_MESHES = {}
+
+
+def device_mesh(mesh: Mesh):
+    """The ``DeviceMesh`` of ``mesh``'s ranks, dims ``("lat", "lon")``;
+    made once per process group (it makes a group for each dim)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    key = (mesh.n_lat, mesh.n_lon, mesh.device.type, tdist.group.WORLD)
+    if key not in _DEVICE_MESHES:
+        _DEVICE_MESHES[key] = init_device_mesh(
+            mesh.device.type, (mesh.n_lat, mesh.n_lon),
+            mesh_dim_names=("lat", "lon"))
+    return _DEVICE_MESHES[key]
+
+
+def placements(kind: str, name: str) -> tuple:
+    """The DTensor placements (one per mesh dim: lat, lon) of the field
+    ``name`` of a ``State``, ``Forcing`` or ``Grid`` (``kind``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if kind == "grid":
+        if name in _GRID_LAT_FIELDS:
+            return (Shard(0), Replicate())
+        if name in _GRID_LON_FIELDS:
+            return (Replicate(), Shard(0))
+        return (Replicate(), Replicate())
+    if kind == "state" and name == "t":
+        return (Replicate(), Replicate())
+    if kind == "forcing" or name in _STATE_2D_FIELDS:
+        return (Shard(0), Shard(1))
+    return (Shard(1), Shard(2))
+
+
+def to_dtensors(ss: ShardedState) -> tuple:
+    """``(state, grid, forcing)`` of DTensors whose local shards are this
+    rank's ghost-free block (no data moves). ``grid`` keeps the block's
+    ``dt``."""
+    from torch.distributed.tensor import DTensor
+
+    (st,), (g,), (fo,), (lay,) = ss.states, ss.grids, ss.forcings, \
+        ss.layouts
+    if (lay.gs, lay.gn, lay.gx) != (0, 0, 0):
+        raise ValueError("DTensors are made from ghost-free blocks "
+                         "(Halo(0, 0, 0))")
+    dm = device_mesh(ss.mesh)
+
+    def dt(x, kind, name):
+        return DTensor.from_local(x, dm, placements(kind, name),
+                                  run_check=False)
+
+    state = st.replace(t=dt(st.t, "state", "t"),
+                       **{f: dt(getattr(st, f), "state", f)
+                          for f in STATE_FIELDS})
+    forcing = Forcing(**{f.name: dt(getattr(fo, f.name), "forcing", f.name)
+                         for f in dataclasses.fields(Forcing)})
+    grid = g.replace(ny=lay.ny, nx=lay.nx, **{
+        f.name: dt(getattr(g, f.name), "grid", f.name)
+        for f in dataclasses.fields(Grid)
+        if isinstance(getattr(g, f.name), torch.Tensor)})
+    return state, grid, forcing
+
+
+def from_dtensors(ss: ShardedState, state: State) -> ShardedState:
+    """``ss`` with this rank's block taken from the DTensor ``state``
+    (each field redistributed to its placement first: an op may leave a
+    field replicated along a mesh dim)."""
+    dm = device_mesh(ss.mesh)
+
+    def local(x, name):
+        return x.redistribute(dm, placements("state", name)).to_local() \
+            .contiguous()
+
+    block = ss.states[0].replace(t=local(state.t, "t"), step=state.step,
+                                 **{f: local(getattr(state, f), f)
+                                    for f in STATE_FIELDS})
+    return ss.replace(states=(block,))

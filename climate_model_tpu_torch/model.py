@@ -36,6 +36,7 @@ from typing import Callable
 from .core.config import ModelConfig, check_rad_resolved
 from .core.grid import Grid
 from .core.state import Forcing, State
+from .dist.mesh import in_process_group
 from .dycore.operators import diagnose_pressure
 from .dycore.stepper import check_pallas, dynamics_step_fn, run_scan
 from .kernels.fused_substep import corrector, predictor, wall_mask
@@ -119,13 +120,6 @@ def make_packed_step_fn(cfg: ModelConfig):
     return step
 
 
-# What a device mesh with backend='jnp' raises (the reference's per-operator
-# halo path and GSPMD 'auto' are the next slice of the port).
-JNP_MESH_NOT_PORTED = ("a device mesh with backend='jnp' (dist/halo.py, "
-                       "GSPMD 'auto') is not ported yet; use "
-                       "backend='pallas'")
-
-
 def takes_packed_scan(cfg: ModelConfig) -> bool:
     """Whether ``make_chunk_runner`` takes the packed scan (sharded on a
     mesh): for ``backend='pallas'``, as in the reference
@@ -145,14 +139,24 @@ def make_chunk_runner(cfg: ModelConfig, n_steps: int):
       ``run`` takes and returns a ``dist.sharding.ShardedState``, or a
       global ``State`` that it splits and gathers around the run.
     * any other backend (``'jnp'``): the per-step path with the plain
-      dynamics, on whatever device the state is on. On a mesh that is the
-      reference's per-operator halo path or GSPMD ``auto``, not ported
-      yet."""
+      dynamics, on whatever device the state is on. On a mesh, as the
+      reference's CLI takes it (``cli.py:181-197``): sharding mode
+      ``shard_map`` takes the per-operator halo path
+      (``dist/halo.py::make_sharded_step_fn``); ``auto`` across
+      ``torch.distributed`` ranks the global program on DTensors
+      (``dist/halo.py::make_auto_runner``), and ``auto`` in one process the
+      global program on the mesh's one device. The first two take and
+      return a ``ShardedState`` of ghost-free blocks, or a global ``State``
+      that they split and gather around the run."""
     sh = cfg.sharding
     sharded = sh.mesh_lat * sh.mesh_lon > 1
     if not takes_packed_scan(cfg):
-        if sharded:
-            raise NotImplementedError(JNP_MESH_NOT_PORTED)
+        if sharded and sh.mode == "shard_map":
+            from .dist.halo import make_sharded_step_fn
+            return make_sharded_step_fn(cfg, n_steps)
+        if sharded and in_process_group():
+            from .dist.halo import make_auto_runner
+            return make_auto_runner(cfg, n_steps)
         step = make_step_fn(cfg)
 
         def run(state: State, grid: Grid, forcing: Forcing) -> State:

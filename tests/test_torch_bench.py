@@ -195,19 +195,27 @@ def test_profile_rows(backend, tmp_path):
 
 
 def test_scaling_keys_and_jnp_refused():
+    """The scaling harness on each of its mesh paths, with the reference's
+    keys: the sharded packed scan (``backend='pallas'``), the per-operator
+    halo path (``backend='jnp'``, ``shard_map``) and GSPMD ``auto`` (in one
+    process the global program on the one device). The name is older than
+    the last two, which it once held to a refusal."""
     cfg = small3(nx=32, ny=16, sharding=ShardingConfig(
         mesh_lat=2, mesh_lon=2, halo_overlap=True))
-    rec = scaling.measure_scaling(cfg, steps=2, device="cpu")
-    for key in ("metric", "value", "unit", "vs_baseline", "gps_1dev",
-                "gps_ndev", "gps_ratio", "n_devices"):
-        assert key in rec
-    assert rec["n_devices"] == 4 and rec["gps_1dev"] > 0 \
-        and rec["gps_ndev"] > 0
-    assert "4 shards on 1 device (cpu)" in rec["metric"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        scaling.measure_scaling(cfg.replace(backend="jnp"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        scaling.measure_scaling(cfg, mode="auto", device="cpu")
+    keys = ("metric", "value", "unit", "vs_baseline", "gps_1dev",
+            "gps_ndev", "gps_ratio", "n_devices")
+    for c, mode, where in (
+            (cfg, "shard_map", "shard_map; 4 shards on 1 device (cpu)"),
+            (cfg.replace(backend="jnp"), "shard_map",
+             "shard_map; sharded per-step (plain PyTorch, per-operator "
+             "halos)  mesh=2x2 (shard_map, 4 shards on 1 device (cpu)"),
+            (cfg, "auto", "auto; GSPMD auto: the global program on 1 device "
+             "(cpu) (4 shards share it)")):
+        rec = scaling.measure_scaling(c, steps=2, mode=mode, device="cpu")
+        assert tuple(k for k in keys if k in rec) == keys
+        assert rec["n_devices"] == 4 and rec["gps_1dev"] > 0 \
+            and rec["gps_ndev"] > 0
+        assert where in rec["metric"], rec["metric"]
 
 
 def test_opcount_audit_accounts():

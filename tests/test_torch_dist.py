@@ -246,33 +246,47 @@ SMALL = ["run", "--nx", "32", "--ny", "16", "--nz", "4", "--physics", "all",
          "--days", "0.02", "--dtype", "float64", "--device", "cpu"]
 
 
-@pytest.mark.parametrize("mode", ["shard_map", "auto"])
-def test_cli_run_sharded(capsys, mode):
+@pytest.mark.parametrize("mode,backend", [
+    pytest.param("shard_map", "pallas", id="shard_map"),
+    pytest.param("auto", "pallas", id="auto"),
+    pytest.param("auto", "jnp", id="auto-jnp")])
+def test_cli_run_sharded(capsys, mode, backend):
     """``run`` on a 2x4 mesh in one process, both modes (the reference's
-    ``test_cli_run_sharded``, without files): ``auto`` switches to
-    ``shard_map`` with a note, and the run equals the unsharded one."""
-    argv = SMALL + ["--backend", "pallas", "--mesh-lat", "2", "--mesh-lon",
+    ``test_cli_run_sharded``, without files): with the kernels ``auto``
+    switches to ``shard_map`` with a note, and the run equals the
+    unsharded one; with the plain backend ``auto`` runs the global program
+    on the one device, says so, and equals the unsharded run bit for
+    bit."""
+    argv = SMALL + ["--backend", backend, "--mesh-lat", "2", "--mesh-lon",
                     "4", "--sharding-mode", mode, "--halo-overlap"]
     assert cli.main(argv) == 0
     printed = capsys.readouterr().out
-    assert ("switching mode auto -> shard_map" in printed) == (mode == "auto")
-    assert ("mesh=2x4 (shard_map, halo overlap, 8 shards on 1 device "
-            "(cpu))") in printed
+    assert ("switching mode auto -> shard_map" in printed) == (
+        mode == "auto" and backend == "pallas")
+    if backend == "pallas":
+        assert ("mesh=2x4 (shard_map, halo overlap, 8 shards on 1 device "
+                "(cpu))") in printed
+    else:
+        assert ("path=GSPMD auto: the global program on 1 device (cpu) "
+                "(8 shards share it)  mesh=2x4") in printed
     args = cli.make_parser().parse_args(argv)
     res = cli.run(cli.build_config(args), device="cpu")
     want = cli.run(cli.build_config(cli.make_parser().parse_args(
-        SMALL + ["--backend", "pallas"])), device="cpu")
+        SMALL + ["--backend", backend])), device="cpu")
     assert res.steps == want.steps and res.dts == want.dts
     for name in FIELDS:
         np.testing.assert_allclose(getattr(res.state, name).numpy(),
                                    getattr(want.state, name).numpy(),
                                    err_msg=name, **SELF_TOL)
+        if backend == "jnp":
+            assert torch.equal(getattr(res.state, name),
+                               getattr(want.state, name)), name
 
 
 def test_cli_backend_and_mesh_flags(capsys):
     """``--backend jnp`` takes the plain path on any device; ``1x1``
-    overrides a preset's mesh; a mesh with the plain backend is not
-    ported."""
+    overrides a preset's mesh; a mesh with the plain backend takes the
+    per-operator halo path and equals the unsharded run."""
     assert cli.main(SMALL + ["--backend", "jnp"]) == 0
     assert "path=per-step (plain PyTorch dynamics, backend=jnp)" in \
         capsys.readouterr().out
@@ -289,5 +303,16 @@ def test_cli_backend_and_mesh_flags(capsys):
         "packed scan (corrector with physics epilogue)"
     b1 = cli.build_config(p.parse_args(["run", "--baseline", "1"]))
     assert b1.backend == "jnp" and not tmodel.takes_packed_scan(b1)
-    with pytest.raises(NotImplementedError, match="backend='jnp'"):
-        cli.main(SMALL + ["--mesh-lon", "2", "--backend", "jnp"])
+    argv = SMALL + ["--mesh-lon", "2", "--backend", "jnp",
+                    "--sharding-mode", "shard_map"]
+    assert cli.main(argv) == 0
+    assert ("path=sharded per-step (plain PyTorch, per-operator halos)  "
+            "mesh=1x2 (shard_map, 2 shards on 1 device (cpu))") in \
+        capsys.readouterr().out
+    res = cli.run(cli.build_config(p.parse_args(argv)), device="cpu")
+    want = cli.run(cli.build_config(p.parse_args(
+        SMALL + ["--backend", "jnp"])), device="cpu")
+    assert res.steps == want.steps > 0
+    for name in FIELDS:
+        assert torch.equal(getattr(res.state, name),
+                           getattr(want.state, name)), name

@@ -45,7 +45,7 @@ def _port_modules():
 def test_port_imports_without_jax():
     mods = _port_modules()
     for name in ("kernels.fused_substep", "dist.mesh", "dist.sharding",
-                 "dist.comm", "dist.packed_halo", "core.namelist",
+                 "dist.comm", "dist.packed_halo", "dist.halo", "core.namelist",
                  "io.checkpoint", "io.netcdf", "io.topo", "io.plot",
                  "bench.roofline", "bench.micro", "bench.throughput",
                  "bench.profile", "bench.stability", "bench.budget",
