@@ -98,7 +98,31 @@ and exits non-zero:
                with each planted fault (the lon exchange left out, the lat
                exchange left out, the v wall on every lat shard), each of
                which must break a bound; ms/step of the three runs and the
-               shifts a step.
+               shifts a step;
+13. gate    -- the whole model on the card, the kernel path (the packed
+               scan, backend='pallas') against the plain path
+               (backend='jnp') from the same initial state on one device,
+               as the reference's on-device gate runs it: config #3 for 110
+               steps at its hourly cadence (a radiation refresh at step
+               105) and config #5 for 12 steps with radiation every 4; every
+               State field within GATE_TOL, each run counted (n masked
+               predictors and n epilogue correctors on the kernel path, no
+               launch on the plain path); planted faults on the kernel path
+               (the radiation refresh after step 0 skipped, the epilogue
+               without the turbulence) must each break a bound at both
+               configs;
+14. baseline5 -- BASELINE #5 (1440x720x32) through the run command:
+               unsharded for 0.25 days (its sanity checks, its last metrics
+               record printed beside the reference's first line of
+               out_clim_025/metrics.jsonl), then its 4x8 mesh (32 shards on
+               the card) with halo overlap and blocking against the
+               unsharded grid over B5_STEPS steps, counted as phase 8 counts
+               #4 (32 shard launches of each program a step, 24 south-strip
+               and 24 north-strip); FAULT_STEPS steps from a noisy #5 state,
+               sound and with the lat exchange left out; the masked
+               predictor and the epilogue corrector at #5's grid against
+               their plain versions and timed beside their bound; ms/step
+               and peak device memory of each run.
 
 Phase 3 also holds the epilogue's momentum terms on a windy state
 (MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
@@ -126,7 +150,7 @@ import time
 import numpy as np
 import torch
 
-from climate_model_tpu_torch import cli
+from climate_model_tpu_torch import cli, model
 from climate_model_tpu_torch.bench.micro import device_ms, launch_ms
 from climate_model_tpu_torch.bench.roofline import substep_bound_ms
 from climate_model_tpu_torch.core.config import (baseline_config,
@@ -270,6 +294,66 @@ JNP_UNSHARDED_ARGV = JNP_MESH_ARGV + ["--mesh-lat", "1", "--mesh-lon", "1"]
 # itself); each planted fault broke them by 3 to 11 orders of magnitude.
 JNP_MESH_TOL = dict(SHARDED_TOL)
 JNP_FAULT_STEPS = 3
+# Phase 13 (gate): the whole model, the kernel path against the plain path
+# on the card, from the same initial state on a 1x1 mesh, as the reference's
+# tests/tpu/test_tpu_numerics.py::test_full_model_packed_matches_jnp_on_device
+# runs it: (baseline, steps, radiation every n steps; None: the preset's
+# hourly cadence, 105 steps at #3).
+GATE_RUNS = ((3, 110, None), (5, 12, 4))
+# The reference's bounds on max|pallas - jnp| after those steps, its fp32
+# error scale against itself (tests/tpu/test_tpu_numerics.py:26-39). No
+# bound of GATE_TOL is above it.
+REF_GATE_TOL = {"u": 0.02, "v": 0.02, "colp": 1.0, "pott": 0.01, "qv": 2e-6,
+                "qc": 2e-6, "tsurf": 0.01, "rain": 1e-5, "soil_moist": 1e-7,
+                "dpottdt_rad": 2e-7, "swflx_sfc": 0.05, "lwflx_sfc": 0.05}
+# Bounds on max|kernel path - plain path| by baseline, each 4.0-4.8x what an
+# NVIDIA H100 80GB HBM3 at 700 W measured (PERF.md, PR 11). #3 after 110
+# steps: u 2.244e-3 m/s, v 1.985e-3, colp 9.375e-2 Pa (12 ulp at 9e4 Pa),
+# pott 1.221e-3 K, qv 1.483e-7, tsurf 1.221e-4 K, soil_moist 2.794e-9 m,
+# dpottdt_rad 5.0e-9 K/s, swflx_sfc 4.272e-4 W/m2, lwflx_sfc 1.450e-3
+# W/m2 (the reference read the same scale on its chip: u 2.3e-3, v 2.7e-3,
+# colp 0.13, pott 9.8e-4, qv 2e-7, dpottdt_rad 1.7e-8, lwflx 1.9e-3). #5
+# after 12 steps: u 6.701e-4, v 2.342e-4, colp 9.375e-2, pott 5.493e-4,
+# qv 1.234e-8, tsurf 9.155e-5, soil_moist 9.313e-10, dpottdt_rad 4.849e-9,
+# swflx_sfc 2.441e-4, lwflx_sfc 8.392e-4. qc and rain read 0 at both (the
+# air stays below saturation over these steps), and their bound is
+# PATHS_TOL's for a 0 reading. A table for each config: #5's 12 steps grow
+# a tenth of #3's 110 in most fields, and one table at #3's scale would
+# hold the epilogue without turbulence at #5 within its pott bound.
+GATE_TOL = {
+    3: {"u": 1e-2, "v": 8e-3, "colp": 0.4, "pott": 5e-3, "qv": 6e-7,
+        "qc": 1e-10, "tsurf": 5e-4, "rain": 1e-10, "soil_moist": 1.2e-8,
+        "dpottdt_rad": 2e-8, "swflx_sfc": 2e-3, "lwflx_sfc": 6e-3},
+    5: {"u": 3e-3, "v": 1e-3, "colp": 0.4, "pott": 2.5e-3, "qv": 5e-8,
+        "qc": 1e-10, "tsurf": 4e-4, "rain": 1e-10, "soil_moist": 4e-9,
+        "dpottdt_rad": 2e-8, "swflx_sfc": 1e-3, "lwflx_sfc": 4e-3}}
+# the planted faults of the kernel path, each of which must break a bound at
+# both configs; the stale radiation caches must break dpottdt_rad and one
+# of the surface fluxes
+GATE_FAULTS = ("radiation refresh after step 0 skipped",
+               "epilogue without the turbulence")
+STALE_MUST_BREAK = ("dpottdt_rad", ("swflx_sfc", "lwflx_sfc"))
+# Phase 14 (baseline5): BASELINE #5 unsharded over the horizon of the first
+# line of the reference's out_clim_025/metrics.jsonl (0.25 days, 2612 steps
+# at 8.267 s), in two chunks so that ms/step after the first is read; that
+# line, whose wall_s and grid_points_per_s are a TPU's and not compared:
+B5_DAY_ARGV = ["run", "--baseline", "5", "--mesh-lat", "1", "--mesh-lon",
+               "1", "--days", "0.25", "--out-every-hours", "3"]
+REF5_FIRST_LINE = {"step": 2612, "mean_colp": 90956.4140625,
+                   "mean_pott": 309.9237060546875,
+                   "total_water": 7001498382761984.0,
+                   "max_wind": 10.324687004089355,
+                   "toa_net_sw": 249.9434051513672,
+                   "olr": 243.61082458496094}
+# ... then its 4x8 mesh in one process, blocking (the preset) and with halo
+# overlap, against the unsharded grid: 150 steps at 8.267 s in three chunks
+# of 50, radiation refreshed at step 0 (every 435 steps).
+B5_ARGV = ["run", "--baseline", "5", "--days", "0.01436",
+           "--out-every-hours", "0.115"]
+B5_STEPS = 150
+B5_OVERLAP_ARGV = B5_ARGV + ["--halo-overlap"]
+B5_UNSHARDED_ARGV = B5_ARGV + ["--mesh-lat", "1", "--mesh-lon", "1"]
+
 # the counters of the plain physics splits (every other counter of
 # read_counts is a kernel's)
 PLAIN_COUNTERS = ("radiation_refreshes", "surface_split", "turbulence_split",
@@ -687,12 +771,14 @@ def time_kernels(ci: CheckInputs, card: str) -> dict:
     return timing
 
 
-def kernel_timing(name, kern, plain, bound, card) -> dict:
+def kernel_timing(name, kern, plain, bound, card, n=50) -> dict:
     """A kernel and its plain version timed in turns (kernel, plain, plain,
-    kernel): device ms per call (``device_ms``) and the host's enqueue ms
-    beside it, against ``bound`` = (bound ms, what bounds it)."""
+    kernel): device ms per call over ``n`` calls (``device_ms``) and the
+    host's enqueue ms beside it, against ``bound`` = (bound ms, what bounds
+    it)."""
     (k1, kh1), (p1, ph1), (p2, ph2), (k2, kh2) = (
-        device_ms(kern), device_ms(plain), device_ms(plain), device_ms(kern))
+        device_ms(kern, n), device_ms(plain, n), device_ms(plain, n),
+        device_ms(kern, n))
     (bound_ms, by), ms = bound, 0.5 * (k1 + k2)
     split = launch_ms(kern)
     tm = dict(ms=ms, plain_ms=0.5 * (p1 + p2), bound_ms=bound_ms,
@@ -988,11 +1074,11 @@ class Block:
     strips: list
 
 
-def noisy4(dev):
-    """Config #4 at full width, 10 plain steps from the initial state, its
-    moisture raised near saturation, grid-scale noise added, and colp
-    +-20 Pa. Returns (cfg, state, forcing, grid)."""
-    cfg = baseline_config(4)
+def noisy_state(baseline: int, dev):
+    """Config ``baseline`` at full width, 10 plain steps from the initial
+    state, its moisture raised near saturation, grid-scale noise added, and
+    colp +-20 Pa. Returns (cfg, state, forcing, grid)."""
+    cfg = baseline_config(baseline)
     state, forcing, grid = initialize(cfg, device=dev)
     plain_step = make_step_fn(cfg, dynamics=functools.partial(step_matsuno,
                                                               cfg=cfg))
@@ -1086,7 +1172,7 @@ def shard_calls(b: Block, kw, phys, dt):
 
 def check_shards(noisy, dev, bad: list):
     """Each shard-local and seam-strip variant against its plain version on
-    the blocks of CHECK_BLOCKS cut from the ``noisy4`` state. Returns
+    the blocks of CHECK_BLOCKS cut from the noisy #4 state. Returns
     (errors by variant, the blocks and what the timing needs)."""
     blocks, kw, phys = shard_blocks(*noisy, dev)
     dt = blocks[0].grid.dt
@@ -1184,8 +1270,8 @@ class _NoWait:
 
 def sharded_steps(cfg, noisy, n, dev, halo=sharding.Halo(),
                   leave_out=None):
-    """``n`` steps of the sharded runner of ``cfg`` from the ``noisy4``
-    state, optionally with a planted fault; the gathered final state."""
+    """``n`` steps of the sharded runner of ``cfg`` from the ``noisy_state``
+    ``noisy``, optionally with a planted fault; the gathered final state."""
     _, s0, f0, g0 = noisy
     ss = sharding.shard(make_mesh(cfg, device=dev), s0, g0, f0, halo)
     if leave_out:
@@ -1193,18 +1279,39 @@ def sharded_steps(cfg, noisy, n, dev, halo=sharding.Halo(),
     return sharding.gather(make_chunk_runner(cfg, n)(ss, g0, f0))
 
 
-def sharded_path(noisy, dev, card: str):
-    """Phase 8: BASELINE #4 on its 2x4 mesh in one process through the run
-    command, with halo overlap (counted), then the blocking schedule and
-    the unsharded grid from the same initial state; each pair compared.
-    Then FAULT_STEPS steps from the ``noisy4`` state: the sound sharded run
-    and each planted fault against the unsharded grid."""
-    bad = []
+class peak_memory(contextlib.AbstractContextManager):
+    """The device memory that a block allocates at its peak, above what was
+    allocated when it began (``torch.cuda.max_memory_allocated`` after
+    ``reset_peak_memory_stats``); read as ``.bytes`` after the block."""
+
+    def __init__(self, dev):
+        self.dev, self.bytes = dev, 0
+
+    def __enter__(self):
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.base = torch.cuda.memory_allocated(self.dev)
+        return self
+
+    def __exit__(self, *exc):
+        self.bytes = torch.cuda.max_memory_allocated(self.dev) - self.base
+
+    def __str__(self):
+        return (f"peak device memory {self.bytes / 1e9:.3f} GB above the "
+                f"{self.base / 1e9:.3f} GB held before")
+
+
+def mesh_runs(argvs, dev, card: str, bad: list) -> dict:
+    """Each ``(name, argv)`` of ``argvs`` (names ``overlap``, ``blocking``,
+    ``unsharded``) through ``run_argv``, counted: one masked predictor and
+    one epilogue corrector a step unsharded; on the mesh a shard launch of
+    each program a step for each shard and, with overlap, a south-strip and
+    a north-strip launch for each lat seam. Returns {name: (cfg, result,
+    counts, steady ms/step, peak_memory)}."""
     runs = {}
-    for name, argv in (("overlap", SHARDED_ARGV), ("blocking", BLOCKING_ARGV),
-                       ("unsharded", UNSHARDED_ARGV)):
-        runs[name] = run_argv(argv, dev)
-        cfg, res, counts, steady = runs[name]
+    for name, argv in argvs:
+        with peak_memory(dev) as peak:
+            cfg, res, counts, steady = run_argv(argv, dev)
+        runs[name] = (cfg, res, counts, steady, peak)
         every = cfg.physics.rad_every_steps
         refreshes = sum(1 for k in range(res.steps) if k % every == 0)
         want = dict.fromkeys(counts, 0)
@@ -1224,11 +1331,16 @@ def sharded_path(noisy, dev, card: str):
                     want[f"corrector_{part}"] = seams * n
         print(f"  {name}: {res.path}; {n} steps {res.chunks}, "
               f"{1e3 * res.wall_s / n:.3f} ms/step, after the first chunk "
-              f"{steady:.3f} ms/step; counts {counts} [{card}]", flush=True)
+              f"{steady:.3f} ms/step; {peak}; counts {counts} [{card}]",
+              flush=True)
         if counts != want:
             bad.append(f"{name}: counts {counts}, expected {want}")
-    s0, _, g0 = initialize(runs["overlap"][0], device=dev)
-    sanity(runs["overlap"][1].state, runs["overlap"][1].grid, s0)
+    return runs
+
+
+def mesh_compare(runs: dict, bad: list):
+    """The mesh runs against the unsharded one and each other: dts, every
+    field within SHARDED_TOL, and whether bit for bit."""
     base = runs["unsharded"][1]
     for name in ("overlap", "blocking"):
         if runs[name][1].dts != base.dts:
@@ -1244,31 +1356,58 @@ def sharded_path(noisy, dev, card: str):
               flush=True)
         bad += [f"{a} vs {b}: {x} over its bound"
                 for x in over({f: per[f] for f in SHARDED_TOL}, SHARDED_TOL)]
+
+
+def mesh_faults(runs: dict, noisy, faults, dev, bad: list):
+    """FAULT_STEPS steps of the overlap run's config from the noisy state,
+    sound and with each planted fault of ``faults`` ((name, sharded_steps
+    keywords)), against the unsharded grid: the sound run within
+    SHARDED_TOL, each fault over it (but the lon exchange left out after
+    the predictor only, a reading)."""
     cfg, cfg1 = runs["overlap"][0], runs["unsharded"][0]
     _, s0, f0, g0 = noisy
+    label = f"noisy {cfg.grid.nx}x{cfg.grid.ny}x{cfg.grid.nz} state"
     want = make_chunk_runner(cfg1, FAULT_STEPS)(s0, g0, f0)
-    for fault, kw in (("none (sound)", {}),
-                      ("lon exchange left out", dict(leave_out="lon exchange")),
-                      ("lon exchange left out after the predictor only",
-                       dict(leave_out="lon exchange after the predictor")),
-                      ("strips on stale lat rows (lat exchange left out)",
-                       dict(leave_out="lat exchange")),
-                      ("ghosts one row and column narrower (2)",
-                       dict(halo=sharding.Halo(2, 2, 2)))):
+    for fault, kw in (("none (sound)", {}), *faults):
         got = sharded_steps(cfg, noisy, FAULT_STEPS, dev, **kw)
         per = state_diffs(got, want)
         per = {f: per[f] for f in SHARDED_TOL}
         same = bitwise_equal(got, want, STATE_FIELDS)
-        print(f"  noisy #4 state, {FAULT_STEPS} steps, overlap run, planted "
+        print(f"  {label}, {FAULT_STEPS} steps, overlap run, planted "
               f"fault: {fault}; vs unsharded, bitwise equal {same}: "
               + show(per, SHARDED_TOL), flush=True)
         if fault == "none (sound)":
-            bad += [f"sound sharded run from the noisy state: {x} over its "
+            bad += [f"sound sharded run from the {label}: {x} over its "
                     "bound" for x in over(per, SHARDED_TOL)]
         elif "after the predictor only" in fault:
             pass        # a reading, not a gate (PERF.md, Findings)
         elif not over(per, SHARDED_TOL):
             bad.append(f"the {fault} stays within every bound")
+
+
+LAT_FAULT = ("strips on stale lat rows (lat exchange left out)",
+             dict(leave_out="lat exchange"))
+
+
+def sharded_path(noisy, dev, card: str):
+    """Phase 8: BASELINE #4 on its 2x4 mesh in one process through the run
+    command, with halo overlap (counted), then the blocking schedule and
+    the unsharded grid from the same initial state; each pair compared.
+    Then FAULT_STEPS steps from the noisy #4 state: the sound sharded run
+    and each planted fault against the unsharded grid."""
+    bad = []
+    runs = mesh_runs((("overlap", SHARDED_ARGV), ("blocking", BLOCKING_ARGV),
+                      ("unsharded", UNSHARDED_ARGV)), dev, card, bad)
+    s0, _, g0 = initialize(runs["overlap"][0], device=dev)
+    sanity(runs["overlap"][1].state, runs["overlap"][1].grid, s0)
+    mesh_compare(runs, bad)
+    mesh_faults(runs, noisy, (
+        ("lon exchange left out", dict(leave_out="lon exchange")),
+        ("lon exchange left out after the predictor only",
+         dict(leave_out="lon exchange after the predictor")),
+        LAT_FAULT,
+        ("ghosts one row and column narrower (2)",
+         dict(halo=sharding.Halo(2, 2, 2)))), dev, bad)
     if bad:
         raise AssertionError("; ".join(bad))
     return {name: r[2] for name, r in runs.items()}
@@ -1720,16 +1859,16 @@ JNP_MESH_FAULTS = {
 
 
 @contextlib.contextmanager
-def planted(**prims):
-    """The shift primitives of ``prims`` replaced for the block."""
-    saved = {name: getattr(bc, name) for name in prims}
-    for name, fn in prims.items():
-        setattr(bc, name, fn)
+def planted(module, **attrs):
+    """The attributes ``attrs`` of ``module`` replaced for the block."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, fn in attrs.items():
+        setattr(module, name, fn)
     try:
         yield
     finally:
         for name, fn in saved.items():
-            setattr(bc, name, fn)
+            setattr(module, name, fn)
 
 
 def jnp_mesh_path(noisy, dev, card: str):
@@ -1792,7 +1931,7 @@ def jnp_mesh_path(noisy, dev, card: str):
     cfg1 = runs["unsharded"][0]
     want = make_chunk_runner(cfg1, JNP_FAULT_STEPS)(s0, g0, f0)
     for fault, prims in (("none (sound)", {}), *JNP_MESH_FAULTS.items()):
-        with planted(**prims):
+        with planted(bc, **prims):
             got = make_chunk_runner(cfg, JNP_FAULT_STEPS)(s0, g0, f0)
         per = state_diffs(got, want)
         per = {f: per[f] for f in JNP_MESH_TOL}
@@ -1807,6 +1946,181 @@ def jnp_mesh_path(noisy, dev, card: str):
             bad.append(f"the {fault} stays within every bound")
     if bad:
         raise AssertionError("; ".join(bad))
+
+
+def gate_config(baseline: int, rad_every):
+    """Config ``baseline`` on a 1x1 mesh; radiation every ``rad_every``
+    steps (None: the preset's hourly cadence)."""
+    cfg = baseline_config(baseline)
+    cfg = cfg.replace(sharding=dataclasses.replace(cfg.sharding, mesh_lat=1,
+                                                   mesh_lon=1))
+    if rad_every is not None:
+        cfg = cfg.replace(physics=dataclasses.replace(
+            cfg.physics, rad_every_steps=rad_every, rad_every_hours=0.0))
+    return cfg
+
+
+def gate_faults(cfg) -> dict:
+    """The planted faults of the kernel path: replacements of names that
+    ``model.make_packed_step_fn``'s step calls."""
+    refresh = radiation.radiation_step
+    no_turb = phys_with(cfg, turbulence=False)
+    return {GATE_FAULTS[0]: dict(radiation_step=lambda s, g, f, c: (
+                refresh(s, g, f, c) if s.step == 0 else s)),
+            GATE_FAULTS[1]: dict(corrector=lambda *a, phys, **k: (
+                fs.corrector(*a, phys=no_turb, **k)))}
+
+
+def gate_path(dev, card: str):
+    """Phase 13: for each of GATE_RUNS, the kernel path and the plain path
+    from the same initial state, counted and compared field by field; each
+    planted fault of the kernel path against the plain run."""
+    bad = [f"GATE_TOL[{b}] {f} {tol[f]} above the reference's "
+           f"{REF_GATE_TOL[f]}" for b, tol in GATE_TOL.items()
+           for f in over(tol, REF_GATE_TOL)]
+    for baseline, n, rad_every in GATE_RUNS:
+        tol = GATE_TOL[baseline]
+        cfg = gate_config(baseline, rad_every)
+        every = cfg.physics.rad_every_steps
+        refreshes = sum(1 for k in range(n) if k % every == 0)
+        s0, f0, g0 = initialize(cfg, device=dev)
+        gc = cfg.grid
+        label = f"#{baseline} ({gc.nx}x{gc.ny}x{gc.nz}), {n} steps"
+        runs = [("plain", cfg.replace(backend="jnp"), {}),
+                ("kernel", cfg, {}),
+                *((f, cfg, p) for f, p in gate_faults(cfg).items())]
+        out = {}
+        for name, c, plant in runs:
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with planted(model, **plant):
+                out[name] = make_chunk_runner(c, n)(s0, g0, f0)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t) / n
+            counts = read_counts()
+            launched = {k: v for k, v in counts.items()
+                        if k not in PLAIN_COUNTERS and v}
+            print(f"  {label}, {name} path: {ms:.3f} ms/step (radiation "
+                  f"every {every} steps); kernel launches {launched or 0}, "
+                  f"radiation refreshes {counts['radiation_refreshes']} "
+                  f"[{card}]", flush=True)
+            if name == "plain" and (launched or counts[
+                    "radiation_refreshes"] != refreshes):
+                bad.append(f"{label}, plain path: counts {counts}")
+            if name == "kernel":
+                want = dict.fromkeys(counts, 0)
+                want.update(predictor_masked=n, corrector_epilogue=n,
+                            radiation_refreshes=refreshes)
+                if counts != want:
+                    bad.append(f"{label}, kernel path: counts {counts}, "
+                               f"expected {want}")
+            if name == "plain":
+                continue
+            per = state_diffs(out[name], out["plain"])
+            print(f"  {label}, {name} vs plain: " + show(per, tol),
+                  flush=True)
+            if name == "kernel":
+                bad += [f"{label}: kernel vs plain {x} over its bound"
+                        for x in over(per, tol)]
+            elif not over(per, tol):
+                bad.append(f"{label}: the {name} stays within every bound")
+            elif name == GATE_FAULTS[0]:
+                rad, fluxes = STALE_MUST_BREAK
+                broke = over(per, tol)
+                if rad not in broke or not set(fluxes) & set(broke):
+                    bad.append(f"{label}: stale radiation caches break "
+                               f"{broke} only")
+        del out
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def baseline5_path(dev, card: str) -> dict:
+    """Phase 14: BASELINE #5 unsharded for 0.25 days through the run
+    command; on its 4x8 mesh in both schedules against the unsharded grid;
+    the planted lat fault from the noisy #5 state; the two kernels of the
+    main path at #5's grid against their plain versions, timed. Returns the
+    day run's counts, the kernels' errors and their timing."""
+    bad = []
+    with peak_memory(dev) as peak:
+        cfg, res, counts, steady = run_argv(B5_DAY_ARGV, dev)
+    every = cfg.physics.rad_every_steps
+    want = dict.fromkeys(counts, 0)
+    want.update(predictor_masked=res.steps, corrector_epilogue=res.steps,
+                radiation_refreshes=sum(1 for k in range(res.steps)
+                                        if k % every == 0))
+    print(f"  unsharded 0.25 days: {res.path}; {res.steps} steps "
+          f"{res.chunks}, dt {res.dts}, {1e3 * res.wall_s / res.steps:.3f} "
+          f"ms/step, after the first chunk {steady:.3f} ms/step; {peak}; "
+          f"counts "
+          f"{({k: v for k, v in counts.items() if v})} [{card}]",
+          flush=True)
+    if counts != want:
+        bad.append(f"#5 unsharded: counts {counts}, expected {want}")
+    # every run of the phase starts from #5's initial state
+    s0, _, _ = initialize(cfg, device=dev)
+    sanity(res.state, res.grid, s0)
+    # the record at the reference's step (the horizon ends one step later)
+    rec = next((r for r in res.records
+                if r["step"] == REF5_FIRST_LINE["step"]), res.records[-1])
+    print("  metrics record beside the reference's first line "
+          "(out_clim_025/metrics.jsonl; a reading, not a gate): " + ", ".join(
+              f"{k} {rec[k]!r} / {v!r}" for k, v in REF5_FIRST_LINE.items()),
+          flush=True)
+    errs, timing = time_b5_kernels(res, cfg, card, bad)
+    del res
+
+    runs = mesh_runs((("overlap", B5_OVERLAP_ARGV), ("blocking", B5_ARGV),
+                      ("unsharded", B5_UNSHARDED_ARGV)), dev, card, bad)
+    if runs["overlap"][1].steps != B5_STEPS:
+        bad.append(f"#5 on 4x8: {runs['overlap'][1].steps} steps, expected "
+                   f"{B5_STEPS}")
+    sanity(runs["overlap"][1].state, runs["overlap"][1].grid, s0)
+    del s0
+    mesh_compare(runs, bad)
+    mesh_faults(runs, noisy_state(5, dev), (LAT_FAULT,), dev, bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return dict(counts=counts, errs=errs, timing=timing)
+
+
+def time_b5_kernels(res, cfg, card: str, bad: list):
+    """The masked predictor and the epilogue corrector on the final state of
+    the #5 day run, against their plain versions (FIELD_TOL, EPI_TOL) and
+    timed beside their bound."""
+    s, g, f = res.state, res.grid, res.forcing
+    dt, vm = g.dt, fs.wall_mask(g.ny, torch.float32, s.device)
+    num = cfg.numerics
+    kw = dict(with_rad=cfg.physics.radiation,
+              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+    phys = phys_epilogue_tuple(cfg)
+    pred = fs.fused_substep_plain(s, None, g, f, dt, vmask=vm, **kw)
+    calls = {
+        "predictor_masked": (
+            lambda: fs.predictor(s, g, f, dt, vmask=vm, **kw),
+            lambda: fs.fused_substep_plain(s, None, g, f, dt, vmask=vm,
+                                           **kw),
+            (s, None, None), FIELD_TOL),
+        "corrector_epilogue": (
+            lambda: fs.corrector(pred, s, g, f, dt, phys=phys, vmask=vm,
+                                 **kw),
+            lambda: fs.fused_substep_plain(pred, s, g, f, dt, phys=phys,
+                                           vmask=vm, **kw),
+            (pred, s, phys), EPI_TOL)}
+    errs, timing = {}, {}
+    for kname, (kern, plain, (e, b, ph), tol) in calls.items():
+        errs[kname] = field_errors(kern(), plain(), tol)
+        print(f"  {kname} at {tuple(s.u.shape)} max|kernel-plain|: "
+              + show(errs[kname], tol), flush=True)
+        bad += [f"{kname} at #5's grid: {x} over its bound"
+                for x in over(errs[kname], tol)]
+        # the plain versions take 40-60 ms a call at #5: 10 calls suffice
+        timing[kname] = kernel_timing(
+            f"{kname} at {tuple(s.u.shape)}", kern, plain,
+            substep_bound_ms(e, b, g, f, kern(), phys=ph, vmask=vm), card,
+            n=10)
+    return errs, timing
 
 
 def main() -> int:
@@ -1839,7 +2153,7 @@ def main() -> int:
     bad = []
     check_momentum(ci, bad)
     check_tall(dev, bad)
-    noisy = noisy4(dev)
+    noisy = noisy_state(4, dev)
     shard_errs, shard_inputs = check_shards(noisy, dev, bad)
     if bad:
         raise AssertionError("; ".join(bad))
@@ -1902,6 +2216,20 @@ def main() -> int:
           "shard_map and auto against the unsharded grid, no kernel launch; "
           "each planted fault breaks a bound")
 
+    # ---- 13. the whole model: kernel path against plain path ----
+    t = time.perf_counter()
+    gate_path(dev, card)
+    phase("gate", t, "#3 over 110 steps and #5 over 12, the kernel path "
+          "within GATE_TOL of the plain path; each planted fault breaks a "
+          "bound")
+
+    # ---- 14. BASELINE #5 on the card ----
+    t = time.perf_counter()
+    b5 = baseline5_path(dev, card)
+    phase("baseline5", t, "#5 unsharded for 0.25 days and on 4x8 in one "
+          "process through cli.run, both schedules against the unsharded "
+          "grid; the lat exchange left out breaks the bound")
+
     kernels = []
 
     def entry(kname, source, path, launches, err, tol, tm):
@@ -1942,6 +2270,13 @@ def main() -> int:
             kname, "physics_epilogue.cu" if epi else "fused_substep.cu",
             "sharded packed scan", overlap_counts[kname], shard_errs[kname],
             SHARD_EPI_TOL if epi else SHARD_TOL, shard_timing[kname]))
+    for kname in ("predictor_masked", "corrector_epilogue"):
+        epi = kname == "corrector_epilogue"
+        e = entry(kname, "physics_epilogue.cu" if epi else "fused_substep.cu",
+                  "packed scan, BASELINE #5 (1440x720x32)",
+                  b5["counts"][kname], b5["errs"][kname],
+                  EPI_TOL if epi else FIELD_TOL, b5["timing"][kname])
+        kernels.append(dict(e, name=f"{e['name']}_baseline5"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(f"total {time.perf_counter() - T0:.1f}s", flush=True)

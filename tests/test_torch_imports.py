@@ -267,7 +267,7 @@ def test_shard_kernels_match_plain_on_card(cuda_device):
 
     fs.reset_launch_counts()
     bad = []
-    _, (blocks, _, _, _) = cs.check_shards(cs.noisy4(cuda_device),
+    _, (blocks, _, _, _) = cs.check_shards(cs.noisy_state(4, cuda_device),
                                            cuda_device, bad)
     torch.cuda.synchronize()
     assert not bad, bad

@@ -20,8 +20,13 @@ from ._torch_threads import torch_threads  # noqa: F401 (fixture)
 
 LEVELS = (2, 8, 32, 64, 96, 128)
 # (ny, nx) of the blocks the port launches: config #3's grid, #4's shard
-# block and seam strip on its 2x4 mesh, and the 96-level check's grid
-BLOCKS = ((180, 360), (183, 186), (9, 186), (32, 64))
+# block and seam strip on its 2x4 mesh, and the 96-level check's grid;
+# config #5's grid, and its shard blocks on its 4x8 mesh: a polar row's
+# block is #4's 183x186 (180 + 3 ghost rows, 180 + 6 ghost columns), a
+# middle row's has ghost rows on both sides (186x186); its seam strip is
+# #4's 9x186
+BLOCKS = ((180, 360), (183, 186), (9, 186), (32, 64), (720, 1440),
+          (186, 186))
 FLOATS = {"substep": fs.substep_smem_floats,
           "epilogue": fs.epilogue_smem_floats}
 
@@ -52,13 +57,27 @@ def test_plan_at_the_main_shapes():
     """Config #3 and #4's shard block take 32-wide tiles of several rows;
     the epilogue's leave room for two blocks on an SM; a 9-row seam strip
     takes one row a tile, so its few columns spread over more blocks."""
-    for ny, nx in ((180, 360), (183, 186)):
+    for ny, nx in ((180, 360), (183, 186), (720, 1440), (186, 186)):
         plan = fs.launch_plan(32, ny, nx)
         assert plan.substep.tx == plan.epilogue.tx == 32
         assert plan.substep.tj > 1 and plan.epilogue.tj > 1
         assert plan.epilogue.smem_bytes <= fs.SMEM_TWO_BLOCKS
     strip = fs.launch_plan(32, 9, 186)
     assert strip.substep.tj == strip.epilogue.tj == 1
+
+
+def test_plan_at_baseline5_is_baseline3s():
+    """Config #5 (16x #3's columns) takes #3's tiles and shared memory; its
+    1440 longitudes fill 45 tiles of 32 exactly (#3's 360 need 12, the last
+    a quarter full). Its largest index, of a 3-D field
+    of 32x720x1440 = 33,177,600 cells, fits the kernels' 32-bit ``int``
+    point index (``csrc/fused_substep.cu``, ``point_update``)."""
+    p3, p5 = fs.launch_plan(32, 180, 360), fs.launch_plan(32, 720, 1440)
+    for t3, t5 in ((p3.substep, p5.substep), (p3.epilogue, p5.epilogue)):
+        assert (t5.tx, t5.tj, t5.smem_bytes) == (t3.tx, t3.tj, t3.smem_bytes)
+        assert t5.grid[1] == 4 * t3.grid[1]
+    assert p5.substep.grid == (45, 240) and p5.epilogue.grid == (45, 360)
+    assert 32 * 720 * 1440 == 33_177_600 < 2**31 - 1
 
 
 @pytest.mark.parametrize("nz,ny,nx", [(1, 180, 360), (fs.MAX_NZ + 1, 9, 186),
