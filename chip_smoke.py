@@ -122,7 +122,24 @@ and exits non-zero:
                sound and with the lat exchange left out; the masked
                predictor and the epilogue corrector at #5's grid against
                their plain versions and timed beside their bound; ms/step
-               and peak device memory of each run.
+               and peak device memory of each run;
+15. climate -- the reference's long-run gates at their own configs and
+               thresholds (tests/integration/test_climate_sanity.py,
+               test_milestone2_fullsize.py), each run counted as phase 13
+               counts its own: energy and water closure at 96x48x8 over
+               16 chunks of 50 steps on both backends, the approach to
+               equilibrium at 60x30x10 over 60 days and fine-grid
+               stability at 180x90x16 over 2000 steps on the kernel path
+               (CLIMATE_GATES); the masked predictor and the epilogue
+               corrector against their plain versions at those three
+               shapes, each with planted faults that must break a bound,
+               and timed; BASELINE #2 for 500 steps on its plain backend
+               with the milestone-2 invariants; ``run --baseline 3 --topo
+               continents --days 30`` (CONT_ARGV), its record at step 632
+               against the reference's first line of
+               out_clim_continents/metrics.jsonl, its days 20-30 against
+               bands pinned from the reference's series
+               (CONT_WINDOW_BANDS) and the closure gate over its 30 days.
 
 Phase 3 also holds the epilogue's momentum terms on a windy state
 (MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
@@ -153,7 +170,12 @@ import torch
 from climate_model_tpu_torch import cli, model
 from climate_model_tpu_torch.bench.micro import device_ms, launch_ms
 from climate_model_tpu_torch.bench.roofline import substep_bound_ms
-from climate_model_tpu_torch.core.config import (baseline_config,
+from climate_model_tpu_torch.bench.stability import probe_stability
+from climate_model_tpu_torch.core.config import (GridConfig, ModelConfig,
+                                                 NumericsConfig,
+                                                 PhysicsConfig,
+                                                 baseline_config,
+                                                 default_diffusion,
                                                  resolve_rad_interval)
 from climate_model_tpu_torch.core.grid import adaptive_cfl_dt, round_to
 from climate_model_tpu_torch.core.init import initialize
@@ -165,6 +187,7 @@ from climate_model_tpu_torch.dycore.operators import diagnose_pressure
 from climate_model_tpu_torch.dycore.stepper import run_scan, step_matsuno
 from climate_model_tpu_torch.io.checkpoint import (load_checkpoint,
                                                    save_checkpoint)
+from climate_model_tpu_torch.io.metrics import diagnostics
 from climate_model_tpu_torch.io.netcdf import NCWriter
 from climate_model_tpu_torch.kernels import fused_substep as fs
 from climate_model_tpu_torch.model import (make_chunk_runner, make_step_fn,
@@ -408,6 +431,118 @@ MASS_DRIFT = 1e-6                # relative drift of sum(colp*area)
 STATE_FIELDS = ("u", "v", "colp", "pott", "qv", "qc", "tsurf", "rain",
                 "soil_moist", "dpottdt_rad", "swflx_sfc", "lwflx_sfc")
 
+# Phase 15 (climate): the reference's long-run gates on the card, at their
+# own configs and thresholds (tests/integration/test_climate_sanity.py,
+# tests/integration/test_milestone2_fullsize.py), on backend='pallas' (the
+# packed scan) unless named. Each gate: (grid, radiation every n steps,
+# horizontal diffusion; None: default_diffusion(nx)). Closure (:56-90): 16
+# chunks of 50 steps, also on backend='jnp' as the reference's config runs
+# it. Equilibrium (:94-143): 20 chunks of 3 days. Fine grid (:147-169):
+# probe_stability over 2000 steps in chunks of 200, wind limit 150 m/s.
+CLIMATE_GATES = {"closure": ((96, 48, 8), 4, 1e4),
+                 "equilibrium": ((60, 30, 10), 12, None),
+                 "fine grid": ((180, 90, 16), 6, None)}
+CLOSURE_RUN = (16, 50)               # chunks, steps a chunk
+EQUILIBRIUM_RUN = (20, 3.0)          # chunks, days a chunk
+FINE_RUN = (2000, 200, 150.0)        # steps, steps a chunk, wind limit
+# the closure gate's bounds (:81-90): |d(energy)/dt - (toa_net_sw - olr)|
+# of each chunk and |their mean| in W/m2, and |water change - integrated
+# evaporation| / integrated evaporation
+CLOSURE_BOUNDS = {"resid": 12.0, "mean": 5.0, "water": 0.02}
+# Milestone #2 (test_milestone2_fullsize.py:35-52): BASELINE #2 on its
+# own backend (plain) for 500 steps: finite POTT, max|u|, max|v| under the
+# wind bound, relative dry-mass drift under the mass bound, qv and qc >= 0,
+# POTT strictly inside the range.
+# The epilogue's bounds at the gates' shapes. EPI_TOL was pinned at #3's dt
+# (34.148 s); the physics the epilogue adds in a call scales with dt (7.3x
+# at 60x30x10), and so does its fp32 rounding: there the plain version in
+# fp32 reads rain 1.98e-5 kg/m2 off the same call in fp64 on an H100 (2.43e-5
+# on the CPU), and the kernel 2.40e-5 off the plain version, over EPI_TOL's
+# 2e-5 (PERF.md). Each field's bound at a shape is the larger of its
+# EPI_TOL and this factor times the plain version's own fp32 error there,
+# read in the same call; the planted faults must still break a bound.
+FP32_ERROR_FACTOR = 3.0
+M2_STEPS = 500
+M2_BOUNDS = {"wind": 150.0, "mass": 1e-5, "pott": (180.0, 500.0)}
+# BASELINE #3 over the continents for 30 days through the run command: 121
+# chunks, 120 of 632 steps at dt 34.148 s and one of 52 to the horizon.
+CONT_ARGV = ["run", "--baseline", "3", "--topo", "continents", "--days",
+             "30", "--out-every-hours", "6", "--no-nc"]
+# Its bands, pinned from the reference's year of the same command on its
+# kernels (out_clim_continents/metrics.jsonl; 1565 records to day 365)
+# before the port's first 30-day run on the card. (1) The reference's first
+# line, at step 632: mean COLP within 4 fp32 ulp (0.0078125 Pa each at
+# 88,696 Pa), mean POTT within 0.01 K, TOA SW and OLR within 0.5 W/m2, max
+# wind within 0.5 m/s, total water within 0.1 %. The line's wall_s and
+# grid_points_per_s are a TPU's and not compared.
+CONT_FIRST_LINE = {"step": 632, "mean_colp": 88696.2109375,
+                   "mean_pott": 309.90771484375,
+                   "toa_net_sw": 243.19432067871094,
+                   "olr": 239.79310607910156,
+                   "max_wind": 34.7733268737793,
+                   "total_water": 6393746551734272.0}
+CONT_FIRST_TOL = {"mean_colp": 4 * 0.0078125, "mean_pott": 0.01,
+                  "toa_net_sw": 0.5, "olr": 0.5, "max_wind": 0.5,
+                  "total_water": 1e-3 * 6393746551734272.0}
+# (2) Days 20-30: the reference's 40 records at steps 51,192-75,840 (it
+# kept dt at 34.148 s to day 66, so the port's records fall on the same
+# steps while its winds stay under MAX_WIND). Each band from the
+# reference's series over that window (window_figures of its records):
+# - mean_pott, the window's mean: inside the reference's range of mean POTT
+#   over the window, 310.860-312.174 K (its mean 311.535; the climate still
+#   warms 0.13 K/day there);
+# - toa_imbalance, the mean of toa_net_sw - olr: the reference's 4.230
+#   W/m2 within one standard deviation of its series over the window,
+#   2.261;
+# - rain_over_evap, the rain accumulated over the window over the mean
+#   evaporation: the reference's 0.9406 within the relative standard
+#   deviation of its evaporation rate over the window, 3.54 %;
+# - water_gain, total water at step 75,840 less at step 632: the
+#   reference's 1.2337e16 kg within the same 3.54 % (the gain is integrated
+#   evaporation);
+# - mean_colp_lo / _hi, the least and the largest mean COLP of the window's
+#   records: inside the reference's 88,696.195-88,696.219 Pa widened by 4
+#   fp32 ulp on each side.
+CONT_WINDOW_STEPS = (51192, 75840)
+CONT_WINDOW_BANDS = {
+    "mean_pott": (310.8603820800781, 312.1740417480469),
+    "toa_imbalance": (1.9691319228466604, 6.491362309331073),
+    "rain_over_evap": (0.9073108929178108, 0.973970624099827),
+    "water_gain": (1.1899793794976048e16, 1.2774066397329104e16),
+    "mean_colp_lo": (88696.1640625, 88696.25),
+    "mean_colp_hi": (88696.1640625, 88696.25)}
+# The continents' sanity ranges (sanity() with these in place of MEAN_COLP
+# and POTT_RANGE, which are the gaussian mountain's): the reference's mean
+# COLP over its year, 88,695.742-88,696.227 Pa, widened by 4 fp32 ulp on
+# each side; every cell's POTT in its day-365 state
+# (out_clim_continents/restart.npz), 218.08-428.54 K over the 4.3 km
+# plateau and the winter pole, with about 20 K on each side.
+CONT_MEAN_COLP = (88695.7109375, 88696.2578125)
+CONT_POTT_RANGE = (200.0, 450.0)
+# The year over the continents (run outside this script, in legs; see
+# tools/climate_year.py): annual_figures of the port's metrics against
+# bands pinned from the reference's year before the port's first leg ran.
+# TOA imbalance over days 120-365: its +0.0777 W/m2 within 3x the standard
+# error of the mean from its 10-day block means, detrended by differences
+# (0.1715); mean POTT over the same days, 312.8675 K within 3x its 0.0403;
+# rain/evap over days 180-365, 1.0201 within 3x the standard error of its
+# 15-day block ratios (0.0246); the drift of mean COLP, first record to
+# last, at most twice its -0.461 Pa (5.2e-6 of it); peak wind 198.4 m/s
+# within 25 %, about the 171-204 m/s span of the committed runs at 1-2 deg
+# (docs/STATUS.md); the least dt over the first, 0.808, within the wind
+# band carried through the CFL bound (dt ~ 1 / wind), up to 1.
+REF_YEAR = {"toa_mean": 0.07771190451510125, "toa_std": 3.975649896469632,
+            "pott_mean": 312.8675337352788,
+            "rain_over_evap": 1.0200824801251591, "colp_drift": -0.4609375,
+            "peak_wind": 198.44668579101562,
+            "min_dt_ratio": 0.8075920049563515}
+YEAR_BANDS = {"toa_mean": (0.0777 - 0.5144, 0.0777 + 0.5144),
+              "pott_mean": (312.8675 - 0.1210, 312.8675 + 0.1210),
+              "rain_over_evap": (1.0201 - 0.0739, 1.0201 + 0.0739),
+              "colp_drift": (-2 * 0.4609375, 2 * 0.4609375),
+              "peak_wind": (0.75 * 198.4, 1.25 * 198.4),
+              "min_dt_ratio": (0.8076 * 0.8, 1.0)}
+
 T0 = time.perf_counter()
 
 
@@ -564,9 +699,10 @@ class CheckInputs:
     vmask: torch.Tensor  # the single-device wall mask
 
 
-def check_inputs(dev) -> CheckInputs:
-    """Config #3 at full width, 10 plain steps from the initial state."""
-    cfg = baseline_config(3)
+def check_inputs(dev, cfg=None) -> CheckInputs:
+    """``cfg`` (config #3 at full width if None), 10 plain steps from the
+    initial state."""
+    cfg = baseline_config(3) if cfg is None else cfg
     state, forcing, grid = initialize(cfg, device=dev)
     plain_step = make_step_fn(cfg, dynamics=functools.partial(step_matsuno,
                                                               cfg=cfg))
@@ -797,9 +933,10 @@ def kernel_timing(name, kern, plain, bound, card, n=50) -> dict:
     return tm
 
 
-def sanity(s, grid, s0):
+def sanity(s, grid, s0, mean_colp_range=MEAN_COLP, pott_range=POTT_RANGE):
     """The run's sanity checks against its initial state ``s0``; raises on
-    the first that fails."""
+    the first that fails. The ranges of mean COLP and of POTT are the
+    configuration's (the gaussian mountain's by default)."""
     for f in STATE_FIELDS:
         if not bool(torch.isfinite(getattr(s, f)).all()):
             raise AssertionError(f"non-finite {f} after the run")
@@ -812,10 +949,10 @@ def sanity(s, grid, s0):
     mass1 = float((s.colp.double() * area).sum())
     drift = abs(mass1 - mass0) / mass0
     checks = [(max_wind < MAX_WIND, f"max wind {max_wind:.2f} < {MAX_WIND}"),
-              (MEAN_COLP[0] < mean_colp < MEAN_COLP[1],
-               f"mean COLP {mean_colp:.1f} in {MEAN_COLP}"),
-              (POTT_RANGE[0] <= pott_lo and pott_hi <= POTT_RANGE[1],
-               f"POTT [{pott_lo:.2f}, {pott_hi:.2f}] in {POTT_RANGE}"),
+              (mean_colp_range[0] < mean_colp < mean_colp_range[1],
+               f"mean COLP {mean_colp:.3f} in {mean_colp_range}"),
+              (pott_range[0] <= pott_lo and pott_hi <= pott_range[1],
+               f"POTT [{pott_lo:.2f}, {pott_hi:.2f}] in {pott_range}"),
               (drift < MASS_DRIFT, f"mass drift {drift:.3e} < {MASS_DRIFT}")]
     for ok, what in checks:
         print(f"  {'ok ' if ok else 'BAD'} {what}", flush=True)
@@ -931,7 +1068,6 @@ def breakdown(cfg, state, grid, forcing, step_ms, card):
     where it exceeds the host's) and the host's enqueue ms per call. Their
     sums for each path, weighted by calls per step, are set beside the
     measured ms/step of the main path."""
-    from climate_model_tpu_torch.io.metrics import diagnostics
     num = cfg.numerics
     kw = dict(with_rad=cfg.physics.radiation,
               with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
@@ -2123,6 +2259,484 @@ def time_b5_kernels(res, cfg, card: str, bad: list):
     return errs, timing
 
 
+# ---------------------------------------------------------------------------
+# The climate gates: pure functions over metrics records (the dicts of a
+# run's metrics.jsonl, or record_of a StepDiagnostics of either package)
+# ---------------------------------------------------------------------------
+
+# metrics.jsonl key -> StepDiagnostics field
+RECORD_FIELDS = {"step": "step", "t_days": "t", "max_wind": "max_wind",
+                 "mean_colp": "mean_colp", "mean_pott": "mean_tair_proxy",
+                 "total_water": "total_water", "toa_net_sw": "toa_net_sw",
+                 "olr": "olr", "energy": "energy", "evap_rate": "evap_rate",
+                 "total_rain": "total_rain"}
+EQUILIBRIUM_BOUNDS = {"end_over_peak": 0.75, "end_imb": 12.0,
+                      "dpott_dt": 0.03, "rain": 10.0,
+                      "rain_over_evap": (0.55, 1.35)}
+
+
+def record_of(d) -> dict:
+    """A StepDiagnostics of the port or of the JAX package (host floats or
+    0-d arrays) as a metrics record."""
+    rec = {k: float(getattr(d, f)) for k, f in RECORD_FIELDS.items()}
+    rec["step"] = int(rec["step"])
+    rec["t_days"] /= 86400.0
+    return rec
+
+
+def closure_residuals(records, area_total: float) -> dict:
+    """The closure gate's arithmetic (test_climate_sanity.py:72-90) over
+    consecutive records: for each pair, d(energy)/dt - (toa_net_sw - olr)
+    at the later one in W/m2; the evaporation integrated by the trapezoid
+    rule over ``area_total`` (m2, the grid's) against the change of total
+    water (kg) from the first record to the last."""
+    resid, evap_int = [], 0.0
+    for a, b in zip(records[:-1], records[1:]):
+        dt = (b["t_days"] - a["t_days"]) * 86400.0
+        resid.append((b["energy"] - a["energy"]) / dt
+                     - (b["toa_net_sw"] - b["olr"]))
+        evap_int += 0.5 * (b["evap_rate"] + a["evap_rate"]) * dt * area_total
+    dwater = records[-1]["total_water"] - records[0]["total_water"]
+    return dict(resid=resid, mean=float(np.mean(resid)),
+                max_abs=float(np.max(np.abs(resid))), dwater=dwater,
+                evap_int=evap_int,
+                water_err=abs(dwater - evap_int) / evap_int)
+
+
+def closure_failures(cl: dict) -> list:
+    """What of ``closure_residuals``'s readings breaks CLOSURE_BOUNDS."""
+    b = CLOSURE_BOUNDS
+    bad = [f"energy closure residual {r:.2f} W/m2 in chunk {i + 1}"
+           for i, r in enumerate(cl["resid"]) if not abs(r) < b["resid"]]
+    if not abs(cl["mean"]) < b["mean"]:
+        bad.append(f"mean energy closure residual {cl['mean']:.2f} W/m2")
+    if not (cl["dwater"] > 0.0 and cl["evap_int"] > 0.0
+            and cl["water_err"] < b["water"]):
+        bad.append(f"water closure: change {cl['dwater']:.4e} kg against "
+                   f"integrated evaporation {cl['evap_int']:.4e} kg")
+    return bad
+
+
+def equilibrium_verdict(records) -> tuple:
+    """The equilibrium gate (test_climate_sanity.py:127-143) over the
+    records after each chunk (not the initial state's). Returns (readings,
+    failures against EQUILIBRIUM_BOUNDS)."""
+    imb = [r["toa_net_sw"] - r["olr"] for r in records]
+    a, z = records[-4], records[-1]
+    days = z["t_days"] - a["t_days"]
+    rd = dict(peak_imb=max(abs(x) for x in imb),
+              end_imb=abs(float(np.mean(imb[-3:]))),
+              dpott_dt=(z["mean_pott"] - a["mean_pott"]) / days,
+              rain=z["total_rain"],
+              rain_rate=(z["total_rain"] - a["total_rain"]) / days,
+              evap_rate=float(np.mean([r["evap_rate"] * 86400.0
+                                       for r in records[-4:]])))
+    b = EQUILIBRIUM_BOUNDS
+    lo, hi = b["rain_over_evap"]
+    checks = [
+        (rd["end_imb"] < b["end_over_peak"] * rd["peak_imb"],
+         f"end imbalance {rd['end_imb']:.3f} not under "
+         f"{b['end_over_peak']} of the peak {rd['peak_imb']:.3f} W/m2"),
+        (rd["end_imb"] < b["end_imb"],
+         f"end imbalance {rd['end_imb']:.3f} W/m2 not under {b['end_imb']}"),
+        (abs(rd["dpott_dt"]) < b["dpott_dt"],
+         f"POTT trend {rd['dpott_dt']:.4f} K/day not under {b['dpott_dt']}"),
+        (rd["rain"] > b["rain"],
+         f"accumulated rain {rd['rain']:.3f} kg/m2 not over {b['rain']}"),
+        (lo * rd["evap_rate"] < rd["rain_rate"] < hi * rd["evap_rate"],
+         f"rain rate {rd['rain_rate']:.4f} outside ({lo}, {hi}) x the "
+         f"evaporation {rd['evap_rate']:.4f} kg/m2/day")]
+    return rd, [what for ok, what in checks if not ok]
+
+
+def _rain_over_evap(rs) -> float:
+    """Rain accumulated from the first record to the last over the mean
+    evaporation of the records, both in kg/m2/day."""
+    rain = (rs[-1]["total_rain"] - rs[0]["total_rain"]) \
+        / (rs[-1]["t_days"] - rs[0]["t_days"])
+    return rain / (86400.0 * float(np.mean([r["evap_rate"] for r in rs])))
+
+
+def window_figures(records, steps=CONT_WINDOW_STEPS) -> dict:
+    """The figures of CONT_WINDOW_BANDS over the records at ``steps``
+    (first and last, inclusive); the water gain is from the first of all
+    records. Raises if no record falls on the window's last step."""
+    w = [r for r in records if steps[0] <= r["step"] <= steps[1]]
+    if not w or w[-1]["step"] != steps[1]:
+        raise AssertionError(f"no record at step {steps[1]}: the records' "
+                             "steps differ from the reference's")
+    colp = [r["mean_colp"] for r in w]
+    return dict(records=len(w),
+                mean_pott=float(np.mean([r["mean_pott"] for r in w])),
+                toa_imbalance=float(np.mean([r["toa_net_sw"] - r["olr"]
+                                             for r in w])),
+                rain_over_evap=_rain_over_evap(w),
+                water_gain=w[-1]["total_water"] - records[0]["total_water"],
+                mean_colp_lo=min(colp), mean_colp_hi=max(colp))
+
+
+def annual_figures(records, imb_days=(120, 365), re_days=(180, 365)
+                   ) -> dict:
+    """A year's figures: the mean and (population) standard deviation of
+    the TOA imbalance (toa_net_sw - olr) and the mean of mean POTT over the
+    records with t_days in ``imb_days``; rain/evap over ``re_days``; the
+    drift of mean COLP, first record to last; the peak wind; the least dt
+    and its ratio to the first."""
+    def inside(days):
+        return [r for r in records if days[0] <= r["t_days"] <= days[1]]
+    w = inside(imb_days)
+    imb = np.array([r["toa_net_sw"] - r["olr"] for r in w])
+    dts = [r["dt"] for r in records]
+    return dict(days=records[-1]["t_days"], records=len(records),
+                toa_mean=float(imb.mean()), toa_std=float(imb.std()),
+                pott_mean=float(np.mean([r["mean_pott"] for r in w])),
+                rain_over_evap=_rain_over_evap(inside(re_days)),
+                colp_drift=records[-1]["mean_colp"] - records[0]["mean_colp"],
+                peak_wind=max(r["max_wind"] for r in records),
+                min_dt=min(dts), min_dt_ratio=min(dts) / dts[0])
+
+
+def band_failures(values: dict, bands: dict) -> list:
+    """Each value of ``bands``' keys outside its (lo, hi), inclusive."""
+    return [f"{k} {values[k]!r} outside [{lo!r}, {hi!r}]"
+            for k, (lo, hi) in bands.items()
+            if not lo <= values[k] <= hi]
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the climate gates on the card
+# ---------------------------------------------------------------------------
+
+def climate_config(gate: str, backend="pallas", dtype="float32"):
+    """The reference's config of the gate ``gate`` of CLIMATE_GATES: full
+    physics on its grid, radiation every n steps, its diffusion."""
+    (nx, ny, nz), every, diff = CLIMATE_GATES[gate]
+    k = default_diffusion(nx) if diff is None else diff
+    return ModelConfig(
+        grid=GridConfig(nx=nx, ny=ny, nz=nz),
+        physics=PhysicsConfig(microphysics=True, radiation=True,
+                              surface=True, turbulence=True,
+                              rad_every_steps=every),
+        numerics=NumericsConfig(diff_uv=k, diff_pott=k, diff_moist=k),
+        dtype=dtype, backend=backend)
+
+
+def area_total(grid, nx: int) -> float:
+    """The grid's area in m2 (the closure gate's ``area_tot``)."""
+    return float(grid.area.double().sum()) * nx
+
+
+def chunk_records(cfg, chunks: int, steps: int, dev, state=None,
+                  diag=diagnostics):
+    """``chunks`` chunks of ``steps`` steps of ``model.make_run_fn`` from
+    the initial state (or ``state``), ``diag`` of the state before the
+    first chunk and after each as metrics records; raises on a non-finite
+    state. Returns (records, state, grid, forcing)."""
+    s0, forcing, grid = initialize(cfg, device=dev)
+    state = s0 if state is None else state
+    run = model.make_run_fn(cfg, steps, donate=False)
+    records = [record_of(diag(state, grid, forcing, cfg))]
+    for _ in range(chunks):
+        state = run(state, grid, forcing)
+        d = diag(state, grid, forcing, cfg)
+        if d.nan_flag:
+            raise AssertionError(f"non-finite state at step {d.step}")
+        records.append(record_of(d))
+    return records, state, grid, forcing
+
+
+def counted(label: str, cfg, steps: int, fn, card: str, bad: list):
+    """``fn()`` with every counter set to 0 just before and read just
+    after, timed (ms/step over ``steps``). The kernel path must make one
+    masked predictor and one epilogue corrector a step and nothing else,
+    the plain path no launch; both refresh radiation at every step k with
+    k % rad_every_steps == 0 (none without radiation). Returns (fn's
+    result, counts)."""
+    every = cfg.physics.rad_every_steps
+    refreshes = (sum(1 for k in range(steps) if k % every == 0)
+                 if cfg.physics.radiation else 0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / steps
+    counts = read_counts()
+    launched = {k: v for k, v in counts.items()
+                if k not in PLAIN_COUNTERS and v}
+    print(f"  {label}: {steps} steps, {ms:.3f} ms/step; kernel launches "
+          f"{launched or 0}, plain physics "
+          f"{({k: counts[k] for k in PLAIN_COUNTERS if counts[k]}) or 0} "
+          f"[{card}]", flush=True)
+    want = dict.fromkeys(counts, 0)
+    if cfg.backend == "pallas":
+        want.update(predictor_masked=steps, corrector_epilogue=steps,
+                    radiation_refreshes=refreshes)
+        if counts != want:
+            bad.append(f"{label}: counts {counts}, expected {want}")
+    elif launched or counts["radiation_refreshes"] != refreshes:
+        bad.append(f"{label}: counts {counts} on the plain path")
+    return out, counts
+
+
+def climate_gates(dev, card: str, bad: list) -> dict:
+    """Phase 15 (a): the closure gate on both backends, the equilibrium
+    gate and the fine-grid gate on the kernel path, each at the reference's
+    config and thresholds. Returns {gate: counts of its kernel-path run}."""
+    counts = {}
+    chunks, steps = CLOSURE_RUN
+    for backend in ("pallas", "jnp"):
+        cfg = climate_config("closure", backend)
+        label = f"closure 96x48x8, backend={backend}"
+        (recs, _, grid, _), c = counted(
+            label, cfg, chunks * steps,
+            lambda: chunk_records(cfg, chunks, steps, dev), card, bad)
+        cl = closure_residuals(recs, area_total(grid, cfg.grid.nx))
+        fails = closure_failures(cl)
+        print(f"  {label}: residuals (W/m2) "
+              f"{[round(r, 3) for r in cl['resid']]}, mean {cl['mean']:.3f} "
+              f"(< {CLOSURE_BOUNDS['mean']}), max |{cl['max_abs']:.3f}| "
+              f"(< {CLOSURE_BOUNDS['resid']}); water change "
+              f"{cl['dwater']:.5e} kg against integrated evaporation "
+              f"{cl['evap_int']:.5e}: {100 * cl['water_err']:.3f} % (< "
+              f"{100 * CLOSURE_BOUNDS['water']:.0f} %)", flush=True)
+        bad += [f"{label}: {x}" for x in fails]
+        if backend == "pallas":
+            counts["closure"] = c
+
+    cfg = climate_config("equilibrium")
+    chunks, days = EQUILIBRIUM_RUN
+    _, _, g0 = initialize(cfg, device=dev)
+    steps = int(days * 86400.0 / float(g0.dt))
+    label = "equilibrium 60x30x10"
+    (recs, *_), counts["equilibrium"] = counted(
+        label, cfg, chunks * steps,
+        lambda: chunk_records(cfg, chunks, steps, dev), card, bad)
+    rd, fails = equilibrium_verdict(recs[1:])
+    print(f"  {label}, {chunks} chunks of {steps} steps at dt "
+          f"{float(g0.dt):.3f} s to day {recs[-1]['t_days']:.2f}: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in rd.items())
+          + f"; bounds {EQUILIBRIUM_BOUNDS}", flush=True)
+    bad += [f"{label}: {x}" for x in fails]
+
+    cfg = climate_config("fine grid")
+    n, chunk, limit = FINE_RUN
+    label = "fine grid 180x90x16"
+    out, counts["fine grid"] = counted(
+        label, cfg, n, lambda: probe_stability(
+            cfg, steps=n, chunk=chunk, wind_limit=limit, verbose=False,
+            device=dev), card, bad)
+    peak = max(max(r["max_u"], r["max_v"]) for r in out["trajectory"])
+    print(f"  {label}: stable {out['stable']}, {out['steps_run']} steps, "
+          f"peak wind {peak:.3f} m/s (limit {limit}), POTT "
+          f"[{out['trajectory'][-1]['pott_min']:.2f}, "
+          f"{out['trajectory'][-1]['pott_max']:.2f}] K at the end", flush=True)
+    if not out["stable"]:
+        bad.append(f"{label}: blew up at step {out['blowup_step']}")
+    return counts
+
+
+def epilogue_fp32_error(ci, got) -> dict:
+    """max|got - the plain epilogue corrector in fp64| of each EPI_TOL
+    field, ``got`` the plain version's fp32 answer on ``epilogue_args(ci)``
+    and the fp64 one from the same values: the fp32 rounding of the
+    computation itself."""
+    ev, base, _, _, _ = epilogue_args(ci)
+    cfg64 = ci.cfg.replace(dtype="float64")
+    _, f64, g64 = initialize(cfg64, device=ci.state.device)
+
+    def wide(s):
+        return s.replace(**{f: getattr(s, f).double()
+                            for f in STATE_FIELDS + ("t",)})
+    want = fs.fused_substep_plain(wide(ev), wide(base), g64, f64, g64.dt,
+                                  phys=ci.phys, vmask=ci.vmask.double(),
+                                  **ci.kw)
+    return {f: float((getattr(got, f).double() - getattr(want, f))
+                     .abs().max()) for f in EPI_TOL}
+
+
+def check_climate_kernels(gate: str, card: str, dev, bad: list):
+    """Phase 15 (b): the masked predictor and the epilogue corrector at the
+    gate's shape against their plain versions, from its state 10 plain steps
+    in (the predictor; also with grid-scale noise) and the same with
+    moisture near saturation (the epilogue corrector), within FIELD_TOL and
+    the epilogue's bounds at the shape (each field's EPI_TOL, or
+    FP32_ERROR_FACTOR times the plain version's own fp32 error against
+    fp64 there, the larger); the predictor without the radiative source,
+    the predictor
+    without diffusion on the noisy state, and the epilogue without each of
+    EPI_FAULTS must each break a bound. Then both timed. Returns (errors,
+    the epilogue's bounds, timing)."""
+    ci = check_inputs(dev, climate_config(gate))
+    g, f, dt, kw, vm = ci.grid, ci.forcing, ci.grid.dt, ci.kw, ci.vmask
+    shape = "x".join(map(str, CLIMATE_GATES[gate][0]))
+
+    def pred(s, kernel, **over):
+        k = dict(kw, vmask=vm, **over)
+        return (fs.predictor(s, g, f, dt, **k) if kernel
+                else fs.fused_substep_plain(s, None, g, f, dt, **k))
+
+    errs = {}
+    for state_name, s in (("state", ci.state), ("noisy state", ci.rough)):
+        want = pred(s, False)
+        per = field_errors(pred(s, True), want, FIELD_TOL)
+        errs["predictor_masked"] = {
+            k: max(e, errs.get("predictor_masked", {}).get(k, 0.0))
+            for k, e in per.items()}
+        print(f"  {shape} {state_name}, predictor (mask) max|kernel-plain|: "
+              + show(per, FIELD_TOL), flush=True)
+        bad += [f"{shape} masked predictor on the {state_name}: {x} over "
+                "its bound" for x in over(per, FIELD_TOL)]
+        fault = "with_rad=False" if s is ci.state else "with_diff=False"
+        per = field_errors(pred(s, True, **PLANTED_FAULTS[fault]), want,
+                           FIELD_TOL)
+        print(f"  {shape} {state_name}, planted fault predictor {fault}: "
+              + show(per, FIELD_TOL), flush=True)
+        if not over(per, FIELD_TOL):
+            bad.append(f"{shape}: predictor with {fault} stays within every "
+                       "bound")
+    kern, plain = epilogue_pair(ci)
+    want = plain()
+    e64 = epilogue_fp32_error(ci, want)
+    tol = {f: max(EPI_TOL[f], FP32_ERROR_FACTOR * e) for f, e in e64.items()}
+    print(f"  {shape} moist state, plain corrector+epilogue in fp32 against "
+          "fp64 from the same inputs (its own rounding): " + ", ".join(
+              f"{f} {e:.3e}" for f, e in e64.items()), flush=True)
+    errs["corrector_epilogue"] = field_errors(kern(), want, tol)
+    print(f"  {shape} moist state, corrector+epilogue (mask) "
+          "max|kernel-plain|: " + show(errs["corrector_epilogue"], tol),
+          flush=True)
+    bad += [f"{shape} epilogue corrector: {x} over its bound"
+            for x in over(errs["corrector_epilogue"], tol)]
+    for term in EPI_FAULTS:
+        kf = epilogue_pair(ci, phys=phys_with(ci.cfg, **{term: False}))[0]
+        per = field_errors(kf(), want, tol)
+        print(f"  {shape} planted fault epilogue without {term}: "
+              + show(per, tol), flush=True)
+        if not over(per, tol):
+            bad.append(f"{shape}: epilogue without {term} stays within "
+                       "every bound")
+    ev, base = epilogue_args(ci)[:2]
+    st = ci.state
+    timing = {
+        "predictor_masked": kernel_timing(
+            f"predictor_masked at {tuple(st.u.shape)}",
+            lambda: pred(st, True), lambda: pred(st, False),
+            substep_bound_ms(st, None, g, f, pred(st, True), vmask=vm),
+            card),
+        "corrector_epilogue": kernel_timing(
+            f"corrector_epilogue at {tuple(st.u.shape)}", kern, plain,
+            substep_bound_ms(ev, base, g, f, kern(), phys=ci.phys,
+                             vmask=vm), card)}
+    return errs, tol, timing
+
+
+def milestone2_checks(s0, out, grid) -> list:
+    """The milestone-2 invariants (test_milestone2_fullsize.py:44-52) of
+    the state ``out`` run from ``s0``: [(holds, what)]."""
+    area = grid.area.double()[:, None]
+    m0 = float((s0.colp.double() * area).sum())
+    m1 = float((out.colp.double() * area).sum())
+    wind = max(float(out.u.abs().max()), float(out.v.abs().max()))
+    lo, hi = M2_BOUNDS["pott"]
+    pott_lo, pott_hi = float(out.pott.min()), float(out.pott.max())
+    q_lo = min(float(out.qv.min()), float(out.qc.min()))
+    return [
+        (bool(torch.isfinite(out.pott).all()), "POTT finite"),
+        (wind < M2_BOUNDS["wind"],
+         f"max wind {wind:.3f} < {M2_BOUNDS['wind']} m/s"),
+        (abs(m1 - m0) / m0 < M2_BOUNDS["mass"],
+         f"dry-mass drift {abs(m1 - m0) / m0:.3e} < {M2_BOUNDS['mass']}"),
+        (q_lo >= 0.0, f"least qv, qc {q_lo:.3e} >= 0"),
+        (lo < pott_lo and pott_hi < hi,
+         f"POTT [{pott_lo:.2f}, {pott_hi:.2f}] inside ({lo}, {hi})")]
+
+
+def milestone2(dev, card: str, bad: list):
+    """Phase 15 (c): BASELINE #2 for M2_STEPS steps on its plain backend,
+    counted, and the milestone-2 invariants."""
+    cfg = baseline_config(2)
+    s0, f0, g0 = initialize(cfg, device=dev)
+    label = f"#2 ({cfg.grid.nx}x{cfg.grid.ny}x{cfg.grid.nz}), backend=" \
+        f"{cfg.backend}"
+    out, _ = counted(label, cfg, M2_STEPS, lambda: model.make_run_fn(
+        cfg, M2_STEPS, donate=False)(s0, g0, f0), card, bad)
+    for ok, what in milestone2_checks(s0, out, g0):
+        print(f"  {'ok ' if ok else 'BAD'} {label}: {what}", flush=True)
+        if not ok:
+            bad.append(f"{label}: {what}")
+
+
+def continents_run(dev, card: str, bad: list) -> dict:
+    """Phase 15 (d): BASELINE #3 over the continents for 30 days through
+    the run command, counted; its sanity checks with the continents'
+    ranges; the record at step 632 against the reference's first line, the
+    days 20-30 window against CONT_WINDOW_BANDS, and the closure gate over
+    all its records. Returns its counts."""
+    cfg, res, counts, steady = run_argv(CONT_ARGV, dev)
+    every = cfg.physics.rad_every_steps
+    want = dict.fromkeys(counts, 0)
+    want.update(predictor_masked=res.steps, corrector_epilogue=res.steps,
+                radiation_refreshes=sum(1 for k in range(res.steps)
+                                        if k % every == 0))
+    print(f"  30 days over the continents: {res.path}; {res.steps} steps in "
+          f"{len(res.chunks)} chunks, dt {sorted(set(res.dts))}, "
+          f"{1e3 * res.wall_s / res.steps:.3f} ms/step, after the first "
+          f"chunk {steady:.3f} ms/step, wall {res.wall_s:.1f} s; counts "
+          f"{({k: v for k, v in counts.items() if v})} [{card}]", flush=True)
+    if counts != want:
+        bad.append(f"continents: counts {counts}, expected {want}")
+    s0, _, _ = initialize(cfg, device=dev)
+    sanity(res.state, res.grid, s0, CONT_MEAN_COLP, CONT_POTT_RANGE)
+    recs = res.records
+    first = next((r for r in recs if r["step"] == CONT_FIRST_LINE["step"]),
+                 None)
+    if first is None:
+        bad.append(f"continents: no record at step {CONT_FIRST_LINE['step']}")
+    else:
+        print("  record at step 632 / the reference's first line: " + ", ".join(
+            f"{k} {first[k]!r} / {v!r} (within {CONT_FIRST_TOL[k]:.4g})"
+            for k, v in CONT_FIRST_LINE.items() if k != "step"), flush=True)
+        bad += [f"continents step 632: {k} {first[k]!r} not within "
+                f"{CONT_FIRST_TOL[k]} of the reference's {v!r}"
+                for k, v in CONT_FIRST_LINE.items()
+                if k != "step" and not abs(first[k] - v) <= CONT_FIRST_TOL[k]]
+    wf = window_figures(recs, CONT_WINDOW_STEPS)
+    print(f"  days 20-30 ({wf['records']} records, steps "
+          f"{CONT_WINDOW_STEPS}): " + ", ".join(
+              f"{k} {wf[k]!r} in {CONT_WINDOW_BANDS[k]}"
+              for k in CONT_WINDOW_BANDS), flush=True)
+    bad += [f"continents days 20-30: {x}"
+            for x in band_failures(wf, CONT_WINDOW_BANDS)]
+    cl = closure_residuals(recs, area_total(res.grid, cfg.grid.nx))
+    print(f"  closure over {len(recs) - 1} chunks to day "
+          f"{recs[-1]['t_days']:.4f}: mean residual {cl['mean']:.3f} W/m2, "
+          f"max |{cl['max_abs']:.3f}|; water {100 * cl['water_err']:.3f} % "
+          f"(the reference over its first 30 days: 1.020, |6.432|, 1.006 %)",
+          flush=True)
+    bad += [f"continents: {x}" for x in closure_failures(cl)]
+    return counts
+
+
+def climate_path(dev, card: str) -> dict:
+    """Phase 15: (a) the climate gates, (b) the two kernels of the path at
+    the gates' shapes, (c) milestone #2, (d) 30 days over the continents.
+    Returns the counts of (a), the errors, bounds and timing of (b) and
+    (d)'s counts."""
+    bad = []
+    counts = climate_gates(dev, card, bad)
+    errs, tols, timing = {}, {}, {}
+    for gate in CLIMATE_GATES:
+        errs[gate], tols[gate], timing[gate] = check_climate_kernels(
+            gate, card, dev, bad)
+    milestone2(dev, card, bad)
+    cont = continents_run(dev, card, bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return dict(counts=counts, errs=errs, tols=tols, timing=timing,
+                continents=cont)
+
+
 def main() -> int:
     # ---- 1. device ----
     t = time.perf_counter()
@@ -2230,6 +2844,14 @@ def main() -> int:
           "process through cli.run, both schedules against the unsharded "
           "grid; the lat exchange left out breaks the bound")
 
+    # ---- 15. the climate gates and 30 days over the continents ----
+    t = time.perf_counter()
+    clim = climate_path(dev, card)
+    phase("climate", t, "the closure (both backends), equilibrium and "
+          "fine-grid gates, the two kernels at their shapes, #2 for 500 "
+          "steps and 30 days of #3 over the continents, each inside its "
+          "bounds")
+
     kernels = []
 
     def entry(kname, source, path, launches, err, tol, tm):
@@ -2277,6 +2899,16 @@ def main() -> int:
                   b5["counts"][kname], b5["errs"][kname],
                   EPI_TOL if epi else FIELD_TOL, b5["timing"][kname])
         kernels.append(dict(e, name=f"{e['name']}_baseline5"))
+    for gate, ((nx, ny, nz), _, _) in CLIMATE_GATES.items():
+        for kname in ("predictor_masked", "corrector_epilogue"):
+            epi = kname == "corrector_epilogue"
+            e = entry(kname,
+                      "physics_epilogue.cu" if epi else "fused_substep.cu",
+                      f"packed scan, the {gate} gate ({nx}x{ny}x{nz})",
+                      clim["counts"][gate][kname], clim["errs"][gate][kname],
+                      clim["tols"][gate] if epi else FIELD_TOL,
+                      clim["timing"][gate][kname])
+            kernels.append(dict(e, name=f"{e['name']}_{nx}x{ny}x{nz}"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(f"total {time.perf_counter() - T0:.1f}s", flush=True)
