@@ -4,6 +4,10 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
+and on a machine with four (phases 1-2, then phase 16 alone):
+
+    python3 chip_smoke.py --multicard
+
 Phases, each printing one line with its elapsed seconds; any failure raises
 and exits non-zero:
 
@@ -139,7 +143,40 @@ and exits non-zero:
                against the reference's first line of
                out_clim_continents/metrics.jsonl, its days 20-30 against
                bands pinned from the reference's series
-               (CONT_WINDOW_BANDS) and the closure gate over its 30 days.
+               (CONT_WINDOW_BANDS) and the closure gate over its 30 days;
+16. across cards -- only with ``--multicard``, which needs four cards: the
+               paths across ranks, one card per rank under NCCL, each held
+               against the same grid on one card in this process, read back
+               from the ranks' checkpoint sets. The ranks are started with
+               ``torchrun --standalone --nproc-per-node 4``, each launch in
+               a session of its own that is killed after MC_TIMEOUT_S.
+               (h) the shard-local and seam-strip variants at the blocks
+               of #4 and #5 on 2x2 and of #4 on 1x4 and 4x1 against their
+               plain versions, timed (MC_KERNEL_CASES);
+               (a) ``-m climate_model_tpu_torch run --baseline 4 --mesh-lat
+               2 --mesh-lon 2 --multihost`` over phase 8's 258 steps with
+               ``--out-dir``, with halo overlap and blocking, bit for bit,
+               with one checkpoint file a rank and rank 0's NetCDF and
+               metrics files; then one launch of this script as the rank
+               worker (``--rank-worker``), through ``cli.run`` after
+               ``init_multihost``, counted: (b) #5 on 2x2 over 150 steps in
+               both schedules and (c) #4 on 1x4 blocking and 4x1 with
+               overlap over 50, bit for bit, each mesh then clocked for the
+               exchange's host and device ms a step; (e) #4 on the plain
+               backend on 2x2 over 20 steps, ``shard_map`` (messages at
+               every shift) within JNP_MESH_TOL and ``auto`` (DTensors)
+               within MC_AUTO_TOL; (f) (a)'s overlap run split
+               at step 129 and resumed on the same ranks, bit for bit, its
+               set loaded in one process equal to the gathered state, and a
+               set without ``.p2`` refused; (d) planted faults from the
+               noisy #4 state (MC_FAULTS, MC_JNP_FAULT on ``shard_map`` and
+               MC_AUTO_FAULT on ``auto``), each of which must break a bound,
+               and the lat exchange after the predictor left out, a
+               reading; (g) ``bench
+               --scaling --multihost`` for #4 with halo overlap and #5 on
+               2x2 namelists, one JSON line each from rank 0 alone. The
+               default run prints a line saying that phase 16 needs
+               ``--multicard``.
 
 Phase 3 also holds the epilogue's momentum terms on a windy state
 (MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
@@ -151,6 +188,7 @@ imports no JAX, and neither does this script.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -159,6 +197,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -166,9 +205,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from climate_model_tpu_torch import cli, model
-from climate_model_tpu_torch.bench.micro import device_ms, launch_ms
+from climate_model_tpu_torch.bench.micro import device_ms, launch_ms, sync
 from climate_model_tpu_torch.bench.roofline import substep_bound_ms
 from climate_model_tpu_torch.bench.stability import probe_stability
 from climate_model_tpu_torch.core.config import (GridConfig, ModelConfig,
@@ -179,14 +219,16 @@ from climate_model_tpu_torch.core.config import (GridConfig, ModelConfig,
                                                  resolve_rad_interval)
 from climate_model_tpu_torch.core.grid import adaptive_cfl_dt, round_to
 from climate_model_tpu_torch.core.init import initialize
-from climate_model_tpu_torch.dist import halo, sharding
-from climate_model_tpu_torch.dist.mesh import Mesh, make_mesh
+from climate_model_tpu_torch.dist import comm, halo, sharding
+from climate_model_tpu_torch.dist.mesh import Mesh, barrier, make_mesh
 from climate_model_tpu_torch.dist.packed_halo import SeamStrip, row_mask
 from climate_model_tpu_torch.dycore import boundaries as bc
 from climate_model_tpu_torch.dycore.operators import diagnose_pressure
 from climate_model_tpu_torch.dycore.stepper import run_scan, step_matsuno
 from climate_model_tpu_torch.io.checkpoint import (load_checkpoint,
                                                    save_checkpoint)
+from climate_model_tpu_torch.io.convert import (state_from_numpy,
+                                                state_to_numpy)
 from climate_model_tpu_torch.io.metrics import diagnostics
 from climate_model_tpu_torch.io.netcdf import NCWriter
 from climate_model_tpu_torch.kernels import fused_substep as fs
@@ -551,12 +593,17 @@ def phase(name: str, t_start: float, msg: str = ""):
           flush=True)
 
 
-def card_line() -> str:
+def card_lines() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def kernel_name(mangled: str) -> str:
@@ -1228,11 +1275,11 @@ def noisy_state(baseline: int, dev):
     return cfg, state.replace(colp=colp), forcing, grid
 
 
-def shard_blocks(cfg, state, forcing, grid, dev):
-    """The blocks of CHECK_BLOCKS cut from ``state``. Returns (blocks, kw,
-    phys)."""
+def shard_blocks(cfg, state, forcing, grid, dev, which=CHECK_BLOCKS):
+    """The blocks ``which`` ((name, mesh, shard), CHECK_BLOCKS) cut from
+    ``state``. Returns (blocks, kw, phys)."""
     blocks = []
-    for name, (n_lat, n_lon), shard in CHECK_BLOCKS:
+    for name, (n_lat, n_lon), shard in which:
         lay = sharding.layout(Mesh(n_lat, n_lon, dev), shard, grid.ny,
                               grid.nx)
         g = sharding.split_grid(grid, lay)
@@ -1306,11 +1353,12 @@ def shard_calls(b: Block, kw, phys, dt):
     return calls
 
 
-def check_shards(noisy, dev, bad: list):
+def check_shards(noisy, dev, bad: list, which=CHECK_BLOCKS):
     """Each shard-local and seam-strip variant against its plain version on
-    the blocks of CHECK_BLOCKS cut from the noisy #4 state. Returns
-    (errors by variant, the blocks and what the timing needs)."""
-    blocks, kw, phys = shard_blocks(*noisy, dev)
+    the blocks ``which`` cut from the noisy state ``noisy`` (CHECK_BLOCKS of
+    the #4 state). Returns (errors by variant, the blocks and what the
+    timing needs)."""
+    blocks, kw, phys = shard_blocks(*noisy, dev, which)
     dt = blocks[0].grid.dt
     errs = {}
     for b in blocks:
@@ -1329,18 +1377,23 @@ def check_shards(noisy, dev, bad: list):
     return errs, (blocks, kw, phys, dt)
 
 
-def time_shards(shard_inputs, card: str) -> dict:
-    """Each shard-local and seam-strip variant and its plain version, in
-    turns, at #4's 2x4 shapes (the lon-seam block and its south strip, the
-    polar-edge block's north strip), beside its bound."""
+# the variants that time_shards times on each block of CHECK_BLOCKS: #4's
+# 2x4 shapes (the lon-seam block and its south strip, the polar-edge
+# block's north strip)
+SHARD_TIMING = (("lon-seam", ("predictor_shard", "corrector_shard",
+                              "predictor_south_strip",
+                              "corrector_south_strip")),
+                ("polar-edge", ("predictor_north_strip",
+                                "corrector_north_strip")))
+
+
+def time_shards(shard_inputs, card: str, plan=SHARD_TIMING) -> dict:
+    """Each shard-local and seam-strip variant of ``plan`` ((block, variant
+    names)) and its plain version, in turns, beside its bound."""
     blocks, kw, phys, dt = shard_inputs
     by_name = {b.name: b for b in blocks}
     timing = {}
-    for bname, names in (("lon-seam", ("predictor_shard", "corrector_shard",
-                                       "predictor_south_strip",
-                                       "corrector_south_strip")),
-                         ("polar-edge", ("predictor_north_strip",
-                                         "corrector_north_strip"))):
+    for bname, names in plan:
         b = by_name[bname]
         for name, kern, plain, _, _, (ev, base, ph, vm, g, f) in shard_calls(
                 b, kw, phys, dt):
@@ -1378,23 +1431,26 @@ class _LeaveOut:
     """An exchange with part of its work left out (a planted fault)."""
 
     def __init__(self, inner, what: str):
-        self.inner, self.what, self.calls = inner, what, 0
+        self.inner, self.what = inner, what
+        self.calls = {"lon": 0, "lat": 0}
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
+    def _left_out(self, kind: str) -> bool:
+        # the overlap schedule exchanges each kind twice a step: the
+        # time-n fields, then the predicted ones
+        self.calls[kind] += 1
+        return self.what == f"{kind} exchange" or (
+            self.what == f"{kind} exchange after the predictor"
+            and self.calls[kind] % 2 == 0)
+
     def refresh_cols(self, fields):
-        # the schedule refreshes the columns twice a step: the time-n
-        # fields, then the predicted ones
-        self.calls += 1
-        if self.what == "lon exchange" or (
-                self.what == "lon exchange after the predictor"
-                and self.calls % 2 == 0):
-            return
-        self.inner.refresh_cols(fields)
+        if not self._left_out("lon"):
+            self.inner.refresh_cols(fields)
 
     def start_lat(self, fields):
-        if self.what == "lat exchange":
+        if self._left_out("lat"):
             return _NoWait()
         return self.inner.start_lat(fields)
 
@@ -1404,15 +1460,22 @@ class _NoWait:
         pass
 
 
-def sharded_steps(cfg, noisy, n, dev, halo=sharding.Halo(),
-                  leave_out=None):
+def sharded_blocks(cfg, noisy, n, dev, halo=sharding.Halo(),
+                   leave_out=None):
     """``n`` steps of the sharded runner of ``cfg`` from the ``noisy_state``
-    ``noisy``, optionally with a planted fault; the gathered final state."""
+    ``noisy``, optionally with a planted fault; the final blocks."""
     _, s0, f0, g0 = noisy
     ss = sharding.shard(make_mesh(cfg, device=dev), s0, g0, f0, halo)
     if leave_out:
         ss = ss.replace(exchange=_LeaveOut(ss.exchange, leave_out))
-    return sharding.gather(make_chunk_runner(cfg, n)(ss, g0, f0))
+    return make_chunk_runner(cfg, n)(ss, g0, f0)
+
+
+def sharded_steps(cfg, noisy, n, dev, halo=sharding.Halo(),
+                  leave_out=None):
+    """``sharded_blocks``, gathered into the global final state."""
+    return sharding.gather(sharded_blocks(cfg, noisy, n, dev, halo,
+                                          leave_out))
 
 
 class peak_memory(contextlib.AbstractContextManager):
@@ -1436,6 +1499,33 @@ class peak_memory(contextlib.AbstractContextManager):
                 f"{self.base / 1e9:.3f} GB held before")
 
 
+def want_counts(cfg, n: int, keys, start: int = 0) -> dict:
+    """The launch and call counts of ``n`` steps of ``cfg`` from step
+    ``start`` on the packed scan, over every shard of its mesh (0 for each
+    other key of ``keys``): unsharded one masked predictor and one epilogue
+    corrector a step; on a mesh a shard launch of each program a step for
+    each shard and, under halo overlap, a south-strip and a north-strip
+    launch for each lat seam; a radiation refresh on each block every
+    ``rad_every_steps`` steps."""
+    sh = cfg.sharding
+    shards = sh.mesh_lat * sh.mesh_lon
+    every = cfg.physics.rad_every_steps
+    refreshes = sum(1 for k in range(start, start + n) if k % every == 0)
+    want = dict.fromkeys(keys, 0)
+    if shards == 1:
+        want.update(predictor_masked=n, corrector_epilogue=n,
+                    radiation_refreshes=refreshes)
+        return want
+    want.update(predictor_shard=shards * n, corrector_shard=shards * n,
+                radiation_refreshes=shards * refreshes)
+    if sh.halo_overlap and sh.mesh_lat > 1:
+        seams = sh.mesh_lon * (sh.mesh_lat - 1)
+        for part in ("south_strip", "north_strip"):
+            want[f"predictor_{part}"] = seams * n
+            want[f"corrector_{part}"] = seams * n
+    return want
+
+
 def mesh_runs(argvs, dev, card: str, bad: list) -> dict:
     """Each ``(name, argv)`` of ``argvs`` (names ``overlap``, ``blocking``,
     ``unsharded``) through ``run_argv``, counted: one masked predictor and
@@ -1448,23 +1538,8 @@ def mesh_runs(argvs, dev, card: str, bad: list) -> dict:
         with peak_memory(dev) as peak:
             cfg, res, counts, steady = run_argv(argv, dev)
         runs[name] = (cfg, res, counts, steady, peak)
-        every = cfg.physics.rad_every_steps
-        refreshes = sum(1 for k in range(res.steps) if k % every == 0)
-        want = dict.fromkeys(counts, 0)
         n = res.steps
-        if name == "unsharded":
-            want.update(predictor_masked=n, corrector_epilogue=n,
-                        radiation_refreshes=refreshes)
-        else:
-            shards = cfg.sharding.mesh_lat * cfg.sharding.mesh_lon
-            want.update(predictor_shard=shards * n,
-                        corrector_shard=shards * n,
-                        radiation_refreshes=shards * refreshes)
-            if name == "overlap":
-                seams = cfg.sharding.mesh_lon * (cfg.sharding.mesh_lat - 1)
-                for part in ("south_strip", "north_strip"):
-                    want[f"predictor_{part}"] = seams * n
-                    want[f"corrector_{part}"] = seams * n
+        want = want_counts(cfg, n, counts)
         print(f"  {name}: {res.path}; {n} steps {res.chunks}, "
               f"{1e3 * res.wall_s / n:.3f} ms/step, after the first chunk "
               f"{steady:.3f} ms/step; {peak}; counts {counts} [{card}]",
@@ -2737,7 +2812,736 @@ def climate_path(dev, card: str) -> dict:
                 continents=cont)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 16 (across cards): only with --multicard, on four cards
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MC_WORLD = 4                     # ranks, one card each; every mesh has 4
+# seconds a torchrun launch may take before its whole session is killed:
+# a hung NCCL call fails the phase instead of stalling it
+MC_TIMEOUT_S = {"run": 180, "worker": 420}
+# (a) BASELINE #4 on 2x2, one shard per card, through the run command under
+# torchrun, phase 8's horizon (258 steps in three chunks) with its files:
+# with halo overlap, then blocking
+MC_B4_ARGV = ["run", "--baseline", "4", "--mesh-lat", "2", "--mesh-lon",
+              "2", "--days", "0.05", "--out-every-hours", "0.4"]
+MC_CLI_RUNS = (("b4_2x2_overlap", MC_B4_ARGV + ["--halo-overlap"]),
+               ("b4_2x2_blocking", MC_B4_ARGV))
+# (c)'s horizon at #4: 50 steps at 16.715 s, in two chunks of 25
+MC_B4_50_ARGV = ["run", "--baseline", "4", "--days", "0.00967",
+                 "--out-every-hours", "0.12"]
+
+
+def on_mesh(argv, n_lat: int, n_lon: int) -> list:
+    return argv + ["--mesh-lat", str(n_lat), "--mesh-lon", str(n_lon)]
+
+
+# The rank worker's runs through cli.run, each writing its checkpoint set:
+# (b) #5 on 2x2 over phase 14's 150 steps in both schedules, (c) #4 on 1x4
+# (a 4-wide lon ring, no lat exchange) and on 4x1 (interior ranks with two
+# lat neighbours, no column exchange), (e) the plain backend on 2x2 over
+# phase 12's 20 steps, per-operator halos (DistEdges) and GSPMD auto
+# (DTensors)
+MC_RUNS = (
+    ("b5_2x2_overlap", on_mesh(B5_OVERLAP_ARGV, 2, 2)),
+    ("b5_2x2_blocking", on_mesh(B5_ARGV, 2, 2)),
+    ("b4_1x4_blocking", on_mesh(MC_B4_50_ARGV, 1, 4)),
+    ("b4_4x1_overlap", on_mesh(MC_B4_50_ARGV + ["--halo-overlap"], 4, 1)),
+    ("jnp_2x2_shard_map", on_mesh(JNP_MESH_ARGV, 2, 2)),
+    ("jnp_2x2_auto", on_mesh(JNP_AUTO_ARGV, 2, 2)),
+)
+# (f) (a)'s overlap run split at step 129 and resumed on the same ranks
+MC_RESUMED = "b4_2x2_resumed"
+# (d) planted faults on 2x2 with halo overlap, FAULT_STEPS steps from the
+# noisy #4 state; each but the first must break SHARDED_TOL, and for the
+# lat exchange left out after the predictor only, a reading: on four H100s
+# it moved v by 1.5e-8 m/s and nothing else, as phase 8's lon exchange
+# after the predictor moves nothing. The predictor's seam strips write the
+# ghost rows too, from the freshly exchanged rows: the inner ghost row
+# equals the neighbour's bit for bit, the second too but for v at a south
+# seam (the strip's own edge row reaches it), the outermost not at all;
+# what the corrector's kept rows read of them moves the result by rounding
+# only (tests/test_torch_multicard.py::test_ghost_rows_after_the_predictor).
+# Swapping the order of the column sends is no fault where the transport
+# honours tags (gloo); NCCL matches a pair's messages in post order, and on
+# a 2-wide ring both lon neighbours are one rank, so the seams get each
+# other's columns.
+MC_FAULTS = (("none (sound)", {}),
+             ("lat exchange left out", {"leave_out": "lat exchange"}),
+             ("lat exchange left out after the predictor only",
+              {"leave_out": "lat exchange after the predictor"}),
+             ("east/west posting order swapped",
+              {"lon_sends": ("west", "east")}),
+             ("ghosts one row and column narrower (2)", {"halo": (2, 2, 2)}))
+# ... and the plain backend's: on shard_map a planted shift fault of
+# JNP_MESH_FAULTS; on auto the lon roll of west/east kept to each rank's
+# own columns (the DTensor's placements kept, no data from the neighbour)
+MC_JNP_FAULT = "lat exchange left out (zero rows at every shard edge)"
+MC_AUTO_FAULT = "lon roll within each rank's columns (placements kept)"
+
+
+def roll_within_rank(shift: int):
+    """``torch.roll`` along lon that, on a DTensor, rolls each rank's own
+    columns and keeps the placements: the seam columns wrap within the
+    rank (the planted fault MC_AUTO_FAULT)."""
+    def roll(a):
+        from torch.distributed.tensor import DTensor
+        if not isinstance(a, DTensor):
+            return torch.roll(a, shift, dims=-1)
+        return DTensor.from_local(torch.roll(a.to_local(), shift, dims=-1),
+                                  a.device_mesh, a.placements,
+                                  run_check=False)
+    return roll
+
+
+# (e)'s bounds: shard_map runs the same per-point arithmetic on each rank
+# and is held to JNP_MESH_TOL (bit for bit on the card). auto is bit for
+# bit across gloo ranks on the CPU (fp32 and fp64) and across NCCL ranks on
+# 4x1, but not where lon is sharded (1x4, 2x2; PERF.md). Four H100s read
+# on 2x2, over the 20 steps: u 1.241e-4 m/s, v 6.473e-5, pott 2.136e-4 K,
+# qv 4.191e-9, colp 2.344e-2 Pa, 0 elsewhere (the same in four calls); over
+# the JNP_FAULT_STEPS from the noisy #4 state, near saturation: u 1.165e-4,
+# v 3.317e-5, pott 7.935e-4, qv 3.073e-7, qc 3.033e-7, colp 2.344e-2, rain
+# 3.062e-6, soil_moist 1.863e-9 (the microphysics' threshold turns a last
+# bit into the size of the kernel's own error against its plain version).
+# Each bound is 4x the larger reading, and never below JNP_MESH_TOL's
+# (3-6 ulp), the bound of tsurf, which read 0; MC_AUTO_FAULT broke it in
+# every field but tsurf and soil_moist, by 30x (qc) and more.
+MC_AUTO_READ = {"u": 1.241e-4, "v": 6.473e-5, "pott": 7.935e-4,
+                "qv": 3.073e-7, "qc": 3.033e-7, "colp": 2.344e-2,
+                "rain": 3.062e-6, "soil_moist": 1.863e-9}
+MC_AUTO_TOL = {f: max(4 * MC_AUTO_READ.get(f, 0.0), t)
+               for f, t in JNP_MESH_TOL.items()}
+# (d) on the plain path: (set prefix, the (e) run whose config it takes,
+# fault, its shift primitives of dycore/boundaries.py, bound)
+MC_PLAIN_FAULTS = (
+    ("jnp_fault", "jnp_2x2_shard_map", MC_JNP_FAULT,
+     JNP_MESH_FAULTS[MC_JNP_FAULT], JNP_MESH_TOL),
+    ("auto_fault", "jnp_2x2_auto", MC_AUTO_FAULT,
+     dict(west=roll_within_rank(1), east=roll_within_rank(-1)), MC_AUTO_TOL))
+# steps of each packed mesh run again after its run (the NCCL connections
+# of the run's peers made), after a warm run and in turns with the exchange
+# clock off and on: the exchange's steady ms a step and what the clock
+# costs. The runs themselves are timed with the clock off.
+MC_CLOCK_STEPS = 50
+# (g) bench --scaling --multihost on the 2x2 mesh of a namelist: (name,
+# baseline, further flags); bench's default of 50 steps a timed run
+MC_BENCH = (("b4_2x2_overlap", 4, ["--halo-overlap"]), ("b5_2x2", 5, []))
+# (h) the shard-local and seam-strip variants at every block shape that
+# (a)-(c) give them, cut from the noisy state of the baseline: (entry
+# suffix, baseline, blocks (name, mesh, shard) as CHECK_BLOCKS, the
+# variants timed on each block, the counted worker runs whose launches the
+# entries report). On 2x2 the south row's block (the polar wall, north
+# ghosts and strip, the lon seam) and the north row's (south ghosts and
+# strip), launched by (a)'s overlap run split and resumed and by (b); on
+# 1x4 a block of the 4-wide lon ring (blocking: no strip), by (c); on 4x1
+# an interior block (ghost rows and a strip on both sides), by (c).
+MC_2X2_BLOCKS = (("2x2 south row", (2, 2), 0), ("2x2 north row", (2, 2), 2))
+MC_2X2_TIMING = (("2x2 south row", ("predictor_shard", "corrector_shard",
+                                    "predictor_north_strip",
+                                    "corrector_north_strip")),
+                 ("2x2 north row", ("predictor_south_strip",
+                                    "corrector_south_strip")))
+MC_KERNEL_CASES = (
+    ("b4_2x2", 4, MC_2X2_BLOCKS, MC_2X2_TIMING, (MC_RESUMED,)),
+    ("b5_2x2", 5, MC_2X2_BLOCKS, MC_2X2_TIMING,
+     ("b5_2x2_overlap", "b5_2x2_blocking")),
+    ("b4_1x4", 4, (("1x4 ring", (1, 4), 1),),
+     (("1x4 ring", ("predictor_shard", "corrector_shard")),),
+     ("b4_1x4_blocking",)),
+    ("b4_4x1", 4, (("4x1 interior", (4, 1), 1),),
+     (("4x1 interior", ("predictor_shard", "corrector_shard",
+                        "predictor_south_strip", "corrector_south_strip",
+                        "predictor_north_strip", "corrector_north_strip")),),
+     ("b4_4x1_overlap",)))
+
+
+def unsharded_argv(argv) -> list:
+    """``argv`` without its mesh, sharding mode and halo overlap, on a 1x1
+    mesh: the same grid on one card."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in ("--mesh-lat", "--mesh-lon", "--sharding-mode"):
+            skip = True
+        elif a != "--halo-overlap":
+            out.append(a)
+    return on_mesh(out, 1, 1)
+
+
+def argv_config(argv):
+    return cli.build_config(cli.make_parser().parse_args(argv))
+
+
+def mesh_namelist(baseline: int, n_lat: int, n_lon: int, path: str) -> str:
+    """``configs/baseline_N.toml`` with its mesh set to ``n_lat`` x
+    ``n_lon``, written to ``path``; returns ``path``."""
+    with open(os.path.join(ROOT, "configs", f"baseline_{baseline}.toml")) as f:
+        text = f.read()
+    for key, n in (("mesh_lat", n_lat), ("mesh_lon", n_lon)):
+        text, k = re.subn(rf"(?m)^{key} = \d+$", f"{key} = {n}", text)
+        if k != 1:
+            raise ValueError(f"baseline_{baseline}.toml: no one {key} line")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def set_path(root: str, name: str) -> str:
+    """Where the checkpoint set of the case ``name`` lies."""
+    return os.path.join(root, name, "restart.npz")
+
+
+def read_set(path: str, cfg, want, dev) -> tuple:
+    """The ``.p*`` checkpoint set at ``path``, loaded in this process
+    (``load_checkpoint``), against the state ``want``: (equal bit for bit,
+    step and time included; max|diff| of each field)."""
+    got = load_checkpoint(path, cfg, device=dev)
+    same = (bitwise_equal(got, want, STATE_FIELDS) and got.step == want.step
+            and bool(got.t == want.t))
+    return same, state_diffs(got, want)
+
+
+def sum_counts(ranks: list, name: str) -> dict:
+    """The counts of the case ``name`` summed over the ranks' records."""
+    out = {}
+    for r in ranks:
+        for k, v in r[name]["counts"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def torchrun(args, timeout: float, log: str):
+    """``torchrun --standalone --nproc-per-node MC_WORLD`` of ``args`` from
+    the repository's root, in a session of its own that is killed whole
+    after ``timeout`` seconds; its output goes to ``log`` and is printed.
+    Returns whether every rank exited 0."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MC_WORLD), *args]
+    print(f"  $ torchrun --standalone --nproc-per-node {MC_WORLD} "
+          + " ".join(args), flush=True)
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = None
+    with open(log) as f:
+        text = f.read()
+    print("".join(f"  | {line}\n" for line in text.splitlines()), end="",
+          flush=True)
+    wall = time.perf_counter() - t0
+    what = "killed: still running" if rc is None else f"exited {rc}"
+    print(f"  torchrun {what} after {wall:.1f} s", flush=True)
+    return rc == 0
+
+
+# --- the rank side: chip_smoke.py --rank-worker DIR under torchrun ---
+
+def run_record(res, counts: dict) -> dict:
+    """What the parent reads of a rank's run: the chunk loop's decisions,
+    its ms/step, the launch counts and the shifts of the plain mesh path."""
+    steady = 1e3 * sum(r["wall_s"] for r in res.records[1:]) \
+        / max(sum(res.chunks[1:]), 1)
+    return dict(steps=res.steps, start_step=res.start_step,
+                chunks=res.chunks, dts=res.dts, path=res.path,
+                wall_s=res.wall_s, steady_ms=steady, counts=counts,
+                shifts=halo.make_sharded_step_fn.shifts)
+
+
+def ms(x) -> str:
+    return "not measured" if x is None else f"{x:.3f}"
+
+
+def steady_exchange(recs) -> str:
+    """``worker_clocked``'s readings over the ranks."""
+    def each(key):
+        return ", ".join(ms(r[key]) for r in recs)
+    return (f"{MC_CLOCK_STEPS} steps again, in turns: {each('clock_off_ms')} "
+            f"ms/step with the exchange clock off, {each('clock_on_ms')} on, "
+            f"{recs[0]['steady_exchanges']:.0f} exchanges a step taking "
+            f"{each('steady_host_ms')} host ms and {each('steady_device_ms')} "
+            "device ms a step (each rank)")
+
+
+def counting():
+    """Every counter set to 0."""
+    reset_counts()
+    halo.make_sharded_step_fn.shifts = 0
+
+
+def worker_run(argv, dev, root: str, name: str) -> dict:
+    """``cli.run`` of ``argv`` on this rank, counted, its checkpoint set in
+    the case's folder; on the packed scan then ``worker_clocked``."""
+    counting()
+    res = cli.run(argv_config(argv), device=dev,
+                  out_dir=os.path.dirname(set_path(root, name)), no_nc=True)
+    rec = run_record(res, read_counts())
+    if model.takes_packed_scan(argv_config(argv)):
+        rec.update(worker_clocked(argv, dev))
+    return rec
+
+
+def worker_clocked(argv, dev, n: int = MC_CLOCK_STEPS) -> dict:
+    """``n`` steps of ``argv``'s mesh from its initial state, after a warm
+    run, in turns with the exchange clock off, on, on and off, each run
+    started at a barrier and ended by a synchronize. Returns this rank's
+    mean ms/step of each and the clock's host and device ms a step."""
+    cfg = argv_config(argv)
+    s, f, g = initialize(cfg, device=dev)
+    ss = sharding.shard(make_mesh(cfg, device=dev), s, g, f)
+    run = make_chunk_runner(cfg, n)
+    run(ss, g, f)
+    clock = comm.ExchangeClock()
+    out = {"clock_off_ms": 0.0, "clock_on_ms": 0.0}
+    for key in ("clock_off_ms", "clock_on_ms", "clock_on_ms",
+                "clock_off_ms"):
+        barrier(dev)
+        t0 = time.perf_counter()
+        comm.DistExchange.clock = clock if key == "clock_on_ms" else None
+        try:
+            run(ss, g, f)
+            sync(dev)
+        finally:
+            comm.DistExchange.clock = None
+        out[key] += 1e3 * (time.perf_counter() - t0) / (2 * n)
+    dev_ms = clock.device_ms()
+    out.update(steady_exchanges=clock.exchanges / (2 * n),
+               steady_host_ms=1e3 * clock.host_s / (2 * n),
+               steady_device_ms=None if dev_ms is None else dev_ms / (2 * n))
+    return out
+
+
+def worker_resume(dev, root: str) -> dict:
+    """(f): (a)'s overlap run to step 129, then resumed from its checkpoint
+    set on the same ranks to the horizon; rank 0 also writes the gathered
+    final state (``gathered.npz``)."""
+    cfg = argv_config(MC_CLI_RUNS[0][1])
+    out = os.path.dirname(set_path(root, MC_RESUMED))
+    counting()
+    r1 = cli.run(cfg.replace(sim_days=IO4_SPLIT_DAYS), device=dev,
+                 out_dir=out, no_nc=True)
+    r2 = cli.run(cfg, device=dev, out_dir=out, no_nc=True,
+                 restart_from=set_path(root, MC_RESUMED))
+    if tdist.get_rank() == 0:
+        np.savez(os.path.join(root, "gathered.npz"),
+                 **state_to_numpy(r2.state))
+    return dict(run_record(r2, read_counts()), split_steps=r1.steps,
+                **worker_clocked(MC_CLI_RUNS[0][1], dev))
+
+
+def load_state(path: str, dev):
+    """A ``State`` written with ``np.savez(path, **state_to_numpy(s))``, at
+    the file's dtype."""
+    with np.load(path) as z:
+        return state_from_numpy(dict(z), device=dev,
+                                dtype=getattr(torch, str(z["u"].dtype)))
+
+
+def load_noisy(root: str, dev):
+    """The parent's noisy state (``noisy.npz``) with the forcing and grid
+    of (a)'s grid: a ``noisy_state`` tuple."""
+    cfg = argv_config(unsharded_argv(MC_CLI_RUNS[0][1]))
+    _, forcing, grid = initialize(cfg, device=dev)
+    return cfg, load_state(os.path.join(root, "noisy.npz"), dev), forcing, \
+        grid
+
+
+def worker_faults(noisy, dev, root: str):
+    """(d) on the packed path and (e)'s shift fault on the plain path, from
+    the noisy state, each to a checkpoint set."""
+    cfg = argv_config(MC_CLI_RUNS[0][1])
+    for i, (_, kw) in enumerate(MC_FAULTS):
+        sends = {"LON_SENDS": kw["lon_sends"]} if "lon_sends" in kw else {}
+        with planted(comm.DistExchange, **sends):
+            out = sharded_blocks(
+                cfg, noisy, FAULT_STEPS, dev,
+                halo=sharding.Halo(*kw.get("halo", ())),
+                leave_out=kw.get("leave_out"))
+        save_checkpoint(set_path(root, f"fault{i}"), out, cfg)
+    _, s0, f0, g0 = noisy
+    for prefix, name, _, fault, _ in MC_PLAIN_FAULTS:
+        cfg = argv_config(dict(MC_RUNS)[name])
+        for i, prims in enumerate(({}, fault)):
+            ss = sharding.shard(make_mesh(cfg, device=dev), s0, g0, f0,
+                                halo.NO_HALO)
+            with planted(bc, **prims):
+                out = make_chunk_runner(cfg, JNP_FAULT_STEPS)(ss, g0, f0)
+            save_checkpoint(set_path(root, f"{prefix}{i}"), out, cfg)
+
+
+def worker_bench(dev, root: str) -> dict:
+    """(g): ``bench --scaling --multihost`` on each namelist of MC_BENCH
+    (rank 0 writes it, the others wait); rank 0's JSON lines (the other
+    ranks print none)."""
+    lines = {}
+    for name, baseline, flags in MC_BENCH:
+        toml = os.path.join(root, f"{name}.toml")
+        if tdist.get_rank() == 0:
+            mesh_namelist(baseline, 2, 2, toml)
+        barrier(dev)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench", "--scaling", "--multihost", "--config",
+                           toml, *flags])
+        if rc != 0:
+            raise AssertionError(f"bench {name} returned {rc}: "
+                                 f"{buf.getvalue()}")
+        lines[name] = buf.getvalue().strip().splitlines()
+    return lines
+
+
+def worker_cases(dev, root: str):
+    """Every case that the rank worker runs, on this rank of the process
+    group; its records in ``rank{r}.json``."""
+    rank = tdist.get_rank()
+    rec = {}
+    for name, argv in MC_RUNS:
+        if rank == 0:
+            print(f"[rank worker] {name}", flush=True)
+        rec[name] = worker_run(argv, dev, root, name)
+    rec[MC_RESUMED] = worker_resume(dev, root)
+    worker_faults(load_noisy(root, dev), dev, root)
+    rec["bench"] = worker_bench(dev, root)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def rank_worker(root: str) -> int:
+    """One rank of phase 16 under torchrun, one card each."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the rank worker needs a card")
+    with cli.multihost("cuda") as dev:
+        worker_cases(dev, root)
+    return 0
+
+
+# --- the parent side: one card for the references, four for the ranks ---
+
+def mc_kernels(noisy4, dev, card: str, bad: list) -> dict:
+    """(h): the shard-local and seam-strip variants at the blocks of
+    MC_KERNEL_CASES against their plain versions, timed. Returns {suffix:
+    (errors, timing)}."""
+    out = {}
+    for baseline in (4, 5):
+        noisy = noisy4 if baseline == 4 else noisy_state(baseline, dev)
+        for suffix, n, blocks, plan, _ in MC_KERNEL_CASES:
+            if n != baseline:
+                continue
+            print(f"  #{n}, {suffix}:", flush=True)
+            errs, inputs = check_shards(noisy, dev, bad, blocks)
+            out[suffix] = (errs, time_shards(inputs, card, plan))
+            del inputs
+        del noisy
+    return out
+
+
+class References:
+    """The unsharded runs on one card that the ranks' runs must equal, each
+    run once (``run_argv``) and kept by its command."""
+
+    def __init__(self, dev, card: str):
+        self.dev, self.card, self.runs = dev, card, {}
+
+    def __call__(self, argv):
+        key = tuple(unsharded_argv(argv))
+        if key not in self.runs:
+            cfg, res, _, steady = run_argv(list(key), self.dev)
+            print(f"  reference {' '.join(key[1:])}: {res.path}; "
+                  f"{res.steps} steps {res.chunks}, after the first chunk "
+                  f"{steady:.3f} ms/step [{self.card}]", flush=True)
+            self.runs[key] = (cfg, res)
+        return self.runs[key]
+
+
+def mc_compare(label, path, cfg, want, bad: list, tol=None) -> bool:
+    """The set at ``path`` against ``want``: bit for bit, or with ``tol``
+    (a dict of bounds) within it; prints the reading."""
+    same, per = read_set(path, cfg, want, want.u.device)
+    shown = {f: per[f] for f in (tol or SHARDED_TOL)}
+    print(f"  {label}: bitwise equal {same}; "
+          + show(shown, tol or SHARDED_TOL), flush=True)
+    if tol is None and not same:
+        bad.append(f"{label}: not bit for bit")
+    if tol is not None:
+        bad += [f"{label}: {x} over its bound" for x in over(shown, tol)]
+    return same
+
+
+def mc_cli_files(name, out: str, ref, bad: list):
+    """(a)'s folder: one checkpoint file a rank, rank 0's NetCDF file a
+    chunk and metrics line a chunk at the reference's steps and dts, its
+    last NetCDF file equal to the reference's final state."""
+    res = ref[1]
+    n = len(res.chunks)
+    want = sorted(["constants.nc", "metrics.jsonl"]
+                  + [f"out_{i:04d}.nc" for i in range(n)]
+                  + [f"restart.npz.p{r}" for r in range(MC_WORLD)])
+    got = sorted(os.listdir(out))
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [int(x) for x in np.cumsum(res.chunks)]
+    dts = [r.get("dt", res.dts[0]) for r in recs]
+    last = nc_vars(os.path.join(out, f"out_{n - 1:04d}.nc"))
+    s = res.state
+    nc_ok = all(np.array_equal(last[k][0], getattr(s, f).cpu().numpy())
+                for k, f in NC_FIELDS.items())
+    print(f"  {name} files: {got}; metrics steps "
+          f"{[r['step'] for r in recs]}, dts {dts}; the last NetCDF file "
+          f"equals the unsharded final state: {nc_ok}", flush=True)
+    if got != want:
+        bad.append(f"{name}: files {got}, expected {want}")
+    if [r["step"] for r in recs] != steps or dts != res.dts:
+        bad.append(f"{name}: metrics steps/dts {recs}, expected {steps}, "
+                   f"{res.dts}")
+    if not nc_ok:
+        bad.append(f"{name}: the last NetCDF file differs from the "
+                   "unsharded state")
+
+
+def mc_runs(ranks, refs, root, card, bad: list):
+    """(b), (c) and (e): each rank worker run against its unsharded
+    reference, counted and timed."""
+    for name, argv in MC_RUNS:
+        cfg, ref = refs(argv)
+        recs = [r[name] for r in ranks]
+        counts = sum_counts(ranks, name)
+        plain = name.startswith("jnp")
+        steady = max(r["steady_ms"] for r in recs)
+        line = (f"  {name}: {recs[0]['path']}; {recs[0]['steps']} steps "
+                f"{recs[0]['chunks']}, after the first chunk {steady:.3f} "
+                f"ms/step (slowest rank; "
+                f"{', '.join(f'{r['steady_ms']:.3f}' for r in recs)}); ")
+        if plain:
+            line += (f"{recs[0]['shifts'] / recs[0]['steps']:.1f} shifts a "
+                     f"step a rank; ")
+            launched = {k: v for k, v in counts.items()
+                        if k not in PLAIN_COUNTERS and v}
+            if launched:
+                bad.append(f"{name}: kernel launches {launched}")
+        else:
+            line += f"{steady_exchange(recs)}; "
+            want = want_counts(argv_config(argv), recs[0]["steps"], counts)
+            if counts != want:
+                bad.append(f"{name}: counts {counts}, expected {want}")
+        print(line + f"counts over the ranks "
+              f"{ {k: v for k, v in counts.items() if v} } [{card}]",
+              flush=True)
+        for r in recs:
+            if r["dts"] != ref.dts or r["chunks"] != ref.chunks:
+                bad.append(f"{name}: chunks {r['chunks']} dts {r['dts']}, "
+                           f"unsharded {ref.chunks} {ref.dts}")
+        mc_compare(f"{name} vs unsharded", set_path(root, name),
+                   argv_config(argv), ref.state, bad,
+                   tol=(MC_AUTO_TOL if name.endswith("auto")
+                        else JNP_MESH_TOL) if plain else None)
+
+
+def mc_resume(ranks, root, dev, bad: list):
+    """(f): the split run's set equals (a)'s continuous set and rank 0's
+    gathered state bit for bit; a set missing a file is refused."""
+    rec = ranks[0][MC_RESUMED]
+    cfg = argv_config(MC_CLI_RUNS[0][1])
+    cont = load_checkpoint(set_path(root, MC_CLI_RUNS[0][0]), cfg,
+                           device=dev)
+    print(f"  {MC_RESUMED}: {rec['split_steps']} steps, resumed at step "
+          f"{rec['start_step']} for {rec['steps']} steps on the same ranks",
+          flush=True)
+    if rec["start_step"] != rec["split_steps"] \
+            or rec["split_steps"] + rec["steps"] != cont.step:
+        bad.append(f"{MC_RESUMED}: {rec}")
+    mc_compare(f"{MC_RESUMED} vs the continuous run", set_path(
+        root, MC_RESUMED), cfg, cont, bad)
+    gathered = load_state(os.path.join(root, "gathered.npz"), dev)
+    mc_compare(f"{MC_RESUMED}: the set loaded in one process vs the "
+               "gathered state", set_path(root, MC_RESUMED), cfg, gathered,
+               bad)
+    part = os.path.join(root, "missing_p2")
+    os.makedirs(part)
+    for r in (0, 1, 3):
+        shutil.copy(f"{set_path(root, MC_RESUMED)}.p{r}", part)
+    try:
+        load_checkpoint(os.path.join(part, "restart.npz"), cfg, device=dev)
+        bad.append("a checkpoint set without .p2 was loaded")
+        print("  the set without .p2: loaded", flush=True)
+    except ValueError as e:
+        print(f"  the set without .p2: refused ({e})", flush=True)
+
+
+def mc_faults(noisy, root, bad: list):
+    """(d) and (e)'s fault: the sound runs from the noisy state within the
+    bound, each planted fault over it."""
+    _, s0, f0, g0 = noisy
+    for faults, argv, prefix, n, tol in (
+            (MC_FAULTS, MC_CLI_RUNS[0][1], "fault", FAULT_STEPS,
+             SHARDED_TOL),
+            *(((("none (sound)", {}), (fault, {})), dict(MC_RUNS)[name],
+               prefix, JNP_FAULT_STEPS, tol)
+              for prefix, name, fault, _, tol in MC_PLAIN_FAULTS)):
+        cfg = argv_config(argv)
+        want = make_chunk_runner(argv_config(unsharded_argv(argv)), n)(
+            s0, g0, f0)
+        for i, (fault, _) in enumerate(faults):
+            same, per = read_set(set_path(root, f"{prefix}{i}"), cfg, want,
+                                 want.u.device)
+            shown = {f: per[f] for f in tol}
+            mode = f" {cfg.sharding.mode}" if cfg.backend == "jnp" else ""
+            print(f"  noisy #4 state, {n} steps, backend={cfg.backend}{mode} "
+                  f"on 2x2 across ranks, planted fault: {fault}; vs "
+                  f"unsharded, "
+                  f"bitwise equal {same}: " + show(shown, tol), flush=True)
+            if i == 0:
+                bad += [f"sound {prefix} run: {x} over its bound"
+                        for x in over(shown, tol)]
+            elif "after the predictor only" in fault:
+                pass        # a reading, not a gate (MC_FAULTS)
+            elif not over(shown, tol):
+                bad.append(f"the {fault} stays within every bound")
+
+
+def mc_bench(ranks, card: str, bad: list):
+    """(g): rank 0's one JSON line of each bench, none from the others;
+    the exchange's ms a step beside it, from the clocked runs of the same
+    mesh and schedule."""
+    clocked = {"b4_2x2_overlap": MC_RESUMED, "b5_2x2": "b5_2x2_blocking"}
+    for name, baseline, flags in MC_BENCH:
+        lines = ranks[0]["bench"][name]
+        others = [r["bench"][name] for r in ranks[1:]]
+        rec = json.loads(lines[-1])
+        gc = baseline_config(baseline).grid
+        npts = gc.nx * gc.ny * gc.nz
+        ex = [r[clocked[name]] for r in ranks]
+        print(f"  bench --scaling --multihost --config {name}.toml "
+              f"{' '.join(flags)}: {lines[-1]}", flush=True)
+        print(f"    value {rec['value']}, gps_1dev {rec['gps_1dev']}, "
+              f"gps_ndev {rec['gps_ndev']}, gps_ratio {rec['gps_ratio']}, "
+              f"vs_baseline {rec['vs_baseline']} (the BASELINE's 0.80); "
+              f"{1e3 * npts / rec['gps_1dev']:.3f} ms/step on one card, "
+              f"{1e3 * npts / rec['gps_ndev']:.3f} across the ranks; "
+              f"{clocked[name]}'s {steady_exchange(ex)} [{card}]",
+              flush=True)
+        if len(lines) != 1 or any(others) \
+                or f"{MC_WORLD} ranks (nccl)" not in rec["metric"] \
+                or rec["n_devices"] != MC_WORLD or not rec["value"] > 0:
+            bad.append(f"bench {name}: rank 0 printed {lines}, the others "
+                       f"{others}")
+
+
+def multicard_path(dev, card: str) -> list:
+    """Phase 16: the paths across ranks, one card each, held against the
+    same runs on one card. Returns the ``kernels`` entries of the variants
+    at the blocks of MC_KERNEL_CASES."""
+    bad = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        noisy = noisy_state(4, dev)
+        np.savez(os.path.join(root, "noisy.npz"),
+                 **state_to_numpy(noisy[1]))
+        kern = mc_kernels(noisy, dev, card, bad)
+        if bad:
+            raise AssertionError("; ".join(bad))
+        # every launch runs; a failed one fails the phase at its end, after
+        # the others' readings
+        ran = {}
+        for name, argv in MC_CLI_RUNS:
+            ran[name] = torchrun(
+                ["-m", "climate_model_tpu_torch", *argv, "--multihost",
+                 "--out-dir", os.path.dirname(set_path(root, name))],
+                MC_TIMEOUT_S["run"], os.path.join(root, f"{name}.log"))
+        ran["worker"] = torchrun(
+            [os.path.join(ROOT, "chip_smoke.py"), "--rank-worker", root],
+            MC_TIMEOUT_S["worker"], os.path.join(root, "worker.log"))
+        bad += [f"the {name} launch failed" for name, ok in ran.items()
+                if not ok]
+        card4 = f"{MC_WORLD} x {card}"
+        refs = References(dev, card)
+        for name, argv in MC_CLI_RUNS:
+            if not ran[name]:
+                continue
+            ref = refs(argv)
+            mc_cli_files(name, os.path.dirname(set_path(root, name)), ref,
+                         bad)
+            mc_compare(f"{name} (run --multihost) vs unsharded",
+                       set_path(root, name), argv_config(argv), ref[1].state,
+                       bad)
+        if not ran["worker"]:
+            raise AssertionError("; ".join(bad))
+        ranks = []
+        for r in range(MC_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        mc_runs(ranks, refs, root, card4, bad)
+        if ran[MC_CLI_RUNS[0][0]]:
+            mc_resume(ranks, root, dev, bad)
+        mc_faults(noisy, root, bad)
+        mc_bench(ranks, card4, bad)
+        if bad:
+            raise AssertionError("; ".join(bad))
+        kernels = []
+        for suffix, n, _, _, runs in MC_KERNEL_CASES:
+            errs, timing = kern[suffix]
+            mesh = suffix.split("_")[1]
+            for kname, tm in timing.items():
+                epi = kname.startswith("corrector")
+                e = kernel_entry(
+                    kname, "physics_epilogue.cu" if epi
+                    else "fused_substep.cu",
+                    f"sharded packed scan across {MC_WORLD} cards, "
+                    f"BASELINE #{n} on {mesh} ({', '.join(runs)})",
+                    sum(sum_counts(ranks, r)[kname] for r in runs),
+                    errs[kname], SHARD_EPI_TOL if epi else SHARD_TOL, tm)
+                if not e["launches"]:
+                    bad.append(f"{e['name']}_{suffix}: no launch in "
+                               f"{runs}")
+                kernels.append(dict(e, name=f"{e['name']}_{suffix}"))
+        if bad:
+            raise AssertionError("; ".join(bad))
+        return kernels
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def kernel_entry(kname, source, path, launches, err, tol, tm) -> dict:
+    """One variant's entry of the ``kernels`` line."""
+    return {
+        "name": f"fused_substep_{kname}", "route": "cuda",
+        "source": f"climate_model_tpu_torch/kernels/csrc/{source}",
+        "replaces": "climate_model_tpu/kernels/fused_substep.py:1047",
+        "path": path, "launches": launches,
+        # fields differ in units: the max is colp's (Pa); each field's
+        # error and the largest error/bound ratio are listed beside it
+        "max_abs_err": max(err.values()),
+        "max_abs_err_by_field": err,
+        "max_err_over_tol": max(e / tol[f] for f, e in err.items()),
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+        "library_ms": None,
+        # device ms of each launch of one call (profiled)
+        "launch_ms": tm["launch_ms"],
+        # ms and plain_ms are device time; the host's time to enqueue
+        # one call
+        "enqueue_ms": tm["enqueue_ms"],
+        "plain_enqueue_ms": tm["plain_enqueue_ms"]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--multicard", action="store_true",
+                    help=f"phases 1-2, then phase 16 alone on {MC_WORLD} "
+                         "cards")
+    ap.add_argument("--rank-worker", metavar="DIR",
+                    help="one rank of phase 16 (torchrun starts these)")
+    args = ap.parse_args(argv)
+    if args.rank_worker:
+        return rank_worker(args.rank_worker)
+
     # ---- 1. device ----
     t = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2746,6 +3550,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    if args.multicard and count < MC_WORLD:
+        raise RuntimeError(f"--multicard needs {MC_WORLD} cards; "
+                           f"torch.cuda.device_count() is {count}")
     card = card_line()
     print(f"device: {kind} x{count}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}; python {sys.version.split()[0]}",
@@ -2759,6 +3566,24 @@ def main() -> int:
     for name, lines in ptxas_lines(info.log):
         print(f"  ptxas {name}: " + " | ".join(lines), flush=True)
     phase("build", t, f"nvcc {info.seconds:.2f}s -> {info.path}")
+
+    if args.multicard:
+        # ---- 16. the paths across cards ----
+        t = time.perf_counter()
+        kernels = multicard_path(dev, card)
+        phase("across cards", t, f"#4 and #5 on 2x2 and #4 on 1x4 and 4x1 "
+              f"across {MC_WORLD} cards equal their one-card runs bit for "
+              "bit; the plain mesh path within its bound; resumed across "
+              "ranks bit for bit; each planted fault breaks a bound")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        cards = card_lines()
+        print(f"{len(cards)} cards: " + "; ".join(cards), flush=True)
+        print(card, flush=True)
+        print(f"total {time.perf_counter() - T0:.1f}s", flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": MC_WORLD}}),
+            flush=True)
+        return 0
 
     # ---- 3. kernels vs plain at config #3 ----
     t = time.perf_counter()
@@ -2852,57 +3677,40 @@ def main() -> int:
           "steps and 30 days of #3 over the continents, each inside its "
           "bounds")
 
+    print("[across cards] not run: phase 16 runs only under --multicard, "
+          f"on {MC_WORLD} cards (python3 chip_smoke.py --multicard)",
+          flush=True)
+
     kernels = []
-
-    def entry(kname, source, path, launches, err, tol, tm):
-        return {
-            "name": f"fused_substep_{kname}", "route": "cuda",
-            "source": f"climate_model_tpu_torch/kernels/csrc/{source}",
-            "replaces": "climate_model_tpu/kernels/fused_substep.py:1047",
-            "path": path, "launches": launches,
-            # fields differ in units: the max is colp's (Pa); each field's
-            # error and the largest error/bound ratio are listed beside it
-            "max_abs_err": max(err.values()),
-            "max_abs_err_by_field": err,
-            "max_err_over_tol": max(e / tol[f] for f, e in err.items()),
-            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": None,
-            # device ms of each launch of one call (profiled)
-            "launch_ms": tm["launch_ms"],
-            # ms and plain_ms are device time; the host's time to enqueue
-            # one call
-            "enqueue_ms": tm["enqueue_ms"],
-            "plain_enqueue_ms": tm["plain_enqueue_ms"]}
-
     # a corrector with the physics epilogue also runs fused_substep.cu's
     # launches; its source is the epilogue's
     for kname, (counter, path, ekey) in VARIANTS.items():
         epi = kname == "corrector_epilogue"
         launches = (main_counts if path == "packed scan"
                     else step_counts)[counter]
-        kernels.append(entry(
+        kernels.append(kernel_entry(
             kname, "physics_epilogue.cu" if epi else "fused_substep.cu",
             path, launches, errs[ekey], EPI_TOL if epi else FIELD_TOL,
             timing[kname]))
     overlap_counts = sharded_counts["overlap"]
     for kname in shard_timing:
         epi = kname.startswith("corrector")
-        kernels.append(entry(
+        kernels.append(kernel_entry(
             kname, "physics_epilogue.cu" if epi else "fused_substep.cu",
             "sharded packed scan", overlap_counts[kname], shard_errs[kname],
             SHARD_EPI_TOL if epi else SHARD_TOL, shard_timing[kname]))
     for kname in ("predictor_masked", "corrector_epilogue"):
         epi = kname == "corrector_epilogue"
-        e = entry(kname, "physics_epilogue.cu" if epi else "fused_substep.cu",
-                  "packed scan, BASELINE #5 (1440x720x32)",
-                  b5["counts"][kname], b5["errs"][kname],
-                  EPI_TOL if epi else FIELD_TOL, b5["timing"][kname])
+        e = kernel_entry(kname,
+                         "physics_epilogue.cu" if epi else "fused_substep.cu",
+                         "packed scan, BASELINE #5 (1440x720x32)",
+                         b5["counts"][kname], b5["errs"][kname],
+                         EPI_TOL if epi else FIELD_TOL, b5["timing"][kname])
         kernels.append(dict(e, name=f"{e['name']}_baseline5"))
     for gate, ((nx, ny, nz), _, _) in CLIMATE_GATES.items():
         for kname in ("predictor_masked", "corrector_epilogue"):
             epi = kname == "corrector_epilogue"
-            e = entry(kname,
+            e = kernel_entry(kname,
                       "physics_epilogue.cu" if epi else "fused_substep.cu",
                       f"packed scan, the {gate} gate ({nx}x{ny}x{nz})",
                       clim["counts"][gate][kname], clim["errs"][gate][kname],

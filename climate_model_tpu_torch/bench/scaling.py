@@ -17,6 +17,12 @@ start line does, and ``gps_ratio`` is the figure that means something: it
 isolates the cost of the decomposition on shared hardware. In one process
 ``auto`` runs the global program on the one device (``dist/halo.py``), and
 its metric says so.
+
+Across ranks (``bench --scaling --multihost``: one shard per rank, a card
+each under NCCL), rank 0 times the 1x1 grid on its card while the other
+ranks wait at a barrier; then every rank times the mesh, each run started
+at a barrier, and a run's time is the slowest rank's. Every rank returns
+the same result; the metric names the ranks and their backend.
 """
 
 from __future__ import annotations
@@ -24,26 +30,38 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import torch
+import torch.distributed as tdist
+
 from ..core.config import ModelConfig
 from ..core.init import initialize
 from ..dist import halo
-from ..dist.mesh import make_mesh, validate_divisibility
+from ..dist.mesh import (barrier, in_process_group, make_mesh,
+                         validate_divisibility)
 from ..dist.sharding import Halo, shard
 from ..model import make_chunk_runner
 from .micro import sync
 
 
-def _time_run(run, *args, device, steps, repeats=3):
+def _time_run(run, *args, device, steps, repeats=3, ranks=False):
     """Best wall seconds a step of ``run(*args)`` over ``repeats`` runs
-    after a warm one, each between two synchronizes on a card."""
+    after a warm one, each between two synchronizes on a card. With
+    ``ranks``, every rank of the process group runs it: each run starts at
+    a barrier, and the result is the slowest rank's best."""
     run(*args)
     best = float("inf")
     for _ in range(repeats):
         sync(device)
+        if ranks:
+            barrier(device)
         t0 = time.perf_counter()
         run(*args)
         sync(device)
         best = min(best, time.perf_counter() - t0)
+    if ranks:
+        t = torch.tensor([best], dtype=torch.float64, device=device)
+        tdist.all_reduce(t, op=tdist.ReduceOp.MAX)
+        best = float(t)
     return best / steps
 
 
@@ -59,8 +77,16 @@ def measure_scaling(cfg: ModelConfig, steps: int = 10,
                                                     mesh_lat=1, mesh_lon=1))
     state, forcing, grid = initialize(cfg1, device=device)
     dev = state.device
-    t1 = _time_run(make_chunk_runner(cfg1, steps), state, grid, forcing,
-                   device=dev, steps=steps)
+    ranks = in_process_group()
+    t1 = None
+    if not ranks or tdist.get_rank() == 0:
+        t1 = _time_run(make_chunk_runner(cfg1, steps), state, grid, forcing,
+                       device=dev, steps=steps)
+    if ranks:
+        # the other ranks wait here while rank 0 times the 1x1 grid
+        box = [t1]
+        tdist.broadcast_object_list(box, src=0, device=dev)
+        t1 = box[0]
 
     use_pallas = cfg.backend == "pallas" and mode == "shard_map"
     cfgn = cfg if use_pallas else cfg.replace(
@@ -74,7 +100,7 @@ def measure_scaling(cfg: ModelConfig, steps: int = 10,
         sn = shard(mesh, state, grid, forcing, halo.NO_HALO) \
             if halo.takes_blocks(cfgn, mesh) else state
     tn = _time_run(make_chunk_runner(cfgn, steps), sn, grid, forcing,
-                   device=dev, steps=steps)
+                   device=dev, steps=steps, ranks=mesh.distributed)
 
     gps1, gpsn = npts / t1, npts / tn
     eff = (gpsn / gps1) / n_dev

@@ -30,7 +30,11 @@ Usage:
   python -m climate_model_tpu_torch bench --baseline 3
   python -m climate_model_tpu_torch bench --micro --baseline 3
   python -m climate_model_tpu_torch bench --scaling --baseline 4 --halo-overlap
+  torchrun --standalone --nproc-per-node 4 -m climate_model_tpu_torch bench \
+      --scaling --multihost --config b4_2x2.toml --halo-overlap
   python -m climate_model_tpu_torch profile --baseline 3 --backend jnp --trace-dir tr
+  torchrun --standalone --nproc-per-node 4 -m climate_model_tpu_torch run \
+      --multihost --baseline 4 --mesh-lat 2 --mesh-lon 2 --halo-overlap
   torchrun --nproc-per-node 4 -m climate_model_tpu_torch run --multihost \
       --device cpu --nx 32 --ny 16 --nz 8 --physics all --dtype float64 \
       --backend pallas --mesh-lat 2 --mesh-lon 2 --halo-overlap
@@ -39,6 +43,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -302,18 +307,45 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
                      path=path, aborted=aborted)
 
 
-def init_multihost(device) -> torch.device:
-    """``torch.distributed`` from the launcher's environment (``torchrun``
-    sets MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE and LOCAL_RANK): NCCL
-    with one card per rank (``cuda:LOCAL_RANK``) on ``cuda``, gloo on
-    ``cpu``. Returns this rank's device."""
+def rank_device(device) -> torch.device:
+    """This rank's device: ``cuda:LOCAL_RANK`` on ``cuda`` (one card per
+    rank; ``torchrun`` sets LOCAL_RANK), else ``device``."""
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return dev
+
+
+def init_multihost(device) -> torch.device:
+    """``torch.distributed`` from the launcher's environment (``torchrun``
+    sets MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE and LOCAL_RANK): NCCL
+    with one card per rank (``rank_device``) on ``cuda``, gloo on ``cpu``.
+    Every rank then joins a barrier, so that the group's first collective
+    is one that all ranks take part in, as NCCL requires of the
+    ``batch_isend_irecv`` that would otherwise come first (a mesh with one
+    shard in lon posts no column exchange). Returns this rank's device."""
+    dev = rank_device(device)
+    if dev.type == "cuda":
         torch.cuda.set_device(dev)
     tdist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                              init_method="env://")
+    from .dist.mesh import barrier
+    barrier(dev)
     return dev
+
+
+@contextlib.contextmanager
+def multihost(device):
+    """This rank's device inside a process group: made by ``init_multihost``
+    on entry and destroyed on exit, or the caller's, left as it is."""
+    if tdist.is_initialized():
+        yield rank_device(device)
+        return
+    dev = init_multihost(device)
+    try:
+        yield dev
+    finally:
+        tdist.destroy_process_group()
 
 
 def cmd_run(args) -> int:
@@ -323,11 +355,8 @@ def cmd_run(args) -> int:
               no_nc=args.no_nc)
     if not args.multihost:
         return 2 if run(cfg, device=args.device, **kw).aborted else 0
-    device = init_multihost(args.device)
-    try:
+    with multihost(args.device) as device:
         return 2 if run(cfg, device=device, **kw).aborted else 0
-    finally:
-        tdist.destroy_process_group()
 
 
 def cmd_plot(args) -> int:
@@ -371,6 +400,9 @@ def cmd_profile(args) -> int:
 
 
 def cmd_bench(args) -> int:
+    if args.multihost and not args.scaling:
+        print("error: --multihost measures --scaling (one shard per rank)")
+        return 2
     if args.micro:
         from .bench.micro import micro_bench
         result = micro_bench(baseline=args.baseline, iters=args.steps,
@@ -388,8 +420,15 @@ def cmd_bench(args) -> int:
             return 2
         if args.scaling:
             from .bench.scaling import measure_scaling
-            result = measure_scaling(cfg, steps=args.steps,
-                                     device=args.device)
+            if not args.multihost:
+                result = measure_scaling(cfg, steps=args.steps,
+                                         device=args.device)
+            else:
+                with multihost(args.device) as device:
+                    result = measure_scaling(cfg, steps=args.steps,
+                                             device=device)
+                    if tdist.get_rank() != 0:
+                        return 0          # rank 0 prints the one line
         else:
             from .bench.stability import probe_stability
             result = probe_stability(cfg, steps=args.steps,
@@ -514,6 +553,11 @@ def make_parser() -> argparse.ArgumentParser:
     pb.add_argument("--backend", default=None, choices=["jnp", "pallas"],
                     help="override the preset's backend")
     pb.add_argument("--device", default="cuda", help=device_help)
+    pb.add_argument("--multihost", action="store_true",
+                    help="with --scaling: the mesh of --config with one "
+                         "shard per rank (torch.distributed from the "
+                         "launcher's environment, as run --multihost); "
+                         "rank 0 times the 1x1 grid and prints the line")
     pb.set_defaults(fn=cmd_bench)
 
     pp = sub.add_parser("profile",

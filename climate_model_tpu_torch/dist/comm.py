@@ -9,6 +9,15 @@ interface, two implementations:
   slabs of all fields go out packed in one buffer per direction with
   ``batch_isend_irecv``.
 
+Across ranks the transport may ignore tags: NCCL matches the messages
+between a pair of ranks in the order they were posted. So every rank posts
+its sends and receives in one fixed order (``DistExchange.LON_SENDS``, and
+a shift's one send and one receive in ``DistEdges``), which on a 2-wide lon
+ring, where both lon neighbours are one rank, pairs each send with the
+receive that expects it. A packed send buffer lives until the exchange's
+``wait()``: the transfer reads it on its own stream, after the call that
+posted it returned.
+
 Semantics, as the reference's:
 
 * ``refresh_cols`` (``refresh_cols``, ``:61-75``): the periodic lon ring.
@@ -43,6 +52,7 @@ two above:
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 
@@ -177,18 +187,63 @@ def _unpack(buf: torch.Tensor, dsts: list):
         o += n
 
 
+@dataclasses.dataclass
+class ExchangeClock:
+    """What the ghost exchanges across ranks cost this process while it is
+    ``DistExchange.clock`` (None, the default: not measured).
+    ``exchanges`` counts the exchanges posted (a column refresh, a row
+    exchange); ``host_s`` sums the host's seconds inside them (packing and
+    posting, then waiting and writing the ghosts). On a card each exchange
+    also records CUDA events on the compute stream around its packing and
+    around its wait and unpacking: ``device_ms()`` sums those spans, the
+    compute stream's time in the exchange that the schedule does not hide
+    (under halo overlap the main launches run between the two spans)."""
+
+    exchanges: int = 0
+    host_s: float = 0.0
+    spans: list = dataclasses.field(default_factory=list)
+
+    def mark(self, dev: torch.device):
+        """An event recorded now on ``dev``'s current stream (None on the
+        CPU)."""
+        if dev.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(dev))
+        return ev
+
+    def device_ms(self):
+        """The spans' device ms summed (waits for them to end); None where
+        none was recorded (on the CPU)."""
+        if not self.spans:
+            return None
+        total = 0.0
+        for e0, e1 in self.spans:
+            e1.synchronize()
+            total += e0.elapsed_time(e1)
+        return total
+
+
 class DistExchange(Exchange):
     """One shard per rank of ``torch.distributed`` (NCCL on the card, gloo
     on the CPU)."""
 
-    @staticmethod
-    def _exchange(sends: list, recvs: list):
+    # the order in which every rank posts its column sends; it receives
+    # from the west, then from the east. On a 2-wide ring this pairs the
+    # east-bound send with the neighbour's receive from its west.
+    LON_SENDS = ("east", "west")
+    clock = None            # an ExchangeClock while one is measuring
+
+    @classmethod
+    def _exchange(cls, sends: list, recvs: list):
         """Post one exchange. ``sends``: (peer, tag, source slabs);
-        ``recvs``: (peer, tag, ghost slabs). Each goes packed in one
-        buffer. The order matters where the transport ignores tags (NCCL
-        matches a pair's messages in the order they were posted): every
-        rank sends east then west, and receives from the west then from
-        the east. Returns a handle whose ``wait()`` writes the ghosts."""
+        ``recvs``: (peer, tag, ghost slabs); each goes packed in one
+        buffer, posted in list order (the module docstring). Returns a
+        handle whose ``wait()`` writes the ghosts."""
+        clock = cls.clock
+        if clock is not None:
+            dev = (sends or recvs)[0][2][0].device
+            t0, e0 = time.perf_counter(), clock.mark(dev)
         ops = [tdist.P2POp(tdist.isend, _pack(srcs), peer, tag=tag)
                for peer, tag, srcs in sends]
         into = []
@@ -198,12 +253,28 @@ class DistExchange(Exchange):
             ops.append(tdist.P2POp(tdist.irecv, buf, peer, tag=tag))
             into.append((buf, ghosts))
         reqs = tdist.batch_isend_irecv(ops) if ops else []
+        if clock is not None:
+            clock.exchanges += 1
+            if e0 is not None:
+                clock.spans.append((e0, clock.mark(dev)))
+            clock.host_s += time.perf_counter() - t0
 
         def apply():
+            # ``ops`` holds the packed send buffers until the transfer has
+            # been waited for: freed earlier, the caching allocator could
+            # hand their memory to a launch on the compute stream while
+            # the transfer still reads it on its own
+            if clock is not None:
+                t1, e1 = time.perf_counter(), clock.mark(dev)
             for r in reqs:
                 r.wait()
             for buf, ghosts in into:
                 _unpack(buf, ghosts)
+            ops.clear()
+            if clock is not None:
+                if e1 is not None:
+                    clock.spans.append((e1, clock.mark(dev)))
+                clock.host_s += time.perf_counter() - t1
 
         return _Done(apply)
 
@@ -214,9 +285,10 @@ class DistExchange(Exchange):
         nb = self.neighbours(lay)
         # east-bound data (tag _EAST) fills the east neighbour's west
         # ghosts, west-bound data (_WEST) the west neighbour's east ghosts
-        sends = [(nb[side], tag, [x[..., self._col_src(lay, side)]
-                                  for x in xs])
-                 for side, tag in (("east", _EAST), ("west", _WEST))]
+        tags = {"east": _EAST, "west": _WEST}
+        sends = [(nb[side], tags[side], [x[..., self._col_src(lay, side)]
+                                         for x in xs])
+                 for side in self.LON_SENDS]
         recvs = [(nb[side], tag, [x[..., self._col_dst(lay, side)]
                                   for x in xs])
                  for side, tag in (("west", _EAST), ("east", _WEST))]
@@ -390,7 +462,8 @@ class DistEdges(Edges):
             buf = torch.empty(slab.shape, dtype=slab.dtype,
                               device=slab.device)
             ops.append(tdist.P2POp(tdist.irecv, buf, src, tag=tag))
-        for req in tdist.batch_isend_irecv(ops):
+        # a lat shift on a mesh of one lat shard has neither
+        for req in tdist.batch_isend_irecv(ops) if ops else ():
             req.wait()
         return buf
 

@@ -63,6 +63,13 @@ def in_process_group() -> bool:
     return tdist.is_available() and tdist.is_initialized()
 
 
+def barrier(device: torch.device):
+    """Wait for every rank of the process group (on NCCL, through this
+    rank's card)."""
+    tdist.barrier(**({"device_ids": [device.index]}
+                     if device.type == "cuda" else {}))
+
+
 def make_mesh(cfg: ModelConfig = None, mesh_lat: int = None,
               mesh_lon: int = None, device="cuda") -> Mesh:
     """The mesh of ``cfg`` (or of the extents given), placed by the rule of

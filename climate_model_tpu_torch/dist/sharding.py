@@ -225,6 +225,45 @@ _STATE_2D_FIELDS = {"colp", "tsurf", "rain", "soil_moist", "swflx_sfc",
 _DEVICE_MESHES = {}
 
 
+def shard_flip_and_roll():
+    """Give DTensor a sharding strategy for ``aten.flip`` and ``aten.roll``
+    where this PyTorch has none (2.11 has neither; 2.13 has both). The
+    plain step flips the levels (``dycore/operators.py::
+    diagnose_geopotential``) and rolls the longitudes
+    (``dycore/boundaries.py``, ``west``/``east``): along a dim that is not
+    sharded either runs on the local shards; a sharded dim that it flips or
+    rolls is replicated first."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    from torch.distributed.tensor.experimental import register_sharding
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    aten = torch.ops.aten
+
+    def placements_of(x, dims, n_args):
+        nd = len(x.shape)
+        moved = {d % nd for d in dims} if dims else set(range(nd))
+        rest = [None] * (n_args - 1)
+        return [([Replicate()], [Replicate()] + rest)] + [
+            ([Shard(d)], [Shard(d)] + rest)
+            for d in range(nd) if d not in moved]
+
+    def flip(x, dims):
+        return placements_of(x, dims, 2)
+
+    def roll(x, shifts, *dims):
+        return placements_of(x, dims[0] if dims else (), 2 + len(dims))
+
+    for op, fn in ((aten.flip.default, flip), (aten.roll.default, roll)):
+        if any(op in getattr(prop, reg, {}) for reg in (
+                "op_strategy_funcs", "op_single_dim_strategy_funcs",
+                "op_to_rules")):
+            continue
+        register_sharding(op)(fn)
+        # the dims decide the placements: hash them into the strategy cache
+        prop.op_to_schema_info[op] = RuntimeSchemaInfo(1, needs_pytree=True)
+
+
 def device_mesh(mesh: Mesh):
     """The ``DeviceMesh`` of ``mesh``'s ranks, dims ``("lat", "lon")``;
     made once per process group (it makes a group for each dim)."""
@@ -232,6 +271,7 @@ def device_mesh(mesh: Mesh):
 
     key = (mesh.n_lat, mesh.n_lon, mesh.device.type, tdist.group.WORLD)
     if key not in _DEVICE_MESHES:
+        shard_flip_and_roll()
         _DEVICE_MESHES[key] = init_device_mesh(
             mesh.device.type, (mesh.n_lat, mesh.n_lon),
             mesh_dim_names=("lat", "lon"))

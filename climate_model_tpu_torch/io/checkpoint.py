@@ -11,8 +11,10 @@ ways, so that either package resumes from the other's files:
   crash never leaves half a checkpoint under the real name;
 * across ``torch.distributed`` ranks, one file per rank, ``path.p{rank}``,
   holding its shard's interior under ``name@start0,start1[,start2]`` keys
-  of global offsets; the loader reassembles a ``.p*`` set and checks that
-  it covers every field.
+  of global offsets; a save returns once every rank has written its file,
+  so that a load that follows on any rank finds the whole set. The loader
+  reassembles a ``.p*`` set and checks that it covers every field and that
+  its files hold one step.
 
 A load compares the saved identity record with the current config field by
 field, over the fields present in both records, refuses a mismatch naming
@@ -34,6 +36,7 @@ import torch
 
 from ..core.config import ModelConfig
 from ..core.state import State, resolve_device
+from ..dist.mesh import barrier
 from ..dist.sharding import STATE_FIELDS, ShardedState, gather, interior
 from .convert import state_from_numpy, state_to_numpy
 
@@ -98,10 +101,12 @@ def save_checkpoint(path: str, state, cfg: ModelConfig):
 
     ``state`` is a ``State``, or a ``dist.sharding.ShardedState``: with one
     shard per ``torch.distributed`` rank each rank writes its interior to
-    ``path.p{rank}``; with every shard in this process the state is
-    gathered and written as one file."""
+    ``path.p{rank}`` and waits for the others at a barrier; with every
+    shard in this process the state is gathered and written as one
+    file."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    if isinstance(state, ShardedState) and state.mesh.distributed:
+    ranks = isinstance(state, ShardedState) and state.mesh.distributed
+    if ranks:
         path = f"{path}.p{state.mesh.rank}"
         leaves = _shard_leaves(state)
     else:
@@ -116,6 +121,8 @@ def save_checkpoint(path: str, state, cfg: ModelConfig):
     tmp = path + ".tmp.npz"   # np.savez appends .npz unless present
     np.savez(tmp, **leaves)
     os.replace(tmp, path)
+    if ranks:
+        barrier(state.states[0].device)
 
 
 def _config_mismatch(z, cfg: ModelConfig, where: str):
@@ -181,6 +188,11 @@ def _reassemble(shard_files: list, cfg: ModelConfig, force: bool):
             raise ValueError(f"checkpoint shard files miss field {f.name!r}")
         parts = pieces[f.name]
         if parts[0][0] == ():                      # replicated scalar
+            if any(not np.array_equal(a, parts[0][1]) for _, a in parts):
+                raise ValueError(
+                    f"checkpoint shard files disagree on {f.name!r} "
+                    f"({sorted(float(a) for _, a in parts)}): files of "
+                    "different saves?")
             arrays[f.name] = parts[0][1]
             continue
         nd = parts[0][1].ndim
