@@ -144,6 +144,25 @@ and exits non-zero:
                out_clim_continents/metrics.jsonl, its days 20-30 against
                bands pinned from the reference's series
                (CONT_WINDOW_BANDS) and the closure gate over its 30 days;
+17. compiled -- the compiled chunk (``graphs.py``: CUDA graphs of the
+               step, which every run of the phases above takes on the
+               card but phase 13's, whose planted faults replace names
+               the eager step calls) against the eager loop
+               (``graphs=False``): #3 through ``cli.run`` in chunks of
+               COMPILED_CHUNK steps, each chunk's dt COMPILED_DT_SCALE
+               times the last's and the radiation refresh at another step
+               of each chunk, eager and compiled in turns, every field
+               and ``t`` bit for bit, counted alike, four graphs captured
+               a run (none after a dt change); the planted faults
+               (COMPILED_FAULTS: replays that keep the capture-time dt,
+               the same parity replayed twice) must each break it; then
+               COMPILED_CASES (#4 on 2x4 in both schedules, #5 unsharded
+               and on 4x8 in both), eager against compiled likewise. For
+               each: ms/step after the first chunk, the captures' seconds
+               and pool, peak device memory, and over one more chunk the
+               host's enqueue ms a step, the device's busy ms a step and
+               idle share, and each kernel's device ms in the captured
+               step (``torch.profiler``);
 16. across cards -- only with ``--multicard``, which needs four cards: the
                paths across ranks, one card per rank under NCCL, each held
                against the same grid on one card in this process, read back
@@ -175,8 +194,11 @@ and exits non-zero:
                reading; (g) ``bench
                --scaling --multihost`` for #4 with halo overlap and #5 on
                2x2 namelists, one JSON line each from rank 0 alone. The
-               default run prints a line saying that phase 16 needs
-               ``--multicard``.
+               packed runs across ranks are the compiled chunk, their
+               NCCL posts captured in the step's graph: each start line
+               and each rank's recorded path must say so (MC_COMPILED);
+               the exchange clock's runs are eager. The default run
+               prints a line saying that phase 16 needs ``--multicard``.
 
 Phase 3 also holds the epilogue's momentum terms on a windy state
 (MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
@@ -219,6 +241,7 @@ from climate_model_tpu_torch.core.config import (GridConfig, ModelConfig,
                                                  resolve_rad_interval)
 from climate_model_tpu_torch.core.grid import adaptive_cfl_dt, round_to
 from climate_model_tpu_torch.core.init import initialize
+from climate_model_tpu_torch.core.state import State
 from climate_model_tpu_torch.dist import comm, halo, sharding
 from climate_model_tpu_torch.dist.mesh import Mesh, barrier, make_mesh
 from climate_model_tpu_torch.dist.packed_halo import SeamStrip, row_mask
@@ -2205,8 +2228,11 @@ def gate_path(dev, card: str):
             reset_counts()
             torch.cuda.synchronize()
             t = time.perf_counter()
+            # eager: the faults replace names the eager step calls (the
+            # compiled chunk is held to the eager loop in phase 17)
             with planted(model, **plant):
-                out[name] = make_chunk_runner(c, n)(s0, g0, f0)
+                out[name] = make_chunk_runner(c, n, graphs=False)(s0, g0,
+                                                                  f0)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t) / n
             counts = read_counts()
@@ -2816,6 +2842,300 @@ def climate_path(dev, card: str) -> dict:
 # Phase 16 (across cards): only with --multicard, on four cards
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 17: the compiled chunk
+# ---------------------------------------------------------------------------
+
+COMPILED_CHUNK = 100             # steps a chunk of the #3 run
+COMPILED_HORIZON = 3.5           # its horizon, in chunks at the preset dt
+# each chunk's adaptive dt is scaled by this once more than the last's: at
+# #3 the wind stays under adaptive_cfl_dt's 100 m/s floor, so its dt
+# would not change
+COMPILED_DT_SCALE = 0.97
+COMPILED_CASES = (("#4 on 2x4, halo overlap", SHARDED_ARGV),
+                  ("#4 on 2x4, blocking", BLOCKING_ARGV),
+                  ("#5 unsharded", B5_UNSHARDED_ARGV),
+                  ("#5 on 4x8, halo overlap", B5_OVERLAP_ARGV),
+                  ("#5 on 4x8, blocking", B5_ARGV))
+COMPILED_FAULTS = ("replays keep the capture-time dt",
+                   "the same parity replayed twice")
+# the short names of the kernels in a profile
+KERNEL_SHORT = (("substep_kernel<true>", "substep(predictor)"),
+                ("substep_kernel<false>", "substep(corrector)"),
+                ("epilogue_kernel", "epilogue"))
+
+
+def compiled_config(dev):
+    """#3 (``run --baseline 3``) in chunks of COMPILED_CHUNK steps over
+    COMPILED_HORIZON chunks: with radiation every 105 steps each chunk
+    meets the refresh at a different step."""
+    cfg = cli.build_config(cli.make_parser().parse_args(
+        ["run", "--baseline", "3"]))
+    dt0 = initialize(cfg, device=dev)[2].dt
+    return cfg.replace(
+        out_every_hours=(COMPILED_CHUNK + 0.5) * dt0 / 3600.0,
+        sim_days=COMPILED_HORIZON * COMPILED_CHUNK * dt0 / 86400.0)
+
+
+def scaled_dt(real):
+    """``adaptive_cfl_dt`` with the dt after the k-th chunk scaled by
+    COMPILED_DT_SCALE ** k. The chunk loop asks at the run's wind; the grid
+    (``make_grid``, also when the radiation interval is resolved) asks at
+    the 100 m/s floor, and keeps its dt."""
+    calls = [0]
+
+    def dt(min_dx, cfl, max_wind):
+        if max_wind >= 100.0:
+            return real(min_dx, cfl, max_wind)
+        calls[0] += 1
+        return real(min_dx, cfl, max_wind) * COMPILED_DT_SCALE ** calls[0]
+    return dt
+
+
+def compiled_run(cfg, dev, graphs, dt_change=False):
+    """``cli.run`` of ``cfg``, eager (``graphs=False``) or compiled, with
+    every counter set to 0 just before and read just after; with
+    ``dt_change`` every chunk's dt COMPILED_DT_SCALE times the last's.
+    Returns (result, counts, steady ms/step, graphs captured,
+    peak_memory)."""
+    from climate_model_tpu_torch import graphs as cg
+    from climate_model_tpu_torch.core import grid as cgrid
+    reset_counts()
+    c0 = cg.captures
+    schedule = dict(adaptive_cfl_dt=scaled_dt(cgrid.adaptive_cfl_dt)) \
+        if dt_change else {}
+    with peak_memory(dev) as peak, planted(cgrid, **schedule):
+        res = cli.run(cfg, device=dev, graphs=graphs)
+    counts = read_counts()
+    if res.aborted:
+        raise AssertionError("the run aborted on a non-finite state")
+    steady = 1e3 * sum(r["wall_s"] for r in res.records[1:]) \
+        / max(sum(res.chunks[1:]), 1)
+    return res, counts, steady, cg.captures - c0, peak
+
+
+def same_run(a, b) -> bool:
+    """Two runs' final states equal bit for bit, ``t`` included."""
+    return bitwise_equal(a.state, b.state, STATE_FIELDS) and torch.equal(
+        a.state.t.reshape(1).view(torch.uint8),
+        b.state.t.reshape(1).view(torch.uint8))
+
+
+def profiled_kernels(fn, n: int) -> tuple:
+    """Device time per call of ``fn`` from ``torch.profiler``'s trace over
+    ``n`` calls: ({(kernel, grid): (launches a call, ms a launch)}, busy
+    ms a call summed over every kernel and copy), or (None, None) where the
+    trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.unlink(path)
+    by, busy = {}, 0.0
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") not in ("kernel",
+                                                        "gpu_memcpy",
+                                                        "gpu_memset"):
+            continue
+        busy += ev.get("dur", 0.0)
+        if ev["cat"] != "kernel":
+            continue
+        name = next((s for k, s in KERNEL_SHORT if k in ev.get("name", "")),
+                    None)
+        if name is None:
+            continue
+        key = (name, tuple(ev.get("args", {}).get("grid", ())))
+        c, us = by.get(key, (0, 0.0))
+        by[key] = (c + 1, us + ev.get("dur", 0.0))
+    if not busy:
+        return None, None
+    return ({k: (c / n, us / c / 1e3) for k, (c, us) in by.items()},
+            busy / n / 1e3)
+
+
+def show_kernels(by) -> str:
+    if by is None:
+        return "not measured (the trace holds no device time)"
+    return "; ".join(f"{name} grid {list(grid)}: {c:g} a step x "
+                     f"{ms:.4f} ms" for (name, grid), (c, ms)
+                     in sorted(by.items()))
+
+
+def step_readings(cfg, res, dev, graphs: bool) -> dict:
+    """One more chunk of COMPILED_CHUNK steps from the run's final state,
+    twice: ms/step (synchronized) and the host's ms/step to enqueue it;
+    then the same chunk profiled, for the device's busy ms a step (every
+    kernel and copy summed, the chunk's copies in and out too) and each
+    kernel's; idle share = 1 - busy / ms."""
+    runn = make_chunk_runner(cfg, COMPILED_CHUNK, graphs=graphs)
+    s, g, f = res.state, res.grid, res.forcing
+    if isinstance(s, State) and cfg.sharding.mesh_lat \
+            * cfg.sharding.mesh_lon > 1:
+        s = sharding.shard(make_mesh(cfg, device=dev), s, g, f)
+    runn(s, g, f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runn(s, g, f)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by, busy = profiled_kernels(lambda: runn(s, g, f), 1)
+    ms = 1e3 * wall / COMPILED_CHUNK
+    if by is not None:
+        busy /= COMPILED_CHUNK
+        by = {k: (c / COMPILED_CHUNK, t) for k, (c, t) in by.items()}
+    return dict(ms=ms, host_ms=1e3 * host / COMPILED_CHUNK, busy_ms=busy,
+                idle=None if busy is None else 1.0 - busy / ms,
+                kernels=by)
+
+
+def show_readings(name: str, r: dict) -> str:
+    idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
+    busy = "not measured" if r["busy_ms"] is None \
+        else f"{r['busy_ms']:.4f}"
+    return (f"{name} {r['ms']:.4f} ms/step, host enqueue "
+            f"{r['host_ms']:.4f} ms/step, device busy {busy} ms/step, idle "
+            f"share {idle}")
+
+
+def capture_line(dev) -> str:
+    """What the most recent runner's captures took."""
+    from climate_model_tpu_torch import graphs as cg
+    r = cg.cached_runners()[-1]
+    pool = "not measured" if r.pool_bytes is None \
+        else f"{r.pool_bytes / 1e9:.3f} GB"
+    return (f"{len(r.graphs)} graphs captured in {r.capture_s:.3f} s, pool "
+            f"{pool}")
+
+
+def compiled_b3(dev, card: str, bad: list) -> dict:
+    """#3 through ``cli.run``, eager and compiled in turns; counted, bit for
+    bit, no capture after the first chunk; the planted faults; the step's
+    readings."""
+    from climate_model_tpu_torch import graphs as cg
+    cfg = compiled_config(dev)
+    runs = {}
+    for turn, graphs in enumerate((False, None, None, False)):
+        if graphs is None:
+            cg.clear_cache()
+        res, counts, steady, caps, peak = compiled_run(cfg, dev, graphs,
+                                                       dt_change=True)
+        name = "eager" if graphs is False else "graphs"
+        runs.setdefault(name, []).append((res, counts, steady, caps, peak))
+        print(f"  #3 turn {turn + 1} {name}: {res.steps} steps {res.chunks}, "
+              f"dt {res.dts}, after the first chunk {steady:.4f} ms/step; "
+              f"{caps} graphs captured; {peak}"
+              + (f"; {capture_line(dev)}" if name == "graphs" else "")
+              + f" [{card}]", flush=True)
+    ref, ref_counts = runs["eager"][0][0], runs["eager"][0][1]
+    if len(ref.chunks) < 3 or len(set(ref.dts)) < 2:
+        bad.append(f"#3: chunks {ref.chunks}, dts {ref.dts}: expected 3 "
+                   "chunks or more and a dt change")
+    every = cfg.physics.rad_every_steps
+    phases = [-(-sum(ref.chunks[:i]) // every) * every - sum(ref.chunks[:i])
+              for i in range(len(ref.chunks))]
+    print(f"  #3: radiation every {every} steps, the first refresh after "
+          f"each chunk's start at its step {phases}", flush=True)
+    for name, items in runs.items():
+        for res, counts, _, caps, _ in items:
+            if not same_run(res, ref):
+                bad.append(f"#3 {name} run differs from the eager run")
+            if counts != ref_counts:
+                bad.append(f"#3 {name}: counts {counts} != eager "
+                           f"{ref_counts}")
+            if name == "graphs" and caps != 4:
+                bad.append(f"#3: {caps} graphs captured over {res.chunks}, "
+                           "expected 4 (one per parity and radiation "
+                           "variant, none after a dt change)")
+    print(f"  #3 compiled vs eager: bitwise equal "
+          f"{all(same_run(r[0], ref) for r in runs['graphs'])}; counts "
+          f"{({k: v for k, v in ref_counts.items() if v})}", flush=True)
+    real_set = fs.StepScalars.set
+    real_replay = cg._Captured.replay
+    faults = {COMPILED_FAULTS[0]: (fs.StepScalars, dict(
+                  set=lambda self, dt: real_set(self, dt) if self.dt is None
+                  else False)),
+              COMPILED_FAULTS[1]: (cg._Captured, dict(
+                  replay=lambda self, key: real_replay(self, (0, key[1]))))}
+    for fault, (owner, attrs) in faults.items():
+        cg.clear_cache()
+        with planted(owner, **attrs):
+            res, _, _, _, _ = compiled_run(cfg, dev, None, dt_change=True)
+        cg.clear_cache()
+        per = state_diffs(res.state, ref.state)
+        broke = not same_run(res, ref)
+        print(f"  #3 planted fault: {fault}; bitwise equal {not broke}; "
+              + ", ".join(f"{k} {v:.3e}" for k, v in per.items() if v),
+              flush=True)
+        if not broke:
+            bad.append(f"#3: the fault '{fault}' left the run bit for bit")
+    cg.clear_cache()
+    eager = step_readings(cfg, ref, dev, False)
+    res_g = runs["graphs"][0][0]
+    graph = step_readings(cfg, res_g, dev, None)
+    print("  #3 one more chunk from each run's end: "
+          + show_readings("eager", eager) + "; "
+          + show_readings("compiled", graph) + f" [{card}]", flush=True)
+    print(f"  #3 captured step, device time a step by kernel: "
+          f"{show_kernels(graph['kernels'])} [{card}]", flush=True)
+    return dict(b3=dict(eager=eager, graphs=graph,
+                        steady=[(n, r[2]) for n, items in runs.items()
+                                for r in items]))
+
+
+def compiled_case(name, argv, dev, card: str, bad: list) -> dict:
+    """``argv`` through ``cli.run``, eager then compiled: counted, bit for
+    bit, four captures; ms/step of each and the step's readings."""
+    from climate_model_tpu_torch import graphs as cg
+    cfg = cli.build_config(cli.make_parser().parse_args(argv))
+    out = {}
+    for label, graphs in (("eager", False), ("graphs", None)):
+        cg.clear_cache()
+        out[label] = compiled_run(cfg, dev, graphs)
+    (a, ca, ma, _, pa), (b, cb, mb, caps, pb) = out["eager"], out["graphs"]
+    equal = same_run(a, b)
+    cap = capture_line(dev)
+    print(f"  {name}: {b.steps} steps {b.chunks}; after the first chunk "
+          f"eager {ma:.4f}, compiled {mb:.4f} ms/step; {cap}; eager {pa}, "
+          f"compiled {pb}; bitwise equal {equal} [{card}]", flush=True)
+    if not equal:
+        bad.append(f"{name}: the compiled run differs from the eager run")
+    if ca != cb:
+        bad.append(f"{name}: counts {cb} != eager {ca}")
+    if caps != 4:
+        bad.append(f"{name}: {caps} graphs captured, expected 4")
+    if a.dts != b.dts:
+        bad.append(f"{name}: dts {b.dts} != eager {a.dts}")
+    graph = step_readings(cfg, b, dev, None)
+    print(f"  {name} one more chunk: " + show_readings("compiled", graph)
+          + f"; captured step by kernel: {show_kernels(graph['kernels'])} "
+          f"[{card}]", flush=True)
+    cg.clear_cache()
+    return dict(eager_ms=ma, graphs_ms=mb, readings=graph)
+
+
+def compiled_path(dev, card: str) -> dict:
+    """Phase 17: the compiled chunk against the eager loop."""
+    bad = []
+    out = compiled_b3(dev, card, bad)
+    for name, argv in COMPILED_CASES:
+        out[name] = compiled_case(name, argv, dev, card, bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MC_WORLD = 4                     # ranks, one card each; every mesh has 4
 # seconds a torchrun launch may take before its whole session is killed:
@@ -2943,6 +3263,9 @@ MC_2X2_TIMING = (("2x2 south row", ("predictor_shard", "corrector_shard",
                                     "corrector_north_strip")),
                  ("2x2 north row", ("predictor_south_strip",
                                     "corrector_south_strip")))
+# what the start line of a packed run across ranks says (graphs.py::
+# describe): the compiled chunk, its NCCL posts captured in the graph
+MC_COMPILED = "NCCL posts captured in the step's graph"
 MC_KERNEL_CASES = (
     ("b4_2x2", 4, MC_2X2_BLOCKS, MC_2X2_TIMING, (MC_RESUMED,)),
     ("b5_2x2", 5, MC_2X2_BLOCKS, MC_2X2_TIMING,
@@ -3097,7 +3420,9 @@ def worker_clocked(argv, dev, n: int = MC_CLOCK_STEPS) -> dict:
     cfg = argv_config(argv)
     s, f, g = initialize(cfg, device=dev)
     ss = sharding.shard(make_mesh(cfg, device=dev), s, g, f)
-    run = make_chunk_runner(cfg, n)
+    # the clock measures the eager exchange (graphs.py: a captured
+    # exchange reads no clock)
+    run = make_chunk_runner(cfg, n, graphs=False)
     run(ss, g, f)
     clock = comm.ExchangeClock()
     out = {"clock_off_ms": 0.0, "clock_on_ms": 0.0}
@@ -3328,6 +3653,8 @@ def mc_runs(ranks, refs, root, card, bad: list):
                 bad.append(f"{name}: kernel launches {launched}")
         else:
             line += f"{steady_exchange(recs)}; "
+            bad += [f"{name}: a rank ran {r['path']!r}, not the compiled "
+                    "chunk" for r in recs if MC_COMPILED not in r["path"]]
             want = want_counts(argv_config(argv), recs[0]["steps"], counts)
             if counts != want:
                 bad.append(f"{name}: counts {counts}, expected {want}")
@@ -3473,6 +3800,12 @@ def multicard_path(dev, card: str) -> list:
                        bad)
         if not ran["worker"]:
             raise AssertionError("; ".join(bad))
+        for name, _ in MC_CLI_RUNS:
+            # the start line names the design: the posts in the graph
+            with open(os.path.join(root, f"{name}.log")) as f:
+                if ran[name] and MC_COMPILED not in f.read():
+                    bad.append(f"{name}: its start line does not say "
+                               f"'{MC_COMPILED}'")
         ranks = []
         for r in range(MC_WORLD):
             with open(os.path.join(root, f"rank{r}.json")) as f:
@@ -3676,6 +4009,14 @@ def main(argv=None) -> int:
           "fine-grid gates, the two kernels at their shapes, #2 for 500 "
           "steps and 30 days of #3 over the continents, each inside its "
           "bounds")
+
+    # ---- 17. the compiled chunk against the eager loop ----
+    t = time.perf_counter()
+    compiled_path(dev, card)
+    phase("compiled", t, "#3 over chunks of 100 steps with dt changes, #4 "
+          "on 2x4 in both schedules, #5 unsharded and on 4x8: the compiled "
+          "chunk equals the eager loop bit for bit, counted alike, with no "
+          "capture after a dt change; each planted fault breaks it")
 
     print("[across cards] not run: phase 16 runs only under --multicard, "
           f"on {MC_WORLD} cards (python3 chip_smoke.py --multicard)",

@@ -18,6 +18,10 @@ isolates the cost of the decomposition on shared hardware. In one process
 ``auto`` runs the global program on the one device (``dist/halo.py``), and
 its metric says so.
 
+On a card the packed scan's runs, 1x1 and on the mesh, are the compiled
+chunk (``graphs.py``); ``graphs`` names the mesh run's, and
+``host_ms_per_step`` is its host's time a step to enqueue the best run.
+
 Across ranks (``bench --scaling --multihost``: one shard per rank, a card
 each under NCCL), rank 0 times the 1x1 grid on its card while the other
 ranks wait at a barrier; then every rank times the mesh, each run started
@@ -39,30 +43,36 @@ from ..dist import halo
 from ..dist.mesh import (barrier, in_process_group, make_mesh,
                          validate_divisibility)
 from ..dist.sharding import Halo, shard
-from ..model import make_chunk_runner
+from ..model import make_chunk_runner, takes_graphs
 from .micro import sync
 
 
 def _time_run(run, *args, device, steps, repeats=3, ranks=False):
     """Best wall seconds a step of ``run(*args)`` over ``repeats`` runs
-    after a warm one, each between two synchronizes on a card. With
+    after a warm one, each between two synchronizes on a card, and the
+    host's seconds a step to enqueue that run (to ``run``'s return). With
     ``ranks``, every rank of the process group runs it: each run starts at
-    a barrier, and the result is the slowest rank's best."""
+    a barrier, and the result is the slowest rank's best, and its
+    slowest host."""
     run(*args)
-    best = float("inf")
+    best, best_host = float("inf"), None
     for _ in range(repeats):
         sync(device)
         if ranks:
             barrier(device)
         t0 = time.perf_counter()
         run(*args)
+        host = time.perf_counter() - t0
         sync(device)
-        best = min(best, time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        if wall < best:
+            best, best_host = wall, host
     if ranks:
-        t = torch.tensor([best], dtype=torch.float64, device=device)
+        t = torch.tensor([best, best_host], dtype=torch.float64,
+                         device=device)
         tdist.all_reduce(t, op=tdist.ReduceOp.MAX)
-        best = float(t)
-    return best / steps
+        best, best_host = (float(x) for x in t)
+    return best / steps, best_host / steps
 
 
 def measure_scaling(cfg: ModelConfig, steps: int = 10,
@@ -80,8 +90,8 @@ def measure_scaling(cfg: ModelConfig, steps: int = 10,
     ranks = in_process_group()
     t1 = None
     if not ranks or tdist.get_rank() == 0:
-        t1 = _time_run(make_chunk_runner(cfg1, steps), state, grid, forcing,
-                       device=dev, steps=steps)
+        t1, _ = _time_run(make_chunk_runner(cfg1, steps), state, grid,
+                          forcing, device=dev, steps=steps)
     if ranks:
         # the other ranks wait here while rank 0 times the 1x1 grid
         box = [t1]
@@ -99,8 +109,9 @@ def measure_scaling(cfg: ModelConfig, steps: int = 10,
         where = halo.describe(cfgn, mesh)
         sn = shard(mesh, state, grid, forcing, halo.NO_HALO) \
             if halo.takes_blocks(cfgn, mesh) else state
-    tn = _time_run(make_chunk_runner(cfgn, steps), sn, grid, forcing,
-                   device=dev, steps=steps, ranks=mesh.distributed)
+    tn, host_n = _time_run(make_chunk_runner(cfgn, steps), sn, grid,
+                           forcing, device=dev, steps=steps,
+                           ranks=mesh.distributed)
 
     gps1, gpsn = npts / t1, npts / tn
     eff = (gpsn / gps1) / n_dev
@@ -117,4 +128,8 @@ def measure_scaling(cfg: ModelConfig, steps: int = 10,
         # the decomposition's cost (1.0 = it costs nothing)
         "gps_ratio": round(gpsn / gps1, 4),
         "n_devices": n_dev,
+        # the mesh run: through the compiled chunk (graphs.py), and the
+        # host's ms a step to enqueue it
+        "graphs": takes_graphs(cfgn, dev),
+        "host_ms_per_step": round(host_n * 1e3, 4),
     }

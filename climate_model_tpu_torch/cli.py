@@ -158,9 +158,13 @@ def _record_branch(out_dir: str, restart_from: str, step: int,
 
 def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
         restart_from: str = None, force_resume: bool = False,
-        auto_resume: bool = False, no_nc: bool = False) -> RunResult:
+        auto_resume: bool = False, no_nc: bool = False,
+        graphs: bool | None = None) -> RunResult:
     """Run ``cfg`` up to ``cfg.sim_days``: on one device, or on the mesh of
-    ``cfg.sharding`` (``dist/mesh.py`` says where its shards run).
+    ``cfg.sharding`` (``dist/mesh.py`` says where its shards run). The
+    packed scan runs on a card as the compiled chunk (``graphs.py``), whose
+    captures every chunk of the run replays; ``graphs=False`` runs it
+    eagerly (``model.make_chunk_runner``).
 
     ``restart_from`` (or, with ``auto_resume``, ``out_dir``'s own
     ``restart.npz`` where there is one) resumes from a checkpoint and runs
@@ -232,6 +236,10 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
     dev = state.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     path = describe_path(cfg, mesh)
+    if takes_packed_scan(cfg) and graphs is not False \
+            and (graphs or dev.type == "cuda"):
+        from .graphs import describe
+        path += f"; {describe(mesh)}"
     if p0:
         print(f"grid {gc.nx}x{gc.ny}x{gc.nz}  dt={dt:.1f}s  steps={n_total}  "
               f"chunk={chunk}  device={dev} ({name})  path={path}",
@@ -266,7 +274,7 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
             n = min(chunk, n_total - done)
         chunks.append(n)
         dts.append(grid.dt)
-        state = make_chunk_runner(cfg, n)(state, grid, forcing)
+        state = make_chunk_runner(cfg, n, graphs)(state, grid, forcing)
         # a sharded run's diagnostics and files are of the gathered global
         # state, the same on every rank: so is the dt taken from its wind
         whole = state if blocks is None else gather(state)
@@ -345,6 +353,12 @@ def multihost(device):
     try:
         yield dev
     finally:
+        # a captured step holds NCCL work: its graphs go first, or the
+        # group's teardown waits for them
+        from .graphs import clear_cache
+        clear_cache()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         tdist.destroy_process_group()
 
 

@@ -7,7 +7,10 @@ interface, two implementations:
 * ``LocalExchange``: every shard in this process; copies between blocks.
 * ``DistExchange``: one shard per rank of ``torch.distributed``; the edge
   slabs of all fields go out packed in one buffer per direction with
-  ``batch_isend_irecv``.
+  ``batch_isend_irecv``. A captured step (``graphs.py``) first calls
+  ``use_static_buffers``: each exchange of the step then packs into, and
+  unpacks from, send and receive buffers allocated once for it, with the
+  same copies (``_pack``'s ``cat`` writes what the slab copies write).
 
 Across ranks the transport may ignore tags: NCCL matches the messages
 between a pair of ranks in the order they were posted. So every rank posts
@@ -127,6 +130,10 @@ class Exchange:
         shards' ``parts``."""
         raise NotImplementedError
 
+    def use_static_buffers(self):
+        """Allocate what the exchanges move through once, for a captured
+        step (``DistExchange``; in one process nothing is allocated)."""
+
 
 class _Done:
     def __init__(self, fn=None):
@@ -187,6 +194,15 @@ def _unpack(buf: torch.Tensor, dsts: list):
         o += n
 
 
+def _pack_into(buf: torch.Tensor, srcs: list):
+    """``_pack(srcs)`` written into ``buf``, a slab copy each."""
+    o = 0
+    for t in srcs:
+        n = t.numel()
+        buf[o:o + n].view(t.shape).copy_(t)
+        o += n
+
+
 @dataclasses.dataclass
 class ExchangeClock:
     """What the ghost exchanges across ranks cost this process while it is
@@ -197,7 +213,9 @@ class ExchangeClock:
     also records CUDA events on the compute stream around its packing and
     around its wait and unpacking: ``device_ms()`` sums those spans, the
     compute stream's time in the exchange that the schedule does not hide
-    (under halo overlap the main launches run between the two spans)."""
+    (under halo overlap the main launches run between the two spans). It
+    measures the eager exchange: a captured step's exchanges
+    (``use_static_buffers``) read no clock and record no event."""
 
     exchanges: int = 0
     host_s: float = 0.0
@@ -233,14 +251,25 @@ class DistExchange(Exchange):
     # east-bound send with the neighbour's receive from its west.
     LON_SENDS = ("east", "west")
     clock = None            # an ExchangeClock while one is measuring
+    static = None           # the buffers of each exchange, once allocated
 
-    @classmethod
-    def _exchange(cls, sends: list, recvs: list):
+    def use_static_buffers(self):
+        """From now on, every exchange packs into and unpacks from buffers
+        allocated at its first call, keyed by its peers, tags and slab
+        shapes, so that a captured step replays the same addresses. The
+        exchange clock measures the eager exchange only: these exchanges
+        read no clock and record no event."""
+        if self.static is None:
+            self.static = {}
+
+    def _exchange(self, sends: list, recvs: list):
         """Post one exchange. ``sends``: (peer, tag, source slabs);
         ``recvs``: (peer, tag, ghost slabs); each goes packed in one
         buffer, posted in list order (the module docstring). Returns a
         handle whose ``wait()`` writes the ghosts."""
-        clock = cls.clock
+        if self.static is not None:
+            return self._static_exchange(sends, recvs)
+        clock = self.clock
         if clock is not None:
             dev = (sends or recvs)[0][2][0].device
             t0, e0 = time.perf_counter(), clock.mark(dev)
@@ -275,6 +304,34 @@ class DistExchange(Exchange):
                 if e1 is not None:
                     clock.spans.append((e1, clock.mark(dev)))
                 clock.host_s += time.perf_counter() - t1
+
+        return _Done(apply)
+
+    def _static_exchange(self, sends: list, recvs: list):
+        key = (len(sends),) + tuple(
+            (peer, tag, tuple(tuple(t.shape) for t in slabs))
+            for peer, tag, slabs in sends + recvs)
+        bufs = self.static.get(key)
+        if bufs is None:
+            x = (sends or recvs)[0][2][0]
+            bufs = self.static[key] = [
+                torch.empty(sum(t.numel() for t in slabs), dtype=x.dtype,
+                            device=x.device)
+                for _, _, slabs in sends + recvs]
+        out, into = bufs[:len(sends)], bufs[len(sends):]
+        for buf, (_, _, srcs) in zip(out, sends):
+            _pack_into(buf, srcs)
+        ops = [tdist.P2POp(tdist.isend, buf, peer, tag=tag)
+               for buf, (peer, tag, _) in zip(out, sends)]
+        ops += [tdist.P2POp(tdist.irecv, buf, peer, tag=tag)
+                for buf, (peer, tag, _) in zip(into, recvs)]
+        reqs = tdist.batch_isend_irecv(ops) if ops else []
+
+        def apply():
+            for r in reqs:
+                r.wait()
+            for buf, (_, _, ghosts) in zip(into, recvs):
+                _unpack(buf, ghosts)
 
         return _Done(apply)
 

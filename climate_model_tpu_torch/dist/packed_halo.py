@@ -102,6 +102,7 @@ class SeamStrip:
         self.forcing = _rows(forcing, self.r0, self.r1,
                              [f.name for f in dataclasses.fields(Forcing)])
         self.vmask = vmask[self.r0:self.r1].contiguous()
+        self.geo = None            # its geometry table, on a captured step
 
     def cut(self, state: State) -> State:
         return _rows(state, self.r0, self.r1, STATE_FIELDS)
@@ -109,6 +110,129 @@ class SeamStrip:
     def merge(self, out: State, strip_out: State, fields):
         d0, s0, n = self.keep
         _splice(out, strip_out, d0, s0, n, fields)
+
+
+class ShardStep:
+    """One step of the sharded packed scan on the blocks of a
+    ``ShardedState`` ``ss``, without the time bookkeeping: ``step(states,
+    radiation)`` takes the blocks' time-n ``State``s (their ghosts are
+    refreshed in place) and returns the corrector's outputs. ``radiation(i,
+    state)`` is shard ``i``'s radiation on its interval.
+
+    The eager runner makes one a chunk. A captured step (``graphs.py``)
+    makes one at capture with ``static=True``, which computes each block's
+    and strip's geometry table once, and calls it with ``scalars`` (the
+    ``(dt, frac)`` operand) and ``outs`` (per shard, the tensors that the
+    corrector writes)."""
+
+    def __init__(self, cfg: ModelConfig, ss: ShardedState, dt: float,
+                 static: bool = False):
+        from ..kernels.fused_substep import geo_table
+        from ..model import phys_epilogue_tuple
+        num, phys = cfg.numerics, cfg.physics
+        self.cfg, self.dt, self.exchange = cfg, dt, ss.exchange
+        self.phys = phys_epilogue_tuple(cfg)
+        kw = dict(with_rad=phys.radiation,
+                  with_diff=bool(num.diff_uv or num.diff_pott
+                                 or num.diff_moist))
+        sh = cfg.sharding
+        self.overlap = bool(sh.halo_overlap) and sh.mesh_lat > 1
+        self.corr_fields = DYN_FIELDS + (EPI_FIELDS if self.phys is not None
+                                         else ())
+        self.grids = [g.replace(dt=dt) for g in ss.grids]
+        self.forcings = ss.forcings
+        masks = [row_mask(lay, s.dtype, s.device)
+                 for lay, s in zip(ss.layouts, ss.states)]
+        self.shard_kw = [dict(kw, vmask=m, part="shard") for m in masks]
+        self.strips = []
+        if self.overlap:
+            for lay, g, f, m in zip(ss.layouts, self.grids, ss.forcings,
+                                    masks):
+                self.strips.append(
+                    [SeamStrip(side, lay, g, f, m, ss.halo)
+                     for side, has in (("south", lay.gs),
+                                       ("north", lay.gn)) if has])
+        if static:
+            for g, skw in zip(self.grids, self.shard_kw):
+                skw["geo"] = geo_table(g)
+            for strips_i in self.strips:
+                for st in strips_i:
+                    st.geo = geo_table(st.grid)
+
+    def __call__(self, states: list, radiation, scalars=None,
+                 outs: list | None = None) -> list:
+        dt, ex, phys_tuple = self.dt, self.exchange, self.phys
+        per_shard = list(zip(self.grids, self.forcings, self.shard_kw))
+
+        def fields(blocks, names):
+            return [[getattr(b, f) for f in names] for b in blocks]
+
+        def predict(blocks):
+            return [predictor(s, g, f, dt, scalars=scalars, **skw)
+                    for s, (g, f, skw) in zip(blocks, per_shard)]
+
+        def correct(p, blocks):
+            return [corrector(pi, s, g, f, dt, phys=phys_tuple,
+                              scalars=scalars,
+                              out=None if outs is None else outs[i], **skw)
+                    for i, (pi, s, (g, f, skw)) in enumerate(
+                        zip(p, blocks, per_shard))]
+
+        def seams(fn, res, names, *blocks, **k):
+            """``fn`` on every seam strip of ``blocks``, its rows spliced
+            over ``res`` (which no strip reads)."""
+            for i, strips_i in enumerate(self.strips):
+                skw = per_shard[i][2]
+                for st in strips_i:
+                    out = fn(*(st.cut(b[i]) for b in blocks), st.grid,
+                             st.forcing, dt, **dict(skw, vmask=st.vmask,
+                                                    part=st.part, geo=st.geo,
+                                                    scalars=scalars, **k))
+                    st.merge(res[i], out, names)
+
+        if self.cfg.physics.radiation:
+            states = [radiation(i, s) for i, s in enumerate(states)]
+        prog = fields(states, PROG_FIELDS + RAD_FIELDS)
+        if not self.overlap:
+            ex.refresh(prog)
+            p = predict(states)
+            ex.refresh(fields(p, DYN_FIELDS))
+            return correct(p, states)
+        # the main launches read stale lat ghost rows while the exchange
+        # is in flight; the strips redo the rows they reach
+        ex.refresh_cols(prog)
+        pending = ex.start_lat(prog)
+        p = predict(states)
+        pending.wait()
+        seams(predictor, p, DYN_FIELDS, states)
+        ex.refresh_cols(fields(p, DYN_FIELDS))
+        pending = ex.start_lat(fields(p, DYN_FIELDS))
+        out = correct(p, states)
+        pending.wait()
+        seams(corrector, out, self.corr_fields, p, states, phys=phys_tuple)
+        return out
+
+
+def check_blocks(cfg: ModelConfig, ss: ShardedState):
+    """Raise where the blocks of ``ss`` do not fit the mesh, dtype and
+    schedule of ``cfg``."""
+    sh = cfg.sharding
+    mesh = ss.mesh
+    if (mesh.n_lat, mesh.n_lon) != (sh.mesh_lat, sh.mesh_lon):
+        raise ValueError(f"blocks of a {mesh.n_lat}x{mesh.n_lon} mesh, "
+                         f"config {sh.mesh_lat}x{sh.mesh_lon}")
+    validate_divisibility(cfg, mesh)
+    dev = ss.states[0].device
+    if dev.type == "cuda" and cfg.dtype != "float32":
+        raise ValueError("backend='pallas' runs float32 on the card; "
+                         "float64 runs on the CPU (the plain versions)")
+    lay = ss.layouts[0]
+    if (bool(sh.halo_overlap) and sh.mesh_lat > 1
+            and lay.ny_l < ss.halo.south + ss.halo.north):
+        raise ValueError(
+            f"halo_overlap needs ny/mesh_lat >= "
+            f"{ss.halo.south + ss.halo.north} rows per shard (got "
+            f"{lay.ny_l})")
 
 
 def make_packed_sharded_runner(cfg: ModelConfig, n_steps: int = 1):
@@ -120,97 +244,29 @@ def make_packed_sharded_runner(cfg: ModelConfig, n_steps: int = 1):
     and gathers back."""
     check_rad_resolved(cfg)
     check_pallas(cfg)
-    num, phys = cfg.numerics, cfg.physics
-    from ..model import phys_epilogue_tuple
-    phys_tuple = phys_epilogue_tuple(cfg)
-    kw = dict(with_rad=phys.radiation,
-              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
-    sh = cfg.sharding
-    overlap = bool(sh.halo_overlap) and sh.mesh_lat > 1
-    corr_fields = DYN_FIELDS + (EPI_FIELDS if phys_tuple is not None else ())
-
-    def check(ss: ShardedState):
-        mesh = ss.mesh
-        if (mesh.n_lat, mesh.n_lon) != (sh.mesh_lat, sh.mesh_lon):
-            raise ValueError(f"blocks of a {mesh.n_lat}x{mesh.n_lon} mesh, "
-                             f"config {sh.mesh_lat}x{sh.mesh_lon}")
-        validate_divisibility(cfg, mesh)
-        dev = ss.states[0].device
-        if dev.type == "cuda" and cfg.dtype != "float32":
-            raise ValueError("backend='pallas' runs float32 on the card; "
-                             "float64 runs on the CPU (the plain versions)")
-        lay = ss.layouts[0]
-        if overlap and lay.ny_l < ss.halo.south + ss.halo.north:
-            raise ValueError(
-                f"halo_overlap needs ny/mesh_lat >= "
-                f"{ss.halo.south + ss.halo.north} rows per shard (got "
-                f"{lay.ny_l})")
 
     def run_blocks(ss: ShardedState, dt: float) -> ShardedState:
-        check(ss)
-        ex = ss.exchange
-        grids = [g.replace(dt=dt) for g in ss.grids]
-        masks = [row_mask(lay, s.dtype, s.device)
-                 for lay, s in zip(ss.layouts, ss.states)]
-        shard_kw = [dict(kw, vmask=m, part="shard") for m in masks]
-        strips = []
-        if overlap:
-            for lay, g, f, m in zip(ss.layouts, grids, ss.forcings, masks):
-                strips.append([SeamStrip(side, lay, g, f, m, ss.halo)
-                               for side, has in (("south", lay.gs),
-                                                 ("north", lay.gn)) if has])
+        check_blocks(cfg, ss)
+        step = ShardStep(cfg, ss, dt)
+
+        def radiation(i, s):
+            return radiation_step(s, step.grids[i], ss.forcings[i], cfg)
+
         # the blocks are refreshed in place: start from copies
         states = [s.replace(**{f: getattr(s, f).clone()
                                for f in STATE_FIELDS}) for s in ss.states]
-        per_shard = list(zip(grids, ss.forcings, shard_kw))
-
-        def fields(blocks, names):
-            return [[getattr(b, f) for f in names] for b in blocks]
-
-        def predict(blocks):
-            return [predictor(s, g, f, dt, **skw)
-                    for s, (g, f, skw) in zip(blocks, per_shard)]
-
-        def correct(p, blocks):
-            return [corrector(pi, s, g, f, dt, phys=phys_tuple, **skw)
-                    for pi, s, (g, f, skw) in zip(p, blocks, per_shard)]
-
-        def seams(fn, outs, names, *blocks, **k):
-            """``fn`` on every seam strip of ``blocks``, its rows spliced
-            over ``outs`` (which no strip reads)."""
-            for i, strips_i in enumerate(strips):
-                skw = per_shard[i][2]
-                for st in strips_i:
-                    res = fn(*(st.cut(b[i]) for b in blocks), st.grid,
-                             st.forcing, dt, **dict(skw, vmask=st.vmask,
-                                                    part=st.part, **k))
-                    st.merge(outs[i], res, names)
-
         for _ in range(n_steps):
-            if phys.radiation:
-                states = [radiation_step(s, g, f, cfg)
-                          for s, (g, f, _) in zip(states, per_shard)]
-            prog = fields(states, PROG_FIELDS + RAD_FIELDS)
-            if not overlap:
-                ex.refresh(prog)
-                p = predict(states)
-                ex.refresh(fields(p, DYN_FIELDS))
-                out = correct(p, states)
-            else:
-                # the main launches read stale lat ghost rows while the
-                # exchange is in flight; the strips redo the rows they reach
-                ex.refresh_cols(prog)
-                pending = ex.start_lat(prog)
-                p = predict(states)
-                pending.wait()
-                seams(predictor, p, DYN_FIELDS, states)
-                ex.refresh_cols(fields(p, DYN_FIELDS))
-                pending = ex.start_lat(fields(p, DYN_FIELDS))
-                out = correct(p, states)
-                pending.wait()
-                seams(corrector, out, corr_fields, p, states, phys=phys_tuple)
+            out = step(states, radiation)
             states = [o.replace(t=o.t + dt, step=o.step + 1) for o in out]
         return ss.replace(states=tuple(states))
+
+    return global_io(cfg, run_blocks)
+
+
+def global_io(cfg: ModelConfig, run_blocks):
+    """``run(state, grid, forcing)`` over ``run_blocks(ss, dt)``: ``state``
+    a ``ShardedState``, or a global ``State`` split over the mesh of
+    ``make_mesh(cfg)`` on its device and gathered back."""
 
     def run(state, grid: Grid, forcing: Forcing = None):
         if isinstance(state, ShardedState):

@@ -15,7 +15,10 @@
 // with_rad adds the cached radiative heating to the POTT tendency, with_diff
 // the COLP-weighted 5-point horizontal diffusion (coefficients per latitude,
 // read from the geometry table, so retuning them rebuilds nothing). dt is a
-// launch argument: adaptive dt never rebuilds or re-specialises anything.
+// runtime operand, read by each block from a float[2] on the device
+// (scalars[0]; the reference's jnp.stack([dt_s, frac]) operand): adaptive
+// dt never rebuilds or re-specialises anything, and a captured CUDA graph
+// (climate_model_tpu_torch/graphs.py) takes a new dt without a re-capture.
 //
 // Layout: the plain State layout of the port. 3-D fields are contiguous
 // (nz, ny, nx) fp32, 2-D fields (ny, nx). Longitude is periodic (an index
@@ -128,7 +131,8 @@ struct Args {
   const float* vmask;                                // (ny,) or null
   float *u_out, *v_out, *pott_out, *qv_out, *qc_out, *colp_out;
   int nz, ny, nx, tx, tj;
-  float dt, dy, dy2, ptop;
+  const float* scalars;                              // (dt, frac) on the card
+  float dt, dy, dy2, ptop;                           // dt: from scalars[0]
   int with_rad, with_diff;
 };
 
@@ -506,8 +510,13 @@ __device__ void point_update(const Args& a, const Tile& t, const float* sm,
 // ---------------------------------------------------------------------------
 template <bool SAME_BASE>
 __global__ void __launch_bounds__(kThreads, 1)
-substep_kernel(Args a) {
+substep_kernel(Args args) {
   extern __shared__ float sm[];
+  // dt, read once a block from the device operand while the tile stages;
+  // the staging's barrier publishes it
+  __shared__ float dt_block;
+  if (threadIdx.x == 0) dt_block = __ldg(args.scalars);
+  Args a = args;
   const int nz = a.nz, ny = a.ny, nx = a.nx;
   const Tile t(nz, a.tx, a.tj);
   const int i0 = blockIdx.x * a.tx, j0 = blockIdx.y * a.tj;
@@ -538,6 +547,7 @@ substep_kernel(Args a) {
                           + q % kNGeo];
   wait_copies();
   __syncthreads();
+  a.dt = dt_block;
 
   // 2. column scans of the tile, one column west and one row south (the
   // slots the update reads)
@@ -595,10 +605,11 @@ int launch(const Args& a, dim3 grid, int smem, cudaStream_t s) {
 
 // Plain C interface, loaded with ctypes (kernels/fused_substep.py). The
 // predictor passes the evaluation state as the base (same_base=1). tx, tj
-// and smem_bytes are the tile plan (launch_plan); a plan whose shared
-// memory falls short of the tile's layout, 2 > nz > 128 or a tx that does
-// not divide 32 is refused. Returns cudaGetLastError() after the launch; 0
-// is success.
+// and smem_bytes are the tile plan (launch_plan); scalars points to the
+// float[2] (dt, frac) on the card (only dt is read here). A plan whose
+// shared memory falls short of the tile's layout, 2 > nz > 128, a tx that
+// does not divide 32 or a null scalars is refused. Returns
+// cudaGetLastError() after the launch; 0 is success.
 extern "C" int cm_fused_substep_f32(
     const float* u, const float* v, const float* pott, const float* qv,
     const float* qc, const float* colp,
@@ -609,16 +620,17 @@ extern "C" int cm_fused_substep_f32(
     float* u_out, float* v_out, float* pott_out, float* qv_out, float* qc_out,
     float* colp_out,
     int nz, int ny, int nx, int tx, int tj, int smem_bytes,
-    float dt, float dy, float ptop,
+    const float* scalars, float dy, float ptop,
     int same_base, int with_rad, int with_diff, void* stream) {
   if (nz < 2 || nz > 128 || tx < 1 || tx > 32 || 32 % tx != 0 || tj < 1
+      || scalars == nullptr
       || smem_bytes < (int)sizeof(float) * Tile(nz, tx, tj).total)
     return (int)cudaErrorInvalidValue;
   Args a{u, v, pott, qv, qc, colp, ub, vb, pottb, qvb, qcb, colpb,
          hsurf, rad, geo, sigma_vb, dsigma, vmask,
          u_out, v_out, pott_out, qv_out, qc_out, colp_out,
          nz, ny, nx, tx, tj,
-         dt, dy, (float)((double)dy * (double)dy), ptop,
+         scalars, 0.f, dy, (float)((double)dy * (double)dy), ptop,
          with_rad, with_diff};
   if (same_base) {
     a.ub = u; a.vb = v; a.pottb = pott; a.qvb = qv; a.qcb = qc; a.colpb = colp;

@@ -22,8 +22,11 @@
 //   microphysics saturation adjustment, autoconversion with
 //                frac = 1 - exp(-dt/tau) (computed by the wrapper in fp32),
 //                the column rain sum and the soil refill.
-// Every physics switch and parameter is a launch argument, and so is dt:
-// adaptive dt and retuning rebuild nothing. The operator order and the
+// Every physics switch and parameter is a launch argument; dt and frac are
+// a runtime operand, a float[2] on the device that each block reads once
+// (the reference's jnp.stack([dt_s, frac])): adaptive dt and retuning
+// rebuild nothing, and a captured CUDA graph takes a new dt without a
+// re-capture. The operator order and the
 // association of every expression follow the plain PyTorch splits
 // (physics/surface.py, turbulence.py, microphysics.py), which are the plain
 // version this kernel is held to, but for two sums that are warp-wide
@@ -100,7 +103,8 @@ struct Epi {
   float *u_out, *v_out, *pott_out, *qv_out, *qc_out;
   float *tsurf_out, *rain_out, *soil_out;
   int nz, ny, nx, tx, tj;
-  float dt, ptop, frac;
+  const float* scalars;             // (dt, frac) on the card
+  float dt, ptop, frac;             // dt, frac: from scalars
   int w_srf, w_trb, w_mic, w_soil, w_conv;
   float drag, soil_cap, ocean_cap, qc_thr, k_scalar, k_mom, sm_cap, conv_k,
       conv_rh;
@@ -565,9 +569,15 @@ __device__ __forceinline__ void store_lines(const float* sm, int nzp, int w,
 
 template <int L>
 __global__ void __launch_bounds__(threads_for<L>(), L == 1 ? 2 : 1)
-epilogue_kernel(Epi e) {
+epilogue_kernel(Epi args) {
   constexpr int kWarps = threads_for<L>() / 32;
   extern __shared__ float sm[];
+  // dt and frac, read once a block from the device operand while the tile
+  // stages; the staging's barrier publishes them
+  __shared__ float scal_block[2];
+  if (threadIdx.x < 2) scal_block[threadIdx.x] = __ldg(args.scalars
+                                                       + threadIdx.x);
+  Epi e = args;
   const int nz = e.nz, ny = e.ny, nx = e.nx, kb = nz - 1;
   const Tile t(nz, e.tx, e.tj);
   const int i0 = blockIdx.x * e.tx, j0 = blockIdx.y * e.tj;
@@ -621,6 +631,8 @@ epilogue_kernel(Epi e) {
                      });
   wait_copies();
   __syncthreads();
+  e.dt = scal_block[0];
+  e.frac = scal_block[1];
 
   // 2. the surface core, then the profile, of the tile, its west column and
   // south row (the columns the physics reads: see active)
@@ -671,10 +683,11 @@ int launch(const Epi& e, dim3 grid, int smem, cudaStream_t s) {
 
 // Plain C interface, loaded with ctypes (kernels/fused_substep.py), called
 // after cm_fused_substep_f32 on the same stream. vmask may be null (the
-// index rule). tx, tj and smem_bytes are the tile plan (launch_plan); a
-// plan whose shared memory falls short of the tile's layout, 2 > nz > 128
-// or a tx over 32 is refused. Returns cudaGetLastError() after the launch;
-// 0 is success.
+// index rule); scalars points to the float[2] (dt, frac) on the card. tx,
+// tj and smem_bytes are the tile plan (launch_plan); a plan whose shared
+// memory falls short of the tile's layout, 2 > nz > 128, a tx over 32 or a
+// null scalars is refused. Returns cudaGetLastError() after the launch; 0
+// is success.
 extern "C" int cm_physics_epilogue_f32(
     const float* u, const float* v, const float* pott, const float* qv,
     const float* qc, const float* colp,
@@ -685,18 +698,19 @@ extern "C" int cm_physics_epilogue_f32(
     float* u_out, float* v_out, float* pott_out, float* qv_out,
     float* qc_out, float* tsurf_out, float* rain_out, float* soil_out,
     int nz, int ny, int nx, int tx, int tj, int smem_bytes,
-    float dt, float ptop, float frac,
+    const float* scalars, float ptop,
     int w_srf, int w_trb, int w_mic, int w_soil, int w_conv,
     float drag, float soil_cap, float ocean_cap, float qc_thr,
     float k_scalar, float k_mom, float sm_cap, float conv_k, float conv_rh,
     void* stream) {
   if (nz < 2 || nz > 128 || tx < 1 || tx > 32 || tj < 1
+      || scalars == nullptr
       || smem_bytes < (int)sizeof(float) * Tile(nz, tx, tj).total)
     return (int)cudaErrorInvalidValue;
   Epi e{u, v, pott, qv, qc, colp, tsurf, rain, soil, swflx, lwflx,
         land, evap_eff, hsurf, vmask, sigma_vb, dsigma,
         u_out, v_out, pott_out, qv_out, qc_out, tsurf_out, rain_out, soil_out,
-        nz, ny, nx, tx, tj, dt, ptop, frac,
+        nz, ny, nx, tx, tj, scalars, 0.f, ptop, 0.f,
         w_srf, w_trb, w_mic, w_soil, w_conv, drag, soil_cap, ocean_cap,
         qc_thr, k_scalar, k_mom, sm_cap, conv_k, conv_rh};
   const dim3 grid((nx + tx - 1) / tx, (ny + tj - 1) / tj);

@@ -33,6 +33,12 @@ card. ``launch_plan`` sizes the tiles and their shared memory.
   splits on the pressure of the new colp. The CPU tests use it, and
   ``chip_smoke.py`` holds the kernels against it on the card.
 
+``dt`` and the autoconversion fraction reach both kernels as a runtime
+operand, a float32 ``(dt, frac)`` on the device (``StepScalars``; the
+reference's ``jnp.stack([dt_s, frac])``): the eager path keeps one buffer
+per value, a captured step (``graphs.py``) its own, which a new dt
+rewrites.
+
 The library is built at first use with one ``nvcc`` call over every
 ``csrc/*.cu`` into ``climate_model_tpu_torch/_build/`` (named by a hash of
 the sources and headers, so an edit rebuilds) and loaded with ``ctypes``.
@@ -80,8 +86,9 @@ PARTS = ("grid", "shard", "south_strip", "north_strip")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "cm_fused_substep_f32": [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 3 + [_P],
-    "cm_physics_epilogue_f32": [_P] * 25 + [_I] * 6 + [_F] * 3 + [_I] * 5
+    "cm_fused_substep_f32": [_P] * 24 + [_I] * 6 + [_P] + [_F] * 2 + [_I] * 3
+                            + [_P],
+    "cm_physics_epilogue_f32": [_P] * 25 + [_I] * 6 + [_P] + [_F] + [_I] * 5
                                + [_F] * 9 + [_P],
 }
 
@@ -250,6 +257,77 @@ def wall_mask(ny: int, dtype, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The runtime scalars
+# ---------------------------------------------------------------------------
+
+def scalar_values(dt: float, tau: float | None) -> tuple:
+    """``(float32(dt), frac)`` as the kernels read them: ``frac`` is
+    ``_autoconv_frac(dt, tau)`` where the microphysics runs (``tau`` its
+    autoconversion time), else 0."""
+    return (float(np.float32(dt)),
+            0.0 if tau is None else _autoconv_frac(dt, tau))
+
+
+def autoconv_tau(phys: tuple | None) -> float | None:
+    """The autoconversion time of the ``phys`` tuple where its
+    microphysics is on, else None (``scalar_values``'s ``tau``)."""
+    if phys is None:
+        return None
+    p = dict(zip(PHYS_FIELDS, phys))
+    return p["qc_autoconv_time"] if p["microphysics"] else None
+
+
+class StepScalars:
+    """The kernels' runtime operand: a float32 ``(dt, frac)`` buffer on the
+    device, the reference's ``jnp.stack([dt_s, frac])``
+    (``climate_model_tpu/kernels/fused_substep.py:1063-1070``). A captured
+    step (``graphs.py``) reads it on every replay, so a new dt is a write
+    here and never a re-capture. ``dt`` is the host value last written: the
+    plain versions take it as it is, in the working dtype, on the CPU."""
+
+    def __init__(self, device, tau: float | None):
+        self.tau = tau
+        self.dt = None
+        self.buf = torch.zeros(2, dtype=torch.float32, device=device)
+
+    def set(self, dt: float) -> bool:
+        """Write ``dt`` and its ``frac`` (two fills on the stream: no host
+        sync). Returns whether the value changed."""
+        if dt == self.dt:
+            return False
+        for slot, x in zip(self.buf, scalar_values(dt, self.tau)):
+            slot.fill_(x)
+        self.dt = dt
+        return True
+
+    def advance(self, t: torch.Tensor):
+        """``t += dt`` in place: from the device scalar on the card (the
+        float32 sum of ``t + dt``, as the eager step takes it), from the
+        host value on the CPU."""
+        t.add_(self.buf[0] if t.is_cuda else self.dt)
+
+
+@functools.lru_cache(maxsize=64)
+def _eager_scalars(device: torch.device, dt: float, tau) -> StepScalars:
+    scalars = StepScalars(device, tau)
+    scalars.set(dt)
+    return scalars
+
+
+def _scalars_ptr(dev, dt: float, phys: tuple | None,
+                 scalars: StepScalars | None) -> int:
+    """The device address of the ``(dt, frac)`` operand of one launch: the
+    caller's ``scalars``, or a buffer cached per value (the eager path;
+    never made under a capture, where it would hold no value)."""
+    if scalars is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a captured launch takes its (dt, frac) "
+                               "from a StepScalars (scalars=...)")
+        scalars = _eager_scalars(dev, dt, autoconv_tau(phys))
+    return scalars.buf.data_ptr()
+
+
+# ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
 
@@ -343,12 +421,20 @@ def _check(name, t, shape, device, dtype):
         raise ValueError(f"{name}: not contiguous")
 
 
+def _out_fields(phys: tuple | None) -> tuple:
+    """The fields a launch writes: the substep's, and the epilogue's
+    2-D fields with ``phys``."""
+    return _FIELDS3 + ("colp",) + (_FIELDS2_OUT if phys is not None
+                                   else ())
+
+
 def _validate(ev: State, base: State | None, grid: Grid, forcing: Forcing,
-              with_rad: bool, phys: tuple | None = None, vmask=None):
+              with_rad: bool, phys: tuple | None = None, vmask=None,
+              geo=None, out=None):
     """Device, dtype, shape and contiguity of every tensor the kernels
-    read, the length of ``phys`` and the mask. On the card the dtype must
-    be float32 (the kernels' only type); on the CPU every tensor must share
-    the dtype of ``ev.u``."""
+    read or, with ``out``, write; the length of ``phys`` and the mask. On
+    the card the dtype must be float32 (the kernels' only type); on the
+    CPU every tensor must share the dtype of ``ev.u``."""
     dev = ev.u.device
     if dev.type == "cuda":
         dtype = torch.float32
@@ -380,6 +466,16 @@ def _validate(ev: State, base: State | None, grid: Grid, forcing: Forcing,
             _check(f"base.{f}", getattr(base, f), s2, dev, dtype)
         for f in ("land_mask", "evap_eff"):
             _check(f"forcing.{f}", getattr(forcing, f), s2, dev, dtype)
+    if geo is not None:
+        _check("geo", geo, (ny, len(GEO_FIELDS)), dev, dtype)
+    if out is not None:
+        names = _out_fields(phys)
+        if set(out) != set(names):
+            raise ValueError(f"out: expected the fields {names}, got "
+                             f"{tuple(out)}")
+        for f in names:
+            _check(f"out.{f}", out[f], s3 if f in _FIELDS3 else s2, dev,
+                   dtype)
 
 
 def _ptr(t):
@@ -388,7 +484,7 @@ def _ptr(t):
 
 def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
             dt: float, with_rad: bool, with_diff: bool, phys: tuple | None,
-            vmask) -> State:
+            vmask, scalars: StepScalars | None, geo, out) -> State:
     dev = ev.u.device
     nz, ny, nx = ev.u.shape
     s3 = (nz, ny, nx)
@@ -398,13 +494,20 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
     def empty(shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    geo = geo_table(grid)
-    out = {f: empty(s3) for f in _FIELDS3}
+    if geo is None:
+        geo = geo_table(grid)
+    if out is None:
+        out = {f: empty(s3) for f in _FIELDS3}
+        out["colp"] = empty((ny, nx))
+        if phys is not None:
+            out.update({f: empty((ny, nx)) for f in _FIELDS2_OUT})
     # with the epilogue, the substep writes the post-dynamics fields, which
-    # the epilogue reads, and the epilogue writes the outputs
+    # the epilogue reads, and the epilogue writes the outputs; COLP_new is
+    # the substep's
     dyn = {f: empty(s3) for f in _FIELDS3} if phys is not None else out
-    colp = empty((ny, nx))
+    colp = out["colp"]
     rad_ptr = ev.dpottdt_rad.data_ptr() if with_rad else None
+    scal = _scalars_ptr(dev, dt, phys, scalars)
     lib = _lib()
     sp, ep = plan.substep, plan.epilogue
     with torch.cuda.device(dev):
@@ -416,14 +519,13 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
             grid.sigma_vb.data_ptr(), grid.dsigma.data_ptr(), _ptr(vmask),
             *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
             nz, ny, nx, sp.tx, sp.tj, sp.smem_bytes,
-            float(dt), float(grid.dy), float(grid.ptop),
+            scal, float(grid.dy), float(grid.ptop),
             int(base is None), int(with_rad), int(with_diff), stream)
         if err != 0:
             raise RuntimeError(f"fused_substep launch failed: CUDA error "
                                f"{err}")
         if phys is None:
-            return b.replace(colp=colp, **out)
-        new2 = {f: empty((ny, nx)) for f in _FIELDS2_OUT}
+            return b.replace(**out)
         p = dict(zip(PHYS_FIELDS, phys))
         err = lib.cm_physics_epilogue_f32(
             *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
@@ -432,17 +534,32 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
             forcing.hsurf.data_ptr(), _ptr(vmask), grid.sigma_vb.data_ptr(),
             grid.dsigma.data_ptr(),
             *(out[f].data_ptr() for f in _FIELDS3),
-            *(new2[f].data_ptr() for f in _FIELDS2_OUT),
+            *(out[f].data_ptr() for f in _FIELDS2_OUT),
             nz, ny, nx, ep.tx, ep.tj, ep.smem_bytes,
-            float(dt), float(grid.ptop),
-            _autoconv_frac(dt, p["qc_autoconv_time"]) if p["microphysics"]
-            else 0.0,
+            scal, float(grid.ptop),
             *(int(bool(p[f])) for f in _EPI_SWITCHES),
             *(float(p[f]) for f in _EPI_PARAMS), stream)
     if err != 0:
         raise RuntimeError(f"physics epilogue launch failed: CUDA error "
                            f"{err}")
-    return b.replace(colp=colp, **out, **new2)
+    return b.replace(**out)
+
+
+def _plain(ev: State, base: State | None, grid: Grid, forcing: Forcing,
+           dt: float, with_rad: bool, with_diff: bool, phys: tuple | None,
+           vmask, scalars: StepScalars | None, out) -> State:
+    """The plain version for a CPU tensor, with ``dt`` from ``scalars``
+    where given; with ``out``, its fields are written into those
+    tensors."""
+    res = fused_substep_plain(ev, base, grid, forcing,
+                              dt if scalars is None else scalars.dt,
+                              with_rad=with_rad, with_diff=with_diff,
+                              phys=phys, vmask=vmask)
+    if out is None:
+        return res
+    for f, t in out.items():
+        t.copy_(getattr(res, f))
+    return res.replace(**out)
 
 
 def _autoconv_frac(dt: float, tau: float) -> float:
@@ -469,42 +586,48 @@ def _count(fn, part: str, masked: bool, epilogue: bool = False):
 
 def predictor(ev: State, grid: Grid, forcing: Forcing, dt: float, *,
               with_rad: bool, with_diff: bool, vmask=None,
-              part: str = "grid") -> State:
+              part: str = "grid", scalars: StepScalars | None = None,
+              geo=None, out: dict | None = None) -> State:
     """Matsuno predictor substep (tendencies at ``ev``, advanced from it).
     ``vmask``: the v wall as a (ny,) row mask (``wall_mask``) instead of
     the row index. ``part`` names what the block is, for the launch
     counters: ``"grid"``, ``"shard"``, ``"south_strip"`` or
-    ``"north_strip"``."""
+    ``"north_strip"``. What a captured step (``graphs.py``) passes, so
+    that a replay does no host work: ``scalars`` the ``(dt, frac)``
+    operand (then ``dt`` is not read), ``geo`` the ``geo_table`` of
+    ``grid``, ``out`` the tensors to write (u, v, pott, qv, qc and
+    colp)."""
     _check_part(part)
-    _validate(ev, None, grid, forcing, with_rad, vmask=vmask)
+    _validate(ev, None, grid, forcing, with_rad, vmask=vmask, geo=geo,
+              out=out)
     if ev.u.device.type == "cpu":
-        return fused_substep_plain(ev, None, grid, forcing, dt,
-                                   with_rad=with_rad, with_diff=with_diff,
-                                   vmask=vmask)
-    out = _launch(ev, None, grid, forcing, dt, with_rad, with_diff, None,
-                  vmask)
+        return _plain(ev, None, grid, forcing, dt, with_rad, with_diff,
+                      None, vmask, scalars, out)
+    res = _launch(ev, None, grid, forcing, dt, with_rad, with_diff, None,
+                  vmask, scalars, geo, out)
     _count(predictor, part, vmask is not None)
-    return out
+    return res
 
 
 def corrector(ev: State, base: State, grid: Grid, forcing: Forcing,
               dt: float, *, with_rad: bool, with_diff: bool,
               phys: tuple | None = None, vmask=None,
-              part: str = "grid") -> State:
+              part: str = "grid", scalars: StepScalars | None = None,
+              geo=None, out: dict | None = None) -> State:
     """Matsuno corrector substep (tendencies at the predicted ``ev``,
     advanced from the time-n ``base``). ``phys`` (``model.py::
-    phys_epilogue_tuple``) adds the physics epilogue; ``vmask`` and
-    ``part`` as for the predictor."""
+    phys_epilogue_tuple``) adds the physics epilogue (then ``out`` also
+    holds tsurf, rain and soil_moist); ``vmask``, ``part``, ``scalars``,
+    ``geo`` and ``out`` as for the predictor."""
     _check_part(part)
-    _validate(ev, base, grid, forcing, with_rad, phys, vmask)
+    _validate(ev, base, grid, forcing, with_rad, phys, vmask, geo, out)
     if ev.u.device.type == "cpu":
-        return fused_substep_plain(ev, base, grid, forcing, dt,
-                                   with_rad=with_rad, with_diff=with_diff,
-                                   phys=phys, vmask=vmask)
-    out = _launch(ev, base, grid, forcing, dt, with_rad, with_diff, phys,
-                  vmask)
+        return _plain(ev, base, grid, forcing, dt, with_rad, with_diff,
+                      phys, vmask, scalars, out)
+    res = _launch(ev, base, grid, forcing, dt, with_rad, with_diff, phys,
+                  vmask, scalars, geo, out)
     _count(corrector, part, vmask is not None, epilogue=phys is not None)
-    return out
+    return res
 
 
 def reset_launch_counts():

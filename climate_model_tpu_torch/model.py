@@ -25,6 +25,14 @@ Port of ``climate_model_tpu/model.py``. Two paths, as in the reference:
   for a ``'jnp'`` config on any device. ``chip_smoke.py`` also drives it
   with the kernels beside the packed scan.
 
+On a CUDA device ``make_chunk_runner`` runs the packed scan, one card or
+sharded, as the **compiled chunk** (``graphs.py``): the port's counterpart
+of the reference's jitted chunk programs, a CUDA graph of the step per
+buffer parity and radiation variant, replayed once a step, with ``dt`` a
+runtime operand. ``graphs=False`` asks for the eager loop below, which is
+the yardstick the gates hold the graphs to; on the CPU there are no graphs
+and the runner is the eager loop.
+
 ``make_run_fn`` is the reference's name for the chunk runner (the bench's
 stability probe uses it).
 """
@@ -32,6 +40,8 @@ stability probe uses it).
 from __future__ import annotations
 
 from typing import Callable
+
+import torch
 
 from .core.config import ModelConfig, check_rad_resolved
 from .core.grid import Grid
@@ -94,6 +104,27 @@ def phys_epilogue_tuple(cfg: ModelConfig):
             phys.conv_rh_crit)
 
 
+def packed_dynamics_fn(cfg: ModelConfig):
+    """The kernels of a packed-scan step: the predictor, then the corrector
+    with the physics epilogue. Returns ``dyn(state, grid, forcing, vmask,
+    **launch)``, the corrector's output (time not advanced); ``launch``
+    passes ``scalars``, ``geo`` and ``out`` to the wrappers (a captured
+    step's, ``graphs.py``)."""
+    num, phys = cfg.numerics, cfg.physics
+    phys_tuple = phys_epilogue_tuple(cfg)
+    kw = dict(with_rad=phys.radiation,
+              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+
+    def dyn(state: State, grid: Grid, forcing: Forcing, vmask, *,
+            out=None, **launch) -> State:
+        dt = grid.dt
+        p = predictor(state, grid, forcing, dt, vmask=vmask, **kw, **launch)
+        return corrector(p, state, grid, forcing, dt, phys=phys_tuple,
+                         vmask=vmask, out=out, **kw, **launch)
+
+    return dyn
+
+
 def make_packed_step_fn(cfg: ModelConfig):
     """Full model step of the packed scan: radiation on its interval, the
     predictor kernel, then the corrector kernel with the physics epilogue
@@ -103,19 +134,14 @@ def make_packed_step_fn(cfg: ModelConfig):
     mask (``kernels.fused_substep.wall_mask``). Without split physics the
     corrector runs without the epilogue, still with the mask."""
     check_rad_resolved(cfg)
-    num, phys = cfg.numerics, cfg.physics
-    phys_tuple = phys_epilogue_tuple(cfg)
-    kw = dict(with_rad=phys.radiation,
-              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+    phys = cfg.physics
+    dyn = packed_dynamics_fn(cfg)
 
     def step(state: State, grid: Grid, forcing: Forcing, vmask) -> State:
-        dt = grid.dt
         if phys.radiation:
             state = radiation_step(state, grid, forcing, cfg)
-        p = predictor(state, grid, forcing, dt, vmask=vmask, **kw)
-        state = corrector(p, state, grid, forcing, dt, phys=phys_tuple,
-                          vmask=vmask, **kw)
-        return state.replace(t=state.t + dt, step=state.step + 1)
+        state = dyn(state, grid, forcing, vmask)
+        return state.replace(t=state.t + grid.dt, step=state.step + 1)
 
     return step
 
@@ -128,11 +154,23 @@ def takes_packed_scan(cfg: ModelConfig) -> bool:
     return cfg.backend == "pallas"
 
 
-def make_chunk_runner(cfg: ModelConfig, n_steps: int):
+def takes_graphs(cfg: ModelConfig, device) -> bool:
+    """Whether ``make_chunk_runner(cfg, ...)``, left to decide, runs the
+    compiled chunk on ``device``: the packed scan on a CUDA device."""
+    return takes_packed_scan(cfg) and torch.device(device).type == "cuda"
+
+
+def make_chunk_runner(cfg: ModelConfig, n_steps: int,
+                      graphs: bool | None = None):
     """``run(state, grid, forcing) -> state`` advancing ``n_steps``.
 
     * ``backend='pallas'`` on one device: the packed scan; it raises the
-      reference's errors for what the kernels do not carry.
+      reference's errors for what the kernels do not carry. On a CUDA
+      device, and on a mesh too, it runs as the compiled chunk
+      (``graphs.py``: captured steps, kept across chunks) unless
+      ``graphs=False``, which runs the eager loop; ``graphs=True`` asks
+      for the graphs on any device (a CPU device raises). A failed capture
+      raises: nothing falls back to the eager loop by itself.
     * ``backend='pallas'`` on a mesh (``mesh_lat * mesh_lon > 1``): the
       sharded packed scan (``dist/packed_halo.py``), whatever the sharding
       mode, as the reference's CLI takes it (``cli.py:181-192``). Its
@@ -167,7 +205,26 @@ def make_chunk_runner(cfg: ModelConfig, n_steps: int):
     check_pallas(cfg)
     if sharded:
         from .dist.packed_halo import make_packed_sharded_runner
-        return make_packed_sharded_runner(cfg, n_steps)
+        eager = make_packed_sharded_runner(cfg, n_steps)
+    else:
+        eager = _packed_runner(cfg, n_steps)
+    if graphs is False:
+        return eager
+    from .dist.sharding import ShardedState
+    from .graphs import make_graph_runner
+    compiled = make_graph_runner(cfg, n_steps)
+
+    def run(state, grid: Grid, forcing: Forcing = None):
+        one = state.states[0] if isinstance(state, ShardedState) else state
+        if graphs or one.device.type == "cuda":
+            return compiled(state, grid, forcing)
+        return eager(state, grid, forcing)
+
+    return run
+
+
+def _packed_runner(cfg: ModelConfig, n_steps: int):
+    """The eager packed scan on one device: a Python loop over steps."""
     pstep = make_packed_step_fn(cfg)
 
     def run(state: State, grid: Grid, forcing: Forcing) -> State:
@@ -183,7 +240,8 @@ def make_run_fn(cfg: ModelConfig, n_steps: int, donate: bool = True):
     """``run(state, grid, forcing) -> state`` advancing ``n_steps``: the
     chunk runner of ``make_chunk_runner``. ``donate`` is the reference's
     (it donates the state's buffers to the jitted run) and does nothing
-    here: the port updates no buffer in place that the caller still holds,
-    so the caller's state stays valid either way."""
+    here: on the compiled chunk two sets of static buffers, ping-ponged,
+    take donation's place, and the run copies the caller's state in and
+    the result out, so the caller's state stays valid either way."""
     del donate
     return make_chunk_runner(cfg, n_steps)

@@ -164,18 +164,30 @@ def compute_radiation(state: State, grid: Grid, forcing: Forcing,
                         swflx_toa=toa_dn - f_up_toa[0], olr=olr[0])
 
 
+def refresh_due(step: int, cfg: ModelConfig) -> bool:
+    """Whether the radiation cache is recomputed at host step ``step``:
+    step % rad_every_steps == 0."""
+    return step % max(cfg.physics.rad_every_steps, 1) == 0
+
+
+def radiation_refresh(state: State, grid: Grid, forcing: Forcing,
+                      cfg: ModelConfig) -> State:
+    """Recompute the radiation cache, counted in
+    ``radiation_step.refreshes``."""
+    radiation_step.refreshes += 1
+    out = compute_radiation(state, grid, forcing, cfg)
+    return state.replace(dpottdt_rad=out.dpottdt_rad,
+                         swflx_sfc=out.swflx_sfc, lwflx_sfc=out.lwflx_sfc)
+
+
 def radiation_step(state: State, grid: Grid, forcing: Forcing,
                    cfg: ModelConfig) -> State:
     """Recompute the radiation cache when step % rad_every_steps == 0 (a
     host-side test of the host step counter). ``radiation_step.refreshes``
     counts the recomputations, so a run can show its cadence."""
-    every = max(cfg.physics.rad_every_steps, 1)
-    if state.step % every != 0:
+    if not refresh_due(state.step, cfg):
         return state
-    radiation_step.refreshes += 1
-    out = compute_radiation(state, grid, forcing, cfg)
-    return state.replace(dpottdt_rad=out.dpottdt_rad,
-                         swflx_sfc=out.swflx_sfc, lwflx_sfc=out.lwflx_sfc)
+    return radiation_refresh(state, grid, forcing, cfg)
 
 
 radiation_step.refreshes = 0
