@@ -179,6 +179,7 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
     from .io.metrics import MetricsLogger, diagnostics
     from .io.netcdf import NCWriter
     from .model import make_chunk_runner, takes_packed_scan
+    from .trace import span
 
     sh = cfg.sharding
     mesh = None
@@ -248,7 +249,7 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
     # only the remainder
     start = done = state.step
     t_now = float(state.t)
-    t0 = time.time()
+    t0 = time.perf_counter()
     if blocks is not None:
         # the blocks stay split across chunks
         state = shard(mesh, state, grid, forcing, blocks)
@@ -274,33 +275,44 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
             n = min(chunk, n_total - done)
         chunks.append(n)
         dts.append(grid.dt)
-        state = make_chunk_runner(cfg, n, graphs)(state, grid, forcing)
-        # a sharded run's diagnostics and files are of the gathered global
-        # state, the same on every rank: so is the dt taken from its wind
-        whole = state if blocks is None else gather(state)
-        diag = diagnostics(whole, grid, forcing, cfg)
-        t_now = diag.t
-        done += n
-        rec = logger.log_chunk(diag, extra={"dt": grid.dt} if adaptive
-                               else None)
-        records.append(rec)
-        if rec["nan"]:
-            if p0:
-                print("!! non-finite state detected; aborting", flush=True)
-            aborted = True
-            break
-        if adaptive:
-            dt_new = adaptive_cfl_dt(min_dx, cfg.numerics.cfl, diag.max_wind)
-            dt_new = max(dt_new, 0.05 * dt)   # floor against a wind spike
-            grid = grid.replace(dt=round_to(dt_new, dtype))
-        if writer:
-            writer.write(whole, grid, forcing)
-        if ckpt and done >= next_restart:
-            save_checkpoint(ckpt, state, cfg)
-            next_restart += restart_every
+        with span("chunk"):
+            with span("runner"):
+                state = make_chunk_runner(cfg, n, graphs)(state, grid,
+                                                          forcing)
+            # a sharded run's diagnostics and files are of the gathered
+            # global state, the same on every rank: so is the dt taken from
+            # its wind
+            if blocks is None:
+                whole = state
+            else:
+                with span("gather"):
+                    whole = gather(state)
+            diag = diagnostics(whole, grid, forcing, cfg)
+            t_now = diag.t
+            done += n
+            with span("log"):
+                rec = logger.log_chunk(diag, extra={"dt": grid.dt}
+                                       if adaptive else None)
+            records.append(rec)
+            if rec["nan"]:
+                if p0:
+                    print("!! non-finite state detected; aborting",
+                          flush=True)
+                aborted = True
+                break
+            if adaptive:
+                dt_new = adaptive_cfl_dt(min_dx, cfg.numerics.cfl,
+                                         diag.max_wind)
+                dt_new = max(dt_new, 0.05 * dt)   # floor against a spike
+                grid = grid.replace(dt=round_to(dt_new, dtype))
+            if writer:
+                writer.write(whole, grid, forcing)
+            if ckpt and done >= next_restart:
+                save_checkpoint(ckpt, state, cfg)
+                next_restart += restart_every
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    wall = time.time() - t0
+    wall = time.perf_counter() - t0
     gps = gc.nx * gc.ny * gc.nz * (done - start) / wall
     if p0:
         print(f"done: {done - start} steps in {wall:.1f}s  "

@@ -30,6 +30,9 @@ sharded programs jitted too (``dist/packed_halo.py:295``). Here:
 * **Counters.** A replay runs no Python: the wrappers' launch counters and
   ``radiation_step.refreshes`` move on each replay by what its capture
   counted, so every count that a run checks stays true.
+* **Spans** (``trace.py``): ``cm.capture`` around a runner's warm-up and
+  captures, ``cm.step.radiation`` around each replay of a step that
+  refreshes the radiation. None is opened inside a captured step.
 
 On a mesh in one process (``dist/packed_halo.py``), one graph holds every
 shard's step: the launches, the ``LocalExchange`` slice copies and the
@@ -62,6 +65,7 @@ from .dycore.stepper import check_pallas
 from .kernels.fused_substep import (StepScalars, autoconv_tau, corrector,
                                     geo_table, predictor, wall_mask)
 from .physics.radiation import radiation_refresh, radiation_step, refresh_due
+from .trace import span
 
 # the counters a captured step moves: (owner, attribute)
 COUNTERS = tuple((fn, name) for fn in (predictor, corrector)
@@ -134,25 +138,33 @@ class _Captured:
 
     def _build(self, step):
         """Warm every variant of ``step(parity, refresh)``, then capture
-        each; the counters are left as they were."""
+        each (the span ``cm.capture``); the counters are left as they
+        were."""
         global captures
-        before = read_counters()
-        for key in self.keys:
-            self.capture.warm(lambda k=key: step(*k))
-        t0 = time.perf_counter()
-        for key in self.keys:
+        with span("capture"):
+            before = read_counters()
+            for key in self.keys:
+                self.capture.warm(lambda k=key: step(*k))
+            t0 = time.perf_counter()
+            for key in self.keys:
+                _write_counters(before)
+                self.graphs[key] = self.capture(lambda k=key: step(*k))
+                self.deltas[key] = tuple(
+                    a - b for a, b in zip(read_counters(), before))
+                captures += 1
             _write_counters(before)
-            self.graphs[key] = self.capture(lambda k=key: step(*k))
-            self.deltas[key] = tuple(
-                a - b for a, b in zip(read_counters(), before))
-            captures += 1
-        _write_counters(before)
-        self.capture_s = time.perf_counter() - t0
+            self.capture_s = time.perf_counter() - t0
         self.pool_bytes = self.capture.pool_bytes()
 
     def replay(self, key):
+        """Replay the step ``key``; one that refreshes the radiation under
+        the span ``cm.step.radiation``, a plain one under none."""
         before = read_counters()
-        self.graphs[key].replay()
+        if key[1]:
+            with span("step.radiation"):
+                self.graphs[key].replay()
+        else:
+            self.graphs[key].replay()
         # a replay runs no Python; a stand-in that reruns the step counts
         # nothing either
         _write_counters(tuple(b + d for b, d in zip(before,

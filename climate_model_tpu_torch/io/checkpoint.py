@@ -38,6 +38,7 @@ from ..core.config import ModelConfig
 from ..core.state import State, resolve_device
 from ..dist.mesh import barrier
 from ..dist.sharding import STATE_FIELDS, ShardedState, gather, interior
+from ..trace import span
 from .convert import state_from_numpy, state_to_numpy
 
 # Fields that select a runtime policy rather than the state's identity (the
@@ -103,24 +104,32 @@ def save_checkpoint(path: str, state, cfg: ModelConfig):
     shard per ``torch.distributed`` rank each rank writes its interior to
     ``path.p{rank}`` and waits for the others at a barrier; with every
     shard in this process the state is gathered and written as one
-    file."""
+    file. The span ``cm.output.checkpoint`` holds the copy to the host
+    (``.fetch``) and the file (``.write``)."""
+    with span("output.checkpoint"):
+        _save(path, state, cfg)
+
+
+def _save(path: str, state, cfg: ModelConfig):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     ranks = isinstance(state, ShardedState) and state.mesh.distributed
-    if ranks:
-        path = f"{path}.p{state.mesh.rank}"
-        leaves = _shard_leaves(state)
-    else:
-        if isinstance(state, ShardedState):
-            state = gather(state)
-        leaves = state_to_numpy(state)
+    with span("output.checkpoint.fetch"):
+        if ranks:
+            path = f"{path}.p{state.mesh.rank}"
+            leaves = _shard_leaves(state)
+        else:
+            if isinstance(state, ShardedState):
+                state = gather(state)
+            leaves = state_to_numpy(state)
     leaves["_fingerprint"] = np.frombuffer(
         config_fingerprint(cfg).encode(), dtype=np.uint8)
     leaves["_config_json"] = np.frombuffer(
         json.dumps(config_identity(cfg), sort_keys=True).encode(),
         dtype=np.uint8)
-    tmp = path + ".tmp.npz"   # np.savez appends .npz unless present
-    np.savez(tmp, **leaves)
-    os.replace(tmp, path)
+    with span("output.checkpoint.write"):
+        tmp = path + ".tmp.npz"   # np.savez appends .npz unless present
+        np.savez(tmp, **leaves)
+        os.replace(tmp, path)
     if ranks:
         barrier(state.states[0].device)
 

@@ -21,6 +21,7 @@ import torch
 from ..core import constants as c
 from ..core.grid import Grid
 from ..core.state import State
+from ..trace import span
 
 
 class StepDiagnostics(NamedTuple):
@@ -43,6 +44,14 @@ class StepDiagnostics(NamedTuple):
 
 def diagnostics(state: State, grid: Grid, forcing=None,
                 cfg=None) -> StepDiagnostics:
+    """The chunk diagnostics of ``state``: reductions and, with ``cfg``'s
+    radiation, a radiation pass on the device, fetched in one copy (the
+    span ``cm.diagnostics``, its fetch ``cm.diagnostics.fetch``)."""
+    with span("diagnostics"):
+        return _diagnostics(state, grid, forcing, cfg)
+
+
+def _diagnostics(state: State, grid: Grid, forcing, cfg) -> StepDiagnostics:
     area = grid.area[:, None]
     w = area / torch.sum(area) / state.colp.shape[-1]
     mean_colp = torch.sum(state.colp * w)
@@ -83,7 +92,9 @@ def diagnostics(state: State, grid: Grid, forcing=None,
 
     vals = torch.stack([state.t, max_wind, mean_colp, mean_pott, water,
                         (~finite).to(state.t.dtype), toa_net_sw, olr, energy,
-                        evap_rate, total_rain, pw]).tolist()
+                        evap_rate, total_rain, pw])
+    with span("diagnostics.fetch"):
+        vals = vals.tolist()
     (t, max_wind, mean_colp, mean_pott, water, nan, toa_net_sw, olr, energy,
      evap_rate, total_rain, pw) = vals
     return StepDiagnostics(
@@ -110,7 +121,9 @@ class MetricsLogger:
     jsonl_path: Optional[str] = None
     grid_points: int = 0
     quiet: bool = False
-    _t_last: float = dataclasses.field(default_factory=time.time)
+    # the durations (``wall_s``) are of ``time.perf_counter``, which never
+    # steps
+    _t_last: float = dataclasses.field(default_factory=time.perf_counter)
     _step_last: int = 0
 
     def begin_session(self, resume_step: int = 0):
@@ -143,7 +156,7 @@ class MetricsLogger:
             f.writelines(kept)
 
     def log_chunk(self, d: StepDiagnostics, extra: dict | None = None):
-        now = time.time()
+        now = time.perf_counter()
         step = int(d.step)
         wall = now - self._t_last
         nsteps = max(step - self._step_last, 1)

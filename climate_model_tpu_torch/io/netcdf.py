@@ -29,6 +29,7 @@ from scipy.io import netcdf_file
 from ..core.grid import Grid
 from ..core.state import Forcing, State
 from ..dycore import operators as ops
+from ..trace import span
 
 
 def _host(v) -> np.ndarray:
@@ -69,18 +70,21 @@ def write_constants_nc(path: str, grid: Grid, forcing: Forcing):
 
 
 def write_output_nc(path: str, state: State, grid: Grid, forcing: Forcing):
-    """One output snapshot."""
-    diag = ops.diagnose(state.colp, state.pott, forcing.hsurf, grid)
-    cont = ops.continuity(state.u, state.v, state.colp, state.colp,
-                          grid.dt, grid)
+    """One output snapshot: its fields computed and copied to the host
+    (the span ``cm.output.snapshot.fetch``), then the file
+    (``cm.output.snapshot.write``)."""
+    with span("output.snapshot.fetch"):
+        diag = ops.diagnose(state.colp, state.pott, forcing.hsurf, grid)
+        cont = ops.continuity(state.u, state.v, state.colp, state.colp,
+                              grid.dt, grid)
+        host = _fp32_on_host(dict(
+            UWIND=state.u, VWIND=state.v, POTT=state.pott, TAIR=diag.tair,
+            PHI=diag.phi, QV=state.qv, QC=state.qc, WWIND=cont.wwind,
+            PSURF=grid.ptop + state.colp, COLP=state.colp, RAIN=state.rain,
+            TSURF=state.tsurf, SOILMOIST=state.soil_moist))
     names3 = ("UWIND", "VWIND", "POTT", "TAIR", "PHI", "QV", "QC")
     names2 = ("PSURF", "COLP", "RAIN", "TSURF", "SOILMOIST")
-    host = _fp32_on_host(dict(
-        UWIND=state.u, VWIND=state.v, POTT=state.pott, TAIR=diag.tair,
-        PHI=diag.phi, QV=state.qv, QC=state.qc, WWIND=cont.wwind,
-        PSURF=grid.ptop + state.colp, COLP=state.colp, RAIN=state.rain,
-        TSURF=state.tsurf, SOILMOIST=state.soil_moist))
-    with netcdf_file(path, "w") as f:
+    with span("output.snapshot.write"), netcdf_file(path, "w") as f:
         nz, ny, nx = state.u.shape
         f.createDimension("time", 1)
         f.createDimension("level", nz)
@@ -123,10 +127,12 @@ class NCWriter:
         if tdist.is_initialized() and tdist.get_rank() != 0:
             self.count += 1
             return None
-        if self.count == 0:
-            write_constants_nc(os.path.join(self.out_dir, "constants.nc"),
-                               grid, forcing)
-        path = os.path.join(self.out_dir, f"out_{self.count:04d}.nc")
-        write_output_nc(path, state, grid, forcing)
+        with span("output.snapshot"):
+            if self.count == 0:
+                write_constants_nc(os.path.join(self.out_dir,
+                                                "constants.nc"),
+                                   grid, forcing)
+            path = os.path.join(self.out_dir, f"out_{self.count:04d}.nc")
+            write_output_nc(path, state, grid, forcing)
         self.count += 1
         return path
