@@ -33,7 +33,9 @@ and exits non-zero:
                kernel, so that no host gap enters), with the host's time
                per call beside it, against the bound of the card; the
                device time of each launch of a call apart (the substep,
-               the epilogue), from torch.profiler;
+               the epilogue), from torch.profiler; beside each, the
+               substep plan's staged_rows_per_row and
+               scanned_cols_per_col at its shape;
 5. main     -- the run command of config #3 (``run --baseline 3 --days 0.1
                --out-every-hours 1``: 253 steps in three chunks, adaptive
                dt, hourly radiation), which takes the packed scan, with
@@ -200,7 +202,10 @@ and exits non-zero:
                the exchange clock's runs are eager. The default run
                prints a line saying that phase 16 needs ``--multicard``.
 
-Phase 3 also holds the epilogue's momentum terms on a windy state
+``check_against`` holds the substep kernel against another checkout's (the
+parent commit's) bit for bit at every shape of AGAINST_CASES and times both
+in turns; ``tools/kernel_bitwise.py`` runs it. Phase 3 also holds the
+epilogue's momentum terms on a windy state
 (MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
 seam-strip variants on blocks of the noisy #4 state (CHECK_BLOCKS); phase 4
 times those variants at #4's 2x4 shapes. The line before last is the total,
@@ -973,15 +978,25 @@ def time_kernels(ci: CheckInputs, card: str) -> dict:
     timing = {}
     for kname, (kern, plain, (e, b, phys, vmask)) in calls.items():
         timing[kname] = kernel_timing(kname, kern, plain, substep_bound_ms(
-            e, b, g, f, kern(), phys=phys, vmask=vmask), card)
+            e, b, g, f, kern(), phys=phys, vmask=vmask), card,
+            shape=tuple(e.u.shape))
     return timing
 
 
-def kernel_timing(name, kern, plain, bound, card, n=50) -> dict:
+def plan_counts(shape) -> dict:
+    """The substep plan's halo counts at a (nz, ny, nx) block: how many
+    times each needed (field, level) line is copied and each column
+    scanned (``kernels/fused_substep.py::launch_plan``)."""
+    sp = fs.launch_plan(*shape).substep
+    return {"staged_rows_per_row": round(sp.staged_rows_per_row, 4),
+            "scanned_cols_per_col": round(sp.scanned_cols_per_col, 4)}
+
+
+def kernel_timing(name, kern, plain, bound, card, n=50, shape=None) -> dict:
     """A kernel and its plain version timed in turns (kernel, plain, plain,
     kernel): device ms per call over ``n`` calls (``device_ms``) and the
     host's enqueue ms beside it, against ``bound`` = (bound ms, what bounds
-    it)."""
+    it); with ``shape``, the substep plan's counts there beside them."""
     (k1, kh1), (p1, ph1), (p2, ph2), (k2, kh2) = (
         device_ms(kern, n), device_ms(plain, n), device_ms(plain, n),
         device_ms(kern, n))
@@ -993,6 +1008,10 @@ def kernel_timing(name, kern, plain, bound, card, n=50) -> dict:
     per_launch = ("not measured (the profiler saw no device time)"
                   if split is None else ", ".join(
                       f"{k} {v:.4f}" for k, v in split.items()))
+    if shape is not None:
+        tm.update(plan_counts(shape))
+        per_launch += "; substep plan: " + ", ".join(
+            f"{k} {tm[k]}" for k in plan_counts(shape))
     print(f"  {name}: kernel {ms:.4f} ms on the device ({k1:.4f}, "
           f"{k2:.4f}; per launch, profiled: {per_launch}), "
           f"{tm['enqueue_ms']:.4f} ms host enqueue; plain "
@@ -1425,8 +1444,131 @@ def time_shards(shard_inputs, card: str, plan=SHARD_TIMING) -> dict:
             timing[name] = kernel_timing(
                 f"{name} at {tuple(ev.u.shape)}", kern, plain,
                 substep_bound_ms(ev, base, g, f, kern(), phys=ph, vmask=vm),
-                card)
+                card, shape=tuple(ev.u.shape))
     return timing
+
+
+# The substep against another checkout's substep kernel (the parent
+# commit's, unpacked into a git-ignored directory), bit for bit, on the
+# same inputs, and timed in turns (``check_against``; ``tools/
+# kernel_bitwise.py``): (name, (nz, ny, nx)) of every block the port
+# launches it on (#3 and #5, the shard blocks and seam strips of #4's 2x4,
+# 2x2, 1x4 and 4x1 meshes and of #5's 4x8 and 2x2, the gates' shapes) and
+# of 2 to 128 levels.
+AGAINST_CASES = (
+    ("#3", (32, 180, 360)), ("#5", (32, 720, 1440)),
+    ("#4 2x4 shard block", (32, 183, 186)),
+    ("#4 2x4 seam strip", (32, 9, 186)),
+    ("#5 4x8 middle shard block", (32, 186, 186)),
+    ("#4 2x2 shard block", (32, 183, 366)),
+    ("#4 2x2 seam strip", (32, 9, 366)),
+    ("#5 2x2 shard block", (32, 363, 726)),
+    ("#5 2x2 seam strip", (32, 9, 726)),
+    ("#4 1x4 shard block", (32, 360, 186)),
+    ("#4 4x1 shard block", (32, 96, 720)),
+    ("#4 4x1 seam strip", (32, 9, 720)),
+    ("closure gate", (8, 48, 96)), ("equilibrium gate", (10, 30, 60)),
+    ("fine-grid gate", (16, 90, 180)),
+    *((f"{nz} levels", (nz, 32, 64)) for nz in (2, 8, 32, 64, 96, 128)),
+    ("128 levels at #3's grid", (128, 180, 360)))
+
+
+def reference_kernels(root: str):
+    """The ``kernels/fused_substep.py`` of the checkout at ``root`` as a
+    module of its own: its wrappers launch its own kernels, built from its
+    own ``csrc/`` into its own build directory, with its own plan; every
+    other module is this checkout's."""
+    import importlib.util
+    path = os.path.join(os.path.abspath(root), "climate_model_tpu_torch",
+                        "kernels", "fused_substep.py")
+    spec = importlib.util.spec_from_file_location(
+        "climate_model_tpu_torch.kernels._reference_substep", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def against_inputs(shape, dev):
+    """Config #3's physics on a (nz, ny, nx) grid from its initial state,
+    moisture near saturation, grid-scale noise, colp +-20 Pa and a
+    radiative heating of +-1e-4 K/s: (state, forcing, grid, kw)."""
+    nz, ny, nx = shape
+    b3 = baseline_config(3)
+    cfg = resolve_rad_interval(b3.replace(grid=dataclasses.replace(
+        b3.grid, nx=nx, ny=ny, nz=nz)))
+    state, forcing, grid = initialize(cfg, device=dev)
+    state = rough_state(moist_state(state, grid, cfg))
+    r = np.random.default_rng(SEED + 3)
+    kw = dict(dtype=state.dtype, device=dev)
+    state = state.replace(
+        colp=state.colp + torch.as_tensor(r.normal(0.0, 20.0, (ny, nx)),
+                                          **kw),
+        dpottdt_rad=torch.as_tensor(r.normal(0.0, 1e-4, (nz, ny, nx)),
+                                    **kw))
+    num = cfg.numerics
+    return state, forcing, grid, dict(
+        with_rad=cfg.physics.radiation,
+        with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+
+
+def against_calls(mod, state, forcing, grid, kw):
+    """(variant, call) of ``mod``'s substep launches on one input: the
+    predictor and the corrector, v wall by index and by mask, and the
+    corrector without the radiative source and the diffusion."""
+    g, f, dt = grid, forcing, grid.dt
+    vm = fs.wall_mask(grid.ny, torch.float32, state.u.device)
+    pred = fs.fused_substep_plain(state, None, g, f, dt, **kw)
+    return (
+        ("predictor", lambda: mod.predictor(state, g, f, dt, **kw)),
+        ("predictor_masked",
+         lambda: mod.predictor(state, g, f, dt, vmask=vm, **kw)),
+        ("corrector", lambda: mod.corrector(pred, state, g, f, dt, **kw)),
+        ("corrector_masked",
+         lambda: mod.corrector(pred, state, g, f, dt, vmask=vm, **kw)),
+        ("corrector_bare",
+         lambda: mod.corrector(pred, state, g, f, dt, vmask=vm,
+                               with_rad=False, with_diff=False)))
+
+
+def check_against(ref, dev, card: str, cases=AGAINST_CASES, timed=True
+                  ) -> dict:
+    """Every variant of ``against_calls`` at every case, this checkout's
+    kernel against ``ref``'s (``reference_kernels``): equal bit for bit in
+    every field it writes; with ``timed``, the masked predictor and
+    corrector's device ms a launch (``launch_ms``) in turns (reference,
+    this, this, reference) beside the plan's counts. Raises after printing
+    every case if any differs."""
+    bad, out = [], {}
+    for name, shape in cases:
+        state, forcing, grid, kw = against_inputs(shape, dev)
+        mine = dict(against_calls(fs, state, forcing, grid, kw))
+        theirs = dict(against_calls(ref, state, forcing, grid, kw))
+        same = {v: bitwise_equal(mine[v](), theirs[v]()) for v in mine}
+        bad += [f"{name} {shape}: {v} differs from the reference kernel"
+                for v, ok in same.items() if not ok]
+        line = (f"  {name} {shape}: bit for bit "
+                + ", ".join(f"{v} {'yes' if ok else 'NO'}"
+                            for v, ok in same.items()))
+        row = {"same": same, **plan_counts(shape)}
+        if timed:
+            for v in ("predictor_masked", "corrector_masked"):
+                t = [launch_ms(fn)["substep"] for fn in
+                     (theirs[v], mine[v], mine[v], theirs[v])]
+                row[v] = {"reference_ms": 0.5 * (t[0] + t[3]),
+                          "ms": 0.5 * (t[1] + t[2]), "turns": t}
+                line += (f"; {v} {row[v]['ms']:.4f} ms a launch against "
+                         f"{row[v]['reference_ms']:.4f} ("
+                         + " / ".join(f"{x:.4f}" for x in t) + ")")
+        print(line + "; plan " + ", ".join(
+            f"{k} {row[k]}" for k in plan_counts(shape)) + f" [{card}]",
+            flush=True)
+        out[name] = row
+        del state, forcing, grid, mine, theirs
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
 
 
 def run_argv(argv, dev):
@@ -2356,7 +2498,7 @@ def time_b5_kernels(res, cfg, card: str, bad: list):
         timing[kname] = kernel_timing(
             f"{kname} at {tuple(s.u.shape)}", kern, plain,
             substep_bound_ms(e, b, g, f, kern(), phys=ph, vmask=vm), card,
-            n=10)
+            n=10, shape=tuple(s.u.shape))
     return errs, timing
 
 
@@ -2724,11 +2866,11 @@ def check_climate_kernels(gate: str, card: str, dev, bad: list):
             f"predictor_masked at {tuple(st.u.shape)}",
             lambda: pred(st, True), lambda: pred(st, False),
             substep_bound_ms(st, None, g, f, pred(st, True), vmask=vm),
-            card),
+            card, shape=tuple(st.u.shape)),
         "corrector_epilogue": kernel_timing(
             f"corrector_epilogue at {tuple(st.u.shape)}", kern, plain,
             substep_bound_ms(ev, base, g, f, kern(), phys=ci.phys,
-                             vmask=vm), card)}
+                             vmask=vm), card, shape=tuple(st.u.shape))}
     return errs, tol, timing
 
 

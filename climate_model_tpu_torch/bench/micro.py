@@ -11,7 +11,9 @@ host clock is the device's.
 Each kernel is set beside its byte floor (``bench/roofline.py::
 substep_work``'s bytes, each input read once and each output written once,
 over the card's memory rate) and the launch plan of its shape
-(``kernels/fused_substep.py::launch_plan``). The reference's Mosaic keys
+(``kernels/fused_substep.py::launch_plan``: the substep's strip width, ring
+depth, blocks, shared memory and halo counts; the epilogue's tile and
+grid). The reference's Mosaic keys
 (tile rows, DMA floors, VPU ops a tile) have no counterpart here.
 
 ``device_ms`` and ``launch_ms`` are also the clock of ``chip_smoke.py``'s
@@ -173,10 +175,10 @@ def micro_bench(baseline: int = 3, iters: int = 200,
     rep = {
         "config": f"{nx}x{ny}x{nz}", "dtype": cfg.dtype,
         "device": card_name(dev),
-        "plan": {part: {"tile": [tp.tx, tp.tj], "grid": list(tp.grid),
-                        "smem_bytes": tp.smem_bytes}
-                 for part, tp in (("substep", plan.substep),
-                                  ("epilogue", plan.epilogue))},
+        "plan": {"substep": dataclasses.asdict(plan.substep),
+                 "epilogue": {"tile": [plan.epilogue.tx, plan.epilogue.tj],
+                              "grid": list(plan.epilogue.grid),
+                              "smem_bytes": plan.epilogue.smem_bytes}},
         "pred_ms": round(t_pred, 4),
         "corr_ms": round(t_corr, 4),
         "pred_bytes_floor_ms": round(pred_floor, 5),

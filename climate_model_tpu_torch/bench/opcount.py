@@ -19,7 +19,8 @@ port counts the element work of the kernel's **plain version**
 It is a model of the work, not a measurement of the kernel: the CUDA
 kernel keeps its intermediates in registers and shared memory and does
 not do the plain version's moves. ``n_tiles`` is the launch plan's block
-count (``kernels/fused_substep.py::launch_plan``), and ``fp32_floor_ms``
+count (``kernels/fused_substep.py::launch_plan``: the substep's persistent
+grid, and the epilogue's tiles with ``phys``), and ``fp32_floor_ms``
 prices the arithmetic at the fp32 peak of an H100 SXM
 (``bench/roofline.py``), one operation an element.
 
@@ -196,7 +197,7 @@ def audit_substep(baseline: int = 3, which: str = "corrector",
         fused_substep_plain(state, base, grid, forcing, grid.dt,
                             with_rad=True, with_diff=True, phys=phys)
     plan = launch_plan(cfg.grid.nz, cfg.grid.ny, cfg.grid.nx)
-    n_tiles = plan.substep.grid[0] * plan.substep.grid[1]
+    n_tiles = plan.substep.blocks
     if phys is not None:
         n_tiles += plan.epilogue.grid[0] * plan.epilogue.grid[1]
     total = sum(counter.arith.values())

@@ -44,8 +44,8 @@
 // polar-edge shard and a ghost row elsewhere. The seam strips of the
 // halo-overlap schedule are the same launch again, on a strip-shaped block
 // (3 freshly exchanged ghost rows and 6 rows of the shard). A column's
-// arithmetic does not depend on where a tile boundary falls, so a block
-// gives the same bits as the whole grid.
+// arithmetic does not depend on which block computes it or in what order,
+// so a block gives the same bits as the whole grid.
 //
 // Why 3 ghost rows and columns suffice. The update at (j, i) reads the
 // column scans at (j, i), (j, i-1) and (j-1, i), and the inputs at most two
@@ -61,53 +61,92 @@
 // every interior output is exact; with 2 the west and south edge of the
 // interior is not (chip_smoke.py plants that fault).
 //
-// What bounds it on the card: bytes, in principle. At config #3
-// (360x180x32 fp32, 8.3 MB per 3-D field) the predictor must move 11 3-D
-// fields (u, v, pott, qv, qc and the radiative heating in, five fields out:
-// 91 MB, >= 27.5 us at 3.35 TB/s) and the corrector 16 (the five base
-// fields too: 133 MB, >= 40 us). The design keeps every intermediate on the
-// chip, in one launch:
-//   * A block (kThreads threads, one block an SM) owns a tile of tj
-//     latitude rows x tx longitudes (kernels/fused_substep.py::launch_plan
-//     sizes it and its dynamic shared memory). It copies u, v, pott, qv and
-//     qc of the tile with one column and one row around into shared memory
-//     with cp.async, a warp per (field, level, row) line and lanes along
-//     longitude, so each copy reads consecutive floats; shared memory keeps
-//     them as columns (level fastest, an odd column stride, so neither the
-//     line writes nor the column reads conflict in banks). COLP comes in as
-//     a 2-D patch with two columns and two rows around, the geometry as the
-//     tile's rows with one around.
-//   * The column scans run for the tile plus one column west and one row
-//     south (what the update reads at (j, i-1) and (j-1, i)). The work of
-//     each level (the flux divergence, the Exner factors with one powf a
-//     border, the layer's geopotential terms) runs a warp per column with
-//     the levels on the lanes, each lane taking the border below from the
-//     next lane by a shuffle. The two sums over k (the divergence's prefix
-//     sum, giving COLP_new and the sigma velocity; the geopotential's suffix
-//     sum from the surface up) run a thread per column over shared memory,
-//     in the plain version's serial order. wwind, phi, pvtf and COLP_new
-//     stay in shared memory: nothing is written to device memory but the
-//     outputs.
-//   * The update then runs one thread per point of the tile, lanes along
-//     longitude, reading every neighbour from shared memory and the base
-//     state and the radiative heating from device memory (coalesced), and
-//     writes the five fields once. The halo columns' scans are computed
-//     twice, by two tiles, identically. A quotient whose divisor several
-//     quotients of a point share (the cell area, dx^2, dy^2, dsigma, COLP_new,
-//     the earth's radius) is div_rn of column.cuh: the correctly rounded
+// What bounds it on the card: not bytes. At config #3 (360x180x32 fp32,
+// 8.3 MB per 3-D field) the predictor must move 11 3-D fields (u, v, pott,
+// qv, qc and the radiative heating in, five fields out: 91 MB, >= 27.5 us
+// at 3.35 TB/s) and the corrector 16 (the five base fields too: 133 MB,
+// >= 40 us); it computes about 350 operations a point. The kernel keeps
+// every intermediate on the chip, in one launch, and marches along
+// latitude, so that each input line is copied once and each column scanned
+// once, with the copies of later rows in flight while a row computes:
+//   * A persistent grid (kernels/fused_substep.py::launch_plan): one block
+//     of kThreads threads an SM, as many blocks as SMs, or as many as units
+//     on a small block. The block's longitudes are cut into ceil(nx / tx)
+//     strips of equal width (to within the 4, 2 or 1 columns a copy moves);
+//     the (strip, row) units, strip after strip and south to north in one,
+//     are dealt to the blocks in runs of equal weight, a unit weighing the
+//     lanes its update passes span (run_start). A block walks its run row
+//     by row; where it starts, or crosses into the next strip, it warms up:
+//     it stages the rows it starts from and scans the row below its first.
+//   * A ring of `depth` staged rows in shared memory (Ring; depth from the
+//     plan, 5 or 6): a row's u, v, pott, qv and qc, a (field, level) line of
+//     the strip's columns with one around, and its base COLP and surface
+//     height; a ring of depth + 1 COLP lines (two columns west, one east);
+//     the rows' geometry. Row j's update reads rows j-1 .. j+1 and row j+1's
+//     scans rows j+1 and j+2, so depth - 4 rows are in flight. The copies
+//     are cp.async along longitude, 16 bytes a lane where the rows allow it
+//     (8 or 4 where the width or an address does not), the edge columns 4
+//     bytes, and land on the slot's mbarrier (cp.async.mbarrier.arrive), so
+//     the warp that issues them goes on with other work.
+//   * A line keeps longitude fastest, at a pitch P of 4 mod 8 floats, the
+//     strip's first column at offset 4, 16-byte aligned. The update reads
+//     it with lanes along longitude, consecutive floats, with no bank
+//     conflict. The scans' lanes along the levels of a column stride by P,
+//     and fall in 8 banks: a 4-way conflict on their few staged reads, which
+//     no pitch that keeps a 16-byte copy aligned avoids.
+//   * A ring of scan results of three rows (wwind, phi, pvtf, COLP_new, base
+//     COLP, dCOLP/dt; level fastest at an odd pitch EX, so the scans' lanes
+//     along levels store and the update's along longitude read without a
+//     conflict) and a two-row scratch (phi's layer part, the surface Exner
+//     factor). Nothing is written to device memory but the outputs.
+//   * The work is a stream of tasks that warps take from a counter in
+//     shared memory (segment): the copies of a staged row (a task a field),
+//     the terms of 4 columns of a row (1a: the surface Exner factor a lane a
+//     column, then a lane a level, each taking the border below from the
+//     next lane by a shuffle; the 4 columns' chains interleaved), the sums
+//     of a row's columns (1b, 1c: a lane a column, both sums over k in the
+//     plain version's serial order, then the sigma velocity per border) and
+//     the passes of a row's update (a warp a pass of levels, lanes along
+//     longitude, one thread a point, reading every neighbour from shared
+//     memory and the base state and radiative heating from device memory,
+//     coalesced, writing the five fields once). For row J the order is the
+//     terms of row J+1, half of row J's update, the sums of row J+1, the
+//     rest of the update, the copies of row J + depth - 2. A task first
+//     waits for the tasks it reads from or whose slots it overwrites, by
+//     counters of finished tasks (and the mbarriers of the copies); these
+//     all come earlier in the order, so no task waits on a later one, no
+//     barrier separates the rows, and row J+1's scans run beside row J's
+//     update.
+//   * Per run, each (field, level, row) line is copied once, plus the two
+//     rows around the run (the plan's staged_rows_per_row), and each column
+//     scanned once, plus one column west and the row below the run
+//     (scanned_cols_per_col). A quotient whose divisor several quotients
+//     of a point share (the cell area, dx^2, dy^2, dsigma, COLP_new, the
+//     earth's radius) is div_rn of column.cuh: the correctly rounded
 //     reciprocal once, then one FMA correction per quotient, which gives the
 //     bits of the IEEE division in the normal range at a third of its cost.
 // No sum changed association: both sums over k keep the plain version's
-// serial order. Measured on an H100 (PERF.md), the kernel is not bound by
-// bytes: the staging (about 1 TB/s from L2 with the halo rows, well under
-// the card's rate), the scans and the update take about a third of its
-// time each. The corrector's physics epilogue is a second launch
+// serial order, and each point's arithmetic (level_terms, scan_sums,
+// scan_wwind, point_update) is that of the tiled kernel this one replaced,
+// whose outputs it equals bit for bit. What bounds it now is latency: the
+// 16 warps an SM (the update's registers allow no more) are inside tasks
+// nearly all the time, and a task's time is mostly its own dependent
+// chain (PERF.md). The corrector's physics epilogue is a second launch
 // (physics_epilogue.cu).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "column.cuh"
 #include "constants.cuh"
+
+// The block's dynamic shared memory (Ring's layout); every access indexes
+// it directly, so each is a shared-memory load or store.
+extern __shared__ __align__(16) float substep_smem[];
+// dt, read once a block from the device operand (Args::scalars[0]); the
+// arguments themselves stay in the kernel's parameter space
+__shared__ float substep_dt;
 
 namespace {
 
@@ -115,6 +154,13 @@ using namespace cm;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+// A terms task: kTermCols columns of one row, a lane per level of a
+// segment of kSeg levels, the columns' chains interleaved.
+constexpr int kSeg = 32;
+constexpr int kTermCols = 4;
+constexpr int kChunk = 8;         // levels a serial sum reads at once
+constexpr int kMinDepth = 5;      // the staged rows a row's tasks read, and one
+constexpr int kMaxDepth = 6;
 
 // GEO_FIELDS order (kernels/fused_substep.py)
 enum Geo {
@@ -130,188 +176,481 @@ struct Args {
   const float *hsurf, *rad, *geo, *sigma_vb, *dsigma;
   const float* vmask;                                // (ny,) or null
   float *u_out, *v_out, *pott_out, *qv_out, *qc_out, *colp_out;
-  int nz, ny, nx, tx, tj;
+  int nz, ny, nx, tx, depth, blocks;
+  int vec;                                           // floats a copy moves
   const float* scalars;                              // (dt, frac) on the card
-  float dt, dy, dy2, ptop;                           // dt: from scalars[0]
+  float dy, dy2, ptop;
   int with_rad, with_diff;
 };
 
-// Shared-memory layout of a tile, in floats; kernels/fused_substep.py::
-// substep_smem_floats is the same formula.
-struct Tile {
-  int nzp, nwp;  // column strides of the levels and of the nz+1 borders
-  int sx, sy;    // staged columns and rows: the tile, one around
-  int ex, ey;    // columns and rows of the scans: the tile, one west/south
-  int px;        // COLP patch columns (the tile, two west, one east)
-  int fields, wwind, phil, phi, pvtf, cn, cb, dc, xs, colp, geo, sig, dsig,
-      total;
+// the least n' >= n with n' = 4 mod 8: a line's pitch, a multiple of 4
+// floats (16-byte copies) whose multiples by 32 consecutive levels fall in
+// 8 banks, the fewest conflicts such a pitch allows
+__host__ __device__ constexpr int pitch(int n) {
+  return n + ((4 - n) % 8 + 8) % 8;
+}
 
-  __host__ __device__ Tile(int nz, int tx, int tj) {
-    nzp = nz | 1;
-    nwp = (nz + 1) | 1;
-    sx = tx + 2; sy = tj + 2;
-    ex = tx + 1; ey = tj + 1;
-    px = tx + 3;
-    const int e = ex * ey;
+// Shared-memory layout, in floats; kernels/fused_substep.py::
+// substep_smem_floats is the same formula. A staged line holds the strip's
+// longitudes i0 - 2 .. i0 + ncol at offsets 2 .. ncol + 4 (the strip's
+// first column at offset 4, 16-byte aligned); a scan level the scan
+// columns i0 - 1 .. i0 + ncol - 1 at offsets 0 .. ncol.
+struct Ring {
+  int P, EX;      // pitch of a staged line and (odd) of a scan level
+  int row;        // floats of a staged row: its fields', COLPb's, hsurf's lines
+  int sslot;      // floats of a scan slot
+  int xslot;      // floats of a scratch slot
+  int wwind, phi, pvtf, cn, cb, dc;   // offsets in a scan slot
+  int phil, xs;                       // offsets in a scratch slot
+  int fields, colp, geo, scan, scratch, sig, dsig, total;
+  int depth;                          // staged rows in the ring
+  unsigned md, md1;                   // ceil(2^32 / depth), ... / (depth + 1)
+
+  __host__ __device__ Ring(int nz, int tx, int depth_) {
+    depth = depth_;
+    md = 0xffffffffu / depth + 1;
+    md1 = 0xffffffffu / (depth + 1) + 1;
+    P = pitch(tx + 5);
+    EX = (tx + 1) | 1;
+    row = (kNFields * nz + 2) * P;      // and base COLP's and hsurf's lines
+    wwind = 0;
+    phi = wwind + (nz + 1) * EX;
+    pvtf = phi + nz * EX;
+    cn = pvtf + nz * EX;
+    cb = cn + EX;
+    dc = cb + EX;
+    sslot = dc + EX;
+    phil = 0;
+    xs = phil + nz * EX;
+    xslot = xs + EX;
     fields = 0;
-    wwind = fields + kNFields * sy * sx * nzp;
-    phil = wwind + e * nwp;
-    phi = phil + e * nzp;
-    pvtf = phi + e * nzp;
-    cn = pvtf + e * nzp;
-    cb = cn + e;
-    dc = cb + e;
-    xs = dc + e;
-    colp = xs + e;
-    geo = colp + (tj + 3) * px;
-    sig = geo + (tj + 2) * kNGeo;
+    colp = fields + depth * row;          // depth + 1 rows
+    geo = colp + (depth + 1) * P;         // depth rows
+    scan = geo + depth * kNGeo;           // 3 slots
+    scratch = scan + 3 * sslot;           // 2 slots
+    sig = scratch + 2 * xslot;
     dsig = sig + nz + 1;
     total = dsig + nz;
+  }
+
+  // row r's slot in the staged rows (r % depth) and in COLP's rows
+  // (r % (depth + 1)), by a multiply: r < 2^16
+  __device__ __forceinline__ int slot(int r) const {
+    return r - depth * (int)__umulhi((unsigned)r, md);
+  }
+  __device__ __forceinline__ int cslot(int r) const {
+    return r - (depth + 1) * (int)__umulhi((unsigned)r, md1);
+  }
+  // the offsets of row r's slots
+  __device__ __forceinline__ int field_row(int r) const {
+    return fields + slot(r) * row;
+  }
+  __device__ __forceinline__ int colp_row(int r) const {
+    return colp + cslot(r) * P;
+  }
+  __device__ __forceinline__ int geo_row(int r) const {
+    return geo + slot(r) * kNGeo;
+  }
+  __device__ __forceinline__ int scan_slot(int r) const {
+    return scan + (r % 3) * sslot;
+  }
+  __device__ __forceinline__ int scratch_slot(int r) const {
+    return scratch + (r & 1) * xslot;
   }
 };
 
 // ---------------------------------------------------------------------------
-// Column scans. The work at each level (the flux divergence, the Exner
-// factors with their powf, the divisions) runs one warp per column with the
-// levels on the lanes; the two sums over k run one thread per column over
-// shared memory, in the plain version's serial order.
+// Strips and runs. The grid's nx longitudes are cut into ceil(nx / tx)
+// strips of equal width to within q (the largest of 4, 2, 1 dividing nx),
+// each starting at a multiple of q. A (strip, row) unit weighs the lanes
+// its row's update passes span (pass_lanes: the strip's columns rounded up
+// to a power of two, what a row of the strip costs), and belongs to the
+// block whose share of the weight, b / blocks to (b + 1) / blocks of the
+// whole, holds its midpoint, so runs differ by less than a unit's weight;
+// a grid of as many blocks as units gives each block one
+// (kernels/fused_substep.py::run_start is the same rule).
 // ---------------------------------------------------------------------------
-struct Col {
-  int j, i, e, er, ec;  // grid row and column, scan slot and its row, column
-  bool active;          // a slot the update reads
+__host__ __device__ inline int quantum(int nx) {
+  return nx % 4 == 0 ? 4 : nx % 2 == 0 ? 2 : 1;
+}
+
+__device__ __forceinline__ int strip_start(const Args& a, int strips, int s) {
+  const int q = quantum(a.nx);
+  return q * (s * (a.nx / q) / strips);             // < 2^31: s * nx / q
+}
+
+// the lanes an update pass of a strip of ncol columns spans
+__host__ __device__ inline int pass_lanes(int ncol) {
+  int l = 1;
+  while (l < ncol) l <<= 1;
+  return l;
+}
+
+__device__ int run_start(const Args& a, int b) {
+  const int ny = a.ny, strips = (a.nx + a.tx - 1) / a.tx, units = strips * ny;
+  if (a.blocks >= units) return min(b, units);        // a unit each
+  const int q = quantum(a.nx), chunks = a.nx / q, g = a.blocks;
+  const int w_lo = pass_lanes(q * (chunks / strips));
+  const int w_hi = pass_lanes(q * ((chunks + strips - 1) / strips));
+  if (w_lo == w_hi) {
+    // every unit weighs the same: the least unit whose midpoint reaches
+    // b / g of them, ceil((2 b units - g) / (2 g))
+    const int num = 2 * b * units - g;
+    return num <= 0 ? 0 : (num + 2 * g - 1) / (2 * g);
+  }
+  long long total = 0;
+  for (int s = 0; s < strips; ++s)
+    total += pass_lanes(strip_start(a, strips, s + 1)
+                        - strip_start(a, strips, s));
+  const long long share = b * total * ny;      // the target: share / g
+  long long before = 0;                 // the weight of the strips before s
+  for (int s = 0;; ++s) {
+    const long long w = pass_lanes(strip_start(a, strips, s + 1)
+                                   - strip_start(a, strips, s));
+    if ((before + w * ny) * g > share || s == strips - 1) {
+      // the first unit of strip s whose midpoint reaches the target
+      const long long num = 2 * share - g * (2 * before + w);
+      const long long j = num <= 0 ? 0 : (num + 2 * g * w - 1) / (2 * g * w);
+      return j >= ny ? (s + 1) * ny : s * ny + (int)j;
+    }
+    before += w * ny;
+  }
+}
+
+// A strip: its first longitude and columns, how its lines are copied (nv
+// copies of vec floats, then ns single floats, then the edge columns) and
+// how its rows' work is cut into tasks.
+struct Strip {
+  int i0, ncol, nv, ns;
+  int items, lpp;          // a line's copies; lines a warp copies at once
+  int sums;                // sums tasks a row: ceil((ncol + 1) / 32)
+  int txe, per_warp;       // lanes along longitude a pass, levels a pass
+  int passes;              // update tasks a row
 };
 
-__device__ __forceinline__ Col scan_col(const Args& a, const Tile& t, int e,
-                                        int j0, int i0, int nrow, int ncol) {
-  const int er = e / t.ex, ec = e % t.ex;
-  Col c{j0 - 1 + er, wrap(i0 - 1 + ec, a.nx), e, er, ec, true};
-  c.active = !(er > nrow || ec > ncol || (er == 0 && (ec == 0 || j0 == 0)));
-  return c;
+__device__ __forceinline__ Strip make_strip(const Args& a, int s) {
+  const int strips = (a.nx + a.tx - 1) / a.tx;
+  Strip st;
+  st.i0 = strip_start(a, strips, s);
+  st.ncol = strip_start(a, strips, s + 1) - st.i0;
+  st.nv = st.ncol / a.vec;
+  st.ns = st.ncol - st.nv * a.vec;
+  st.items = st.nv + st.ns + 2;
+  st.lpp = max(1, 32 / st.items);
+  st.sums = (st.ncol + 32) / 32;
+  st.txe = pass_lanes(st.ncol);
+  st.per_warp = 32 / st.txe;
+  st.passes = (a.nz + st.per_warp - 1) / st.per_warp;
+  return st;
 }
 
-// the staged column of field f at the slot's row + dr, column + dc
-__device__ __forceinline__ const float* staged(const Tile& t, const float* sm,
-                                               int f, const Col& c, int dr,
-                                               int dc) {
-  return sm + ((f * t.sy + c.er + dr) * t.sx + c.ec + dc) * t.nzp;
+// ---------------------------------------------------------------------------
+// Copies: cp.async from device to shared memory; a row's land on an
+// mbarrier (the warm-up's COLP row is waited for by its thread).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned smem_addr(int off) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(substep_smem + off));
 }
 
-// 1a. per level k of a column: the divergence term (for wwind[k + 1]), the
-// layer Exner factor (pvtf[k]), the geopotential jump across the layer
-// (for phi[k]) and the layer's own part of its geopotential (phil[k]). The
-// lane of level k raises its upper border to kappa and takes the lower
-// border's from the next lane (or, below the last level, from xs).
+__device__ __forceinline__ void copy(int dst, const float* src, int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)), "l"(src));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                     smem_addr(dst)), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(dst)), "l"(src));
+}
+
+// wait for every copy this thread has issued
+__device__ __forceinline__ void land_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Lane `it` of a line's copies: the strip's column offset x of its first
+// float (nv copies of vec floats, then ns single floats, then nw columns
+// west and one east) and its width in bytes.
+__device__ __forceinline__ void line_item(const Strip& st, int vec, int nw,
+                                          int it, int& x, int& bytes) {
+  bytes = it < st.nv ? 4 * vec : 4;
+  it -= st.nv;
+  x = it < 0 ? (it + st.nv) * vec
+    : it < st.ns ? st.nv * vec + it
+    : it < st.ns + nw ? it - st.ns - nw
+    : st.ncol;
+}
+
+// What the update of row r reads from device memory beside the ring (the
+// radiative heating, and the corrector's base state), fetched into L2 with
+// the copies of row r + depth - 4: a lane a (field, level) line, both ends
+// of its longitudes.
+__device__ __forceinline__ void prefetch_update_rows(const Args& a,
+                                                     const Strip& st, int r) {
+  const bool base = a.ub != a.u;
+  const int nf = (base ? kNFields : 0) + (a.with_rad ? 1 : 0);
+  if (r < 0 || r >= a.ny || nf == 0) return;
+  for (int q = lane_id(); q < nf * a.nz; q += 32) {
+    const int f = q / a.nz, k = q - f * a.nz;
+    const float* fld = !base || f == kNFields ? a.rad
+                     : f == kU ? a.ub : f == kV ? a.vb : f == kPott ? a.pottb
+                     : f == kQv ? a.qvb : a.qcb;
+    const float* row = fld + ((size_t)k * a.ny + r) * a.nx + st.i0;
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row));
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + st.ncol - 1));
+  }
+}
+
+// One warp's copies of row r's field f (0 <= r < ny): lpp lines at a time,
+// a lane a copy (a line of more than 32 copies in turns of 32); f = -1 is
+// COLP's line (two columns west) and the row's geometry, f = -2 COLP's
+// line alone.
+__device__ void copy_lines(const Args& a, const Ring& t, const Strip& st,
+                           int r, int f) {
+  const int nz = a.nz, ny = a.ny, nx = a.nx, lane = lane_id();
+  if (f < 0) {
+    for (int it = lane; it < st.items + 1; it += 32) {
+      int x, bytes;
+      line_item(st, a.vec, 2, it, x, bytes);
+      const int col = bytes > 4 ? st.i0 + x : wrap(st.i0 + x, nx);
+      copy(t.colp_row(r) + 4 + x, a.colp + (size_t)r * nx + col,
+           bytes);
+    }
+    if (f == -2) return;
+    // the base COLP and the surface height of the row, as a field's line
+    for (int q = lane; q < 2 * st.items; q += 32) {
+      const int sub = q / st.items;
+      int x, bytes;
+      line_item(st, a.vec, 1, q - sub * st.items, x, bytes);
+      const int col = bytes > 4 ? st.i0 + x : wrap(st.i0 + x, nx);
+      copy(t.field_row(r) + (kNFields * nz + sub) * t.P + 4 + x,
+           (sub ? a.hsurf : a.colpb) + (size_t)r * nx + col, bytes);
+    }
+    const int g = lane - (32 - kNGeo);
+    if (g >= 0) copy(t.geo_row(r) + g, a.geo + r * kNGeo + g, 4);
+    prefetch_update_rows(a, st, r - (a.depth - 4));
+    return;
+  }
+  const int sub = lane / st.items;
+  if (sub >= st.lpp) return;
+  const float* row = (f == kU ? a.u : f == kV ? a.v : f == kPott ? a.pott
+                      : f == kQv ? a.qv : a.qc) + (size_t)r * nx;
+  const int line = t.field_row(r) + f * nz * t.P + 4;
+  for (int it = lane - sub * st.items; it < st.items; it += 32) {
+    int x, bytes;
+    line_item(st, a.vec, 1, it, x, bytes);
+    const float* src = row + (bytes > 4 ? st.i0 + x : wrap(st.i0 + x, nx));
+    for (int k = sub; k < nz; k += st.lpp)
+      copy(line + k * t.P + x, src + (size_t)k * ny * nx, bytes);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Column scans of one row. The work at each level (the flux divergence, the
+// Exner factors with their powf, the divisions) runs a lane a level, 4
+// columns a warp interleaved; the two sums over k run one lane per column,
+// in the plain version's serial order.
+// ---------------------------------------------------------------------------
+struct ScanRow {                // shared-memory offsets of what it reads
+  int j;                        // grid row
+  bool own;                     // a row of the run: COLP_new is written
+  int f0, f1;                   // staged rows j and j+1
+  int cs, c0, c1;               // COLP rows j-1 (clamped), j and j+1
+  int g0, g1;                   // geometry rows j and j+1
+  int s, x;                     // scan slot and scratch slot of row j
+};
+
+// 1a. per level k of scan column ec: the divergence term (for
+// wwind[k + 1]), the layer Exner factor (pvtf[k]), the geopotential jump
+// across the layer (for phi[k]) and the layer's own part of its
+// geopotential (phil[k]). The lane of level k raises its upper border to
+// kappa and takes the lower border's from the next lane (or, below the
+// last level, from xs).
 struct LevelTerms {
   float div, pvtf, jump, own;
 };
 
 __device__ __forceinline__ LevelTerms level_terms(const Args& a,
-                                                  const Tile& t,
-                                                  const float* sm,
-                                                  const Col& c, int k,
-                                                  int j0) {
-  const int nz = a.nz, ny = a.ny, j = c.j, lane = lane_id();
+                                                  const Ring& t,
+                                                  const ScanRow& r, int ec,
+                                                  int k, int kl) {
+  const float* sm = substep_smem;
+  const int nz = a.nz, ny = a.ny, j = r.j;
   const bool valid = k < nz;
   const int kk = valid ? k : nz - 1;
-  const float* cp = sm + t.colp + (j - j0 + 2) * t.px + c.ec + 1;
+  const int xc = ec + 3;                         // the column's line offset
+  const float* cp = sm + r.c0 + xc;
   const float ce = cp[0];
   const bool has_n = j + 1 < ny;
-  const int js = j > 0 ? j - 1 : 0;
   const float colp_u = 0.5f * (cp[-1] + ce);
   const float colp_u_e = 0.5f * (ce + cp[1]);
-  const float colp_v = 0.5f * (cp[(js - j) * t.px] + ce);
-  const float colp_v_n = has_n ? 0.5f * (ce + cp[t.px]) : 0.f;
-  const float* g = sm + t.geo + (j - j0 + 1) * kNGeo;
-  const float dxs_n = has_n ? g[kNGeo + kDxs] : 0.f;
-  const float uflx = staged(t, sm, kU, c, 0, 0)[kk] * colp_u * a.dy;
-  const float uflx_e = staged(t, sm, kU, c, 0, 1)[kk] * colp_u_e * a.dy;
+  const float colp_v = 0.5f * (sm[r.cs + xc] + ce);
+  const float colp_v_n = has_n ? 0.5f * (ce + sm[r.c1 + xc]) : 0.f;
+  const float* g = sm + r.g0;
+  const float dxs_n = has_n ? sm[r.g1 + kDxs] : 0.f;
+  const int fs = nz * t.P, lk = kk * t.P + xc;
+  const float uflx = sm[r.f0 + kU * fs + lk] * colp_u * a.dy;
+  const float uflx_e = sm[r.f0 + kU * fs + lk + 1] * colp_u_e * a.dy;
   const float vflx = j == 0 ? 0.f
-                            : staged(t, sm, kV, c, 0, 0)[kk] * colp_v * g[kDxs];
-  const float vflx_n = has_n ? staged(t, sm, kV, c, 1, 0)[kk] * colp_v_n * dxs_n
+                            : sm[r.f0 + kV * fs + lk] * colp_v * g[kDxs];
+  const float vflx_n = has_n ? sm[r.f1 + kV * fs + lk] * colp_v_n * dxs_n
                              : 0.f;
-  LevelTerms r;
-  r.div = (uflx_e - uflx + vflx_n - vflx) / g[kArea];
+  LevelTerms o;
+  o.div = (uflx_e - uflx + vflx_n - vflx) / g[kArea];
   // Exner factors of the layer's borders and the layer
   const float pb_lo = a.ptop + sm[t.sig + kk] * ce;
   const float pb_hi = a.ptop + sm[t.sig + kk + 1] * ce;
   const float pt_lo = powf(div_rn(pb_lo, kPRef, kRecipPRef), kKappa);
   const float below = __shfl_down_sync(kFull, pt_lo, 1);
-  const float pt_hi = kk == nz - 1 ? sm[t.xs + c.e]
-                    : lane < 31 ? below
+  const float pt_hi = kk == nz - 1 ? sm[r.x + t.xs + ec]
+                    : kl < kSeg - 1 ? below
                     : powf(div_rn(pb_hi, kPRef, kRecipPRef), kKappa);
-  r.pvtf = (pb_hi * pt_hi - pb_lo * pt_lo) / (kOnePlusKappa * (pb_hi - pb_lo));
-  const float cppt = kCp * staged(t, sm, kPott, c, 0, 0)[kk];
-  r.jump = cppt * (pt_hi - pt_lo);
-  r.own = cppt * (pt_hi - r.pvtf);
-  return r;
+  o.pvtf = (pb_hi * pt_hi - pb_lo * pt_lo) / (kOnePlusKappa * (pb_hi - pb_lo));
+  const float cppt = kCp * sm[r.f0 + kPott * fs + lk];
+  o.jump = cppt * (pt_hi - pt_lo);
+  o.own = cppt * (pt_hi - o.pvtf);
+  return o;
 }
 
-__device__ __forceinline__ void store_terms(const Tile& t, float* sm,
-                                            const Col& c, int k,
-                                            const LevelTerms& r) {
-  sm[t.wwind + c.e * t.nwp + k + 1] = r.div * sm[t.dsig + k];
-  sm[t.pvtf + c.e * t.nzp + k] = r.pvtf;
-  sm[t.phi + c.e * t.nzp + k] = r.jump;
-  sm[t.phil + c.e * t.nzp + k] = r.own;
+__device__ __forceinline__ void store_terms(const Ring& t, const ScanRow& r,
+                                            int ec, int k,
+                                            const LevelTerms& o) {
+  float* sm = substep_smem;
+  sm[r.s + t.wwind + (k + 1) * t.EX + ec] = o.div * sm[t.dsig + k];
+  sm[r.s + t.pvtf + k * t.EX + ec] = o.pvtf;
+  sm[r.s + t.phi + k * t.EX + ec] = o.jump;
+  sm[r.x + t.phil + k * t.EX + ec] = o.own;
 }
 
 // 1b. the sums of one column: the divergence's prefix sum (in place in
 // wwind[1..nz-1]) with dCOLP/dt and COLP_new, and the geopotential's suffix
-// sum from the surface up (phi, replacing the jumps)
-__device__ void scan_sums(const Args& a, const Tile& t, float* sm,
-                          const Col& c) {
-  const int nz = a.nz, nx = a.nx, e = c.e;
-  float* w = sm + t.wwind + e * t.nwp;
+// sum from the surface up (phi, replacing the jumps). Each loop reads
+// kChunk levels' values before it adds and stores them, so the reads do not
+// wait on the adds; the column's base COLP and surface height come read
+// already.
+__device__ void scan_sums(const Args& a, const Ring& t, const ScanRow& r,
+                          int ec, int i, float cb, float hsurf) {
+  float* sm = substep_smem;
+  const int nz = a.nz, nx = a.nx, j = r.j, ex = t.EX;
+  const float ghs = kG * hsurf;
+  float* w = sm + r.s + t.wwind + ec;
   float csum = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < nz; ++k) {
-    csum += w[k + 1];
-    if (k < nz - 1) w[k + 1] = csum;
+  for (int k0 = 0; k0 < nz; k0 += kChunk) {
+    float v[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q)
+      v[q] = k0 + q < nz ? w[(k0 + q + 1) * ex] : 0.f;
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int k = k0 + q;
+      if (k < nz) {
+        csum += v[q];
+        if (k < nz - 1) w[(k + 1) * ex] = csum;
+      }
+    }
   }
   const float dcolpdt = -csum;
-  const float cb = a.colpb[c.j * nx + c.i];
-  const float cn = cb + a.dt * dcolpdt;
-  sm[t.cn + e] = cn;
-  sm[t.cb + e] = cb;
-  sm[t.dc + e] = dcolpdt;
-  if (c.er >= 1 && c.ec >= 1) a.colp_out[c.j * nx + c.i] = cn;
+  const float dt = substep_dt;
+  const float cn = cb + dt * dcolpdt;
+  sm[r.s + t.cn + ec] = cn;
+  sm[r.s + t.cb + ec] = cb;
+  sm[r.s + t.dc + ec] = dcolpdt;
+  if (r.own && ec >= 1) a.colp_out[j * nx + i] = cn;
 
-  const float ghs = kG * a.hsurf[c.j * nx + c.i];
-  const float* own = sm + t.phil + e * t.nzp;
-  float* phi = sm + t.phi + e * t.nzp;
+  const float* own = sm + r.x + t.phil + ec;
+  float* phi = sm + r.s + t.phi + ec;
   float suffix = 0.f;
-#pragma unroll 4
-  for (int k = nz - 1; k >= 0; --k) {
-    const float jump = phi[k];
-    phi[k] = (ghs + suffix) + own[k];
-    suffix += jump;
+  for (int k1 = nz - 1; k1 >= 0; k1 -= kChunk) {
+    float jump[kChunk], part[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      jump[q] = k1 - q >= 0 ? phi[(k1 - q) * ex] : 0.f;
+      part[q] = k1 - q >= 0 ? own[(k1 - q) * ex] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (k1 - q >= 0) {
+        phi[(k1 - q) * ex] = (ghs + suffix) + part[q];
+        suffix += jump[q];
+      }
+    }
   }
 }
 
 // 1c. per border: the sigma velocity; zero at top and bottom
-__device__ void scan_wwind(const Args& a, const Tile& t, float* sm,
-                           const Col& c) {
+__device__ __forceinline__ void scan_wwind(const Args& a, const Ring& t,
+                                           const ScanRow& r, int ec) {
+  float* sm = substep_smem;
   const int nz = a.nz;
-  float* w = sm + t.wwind + c.e * t.nwp;
-  const float dc = sm[t.dc + c.e], cn = sm[t.cn + c.e];
-  for (int kb = lane_id(); kb < nz; kb += 32)
-    w[kb] = kb == 0 ? 0.f : -(w[kb] + sm[t.sig + kb] * dc) / cn;
-  if (lane_id() == 0) w[nz] = 0.f;
+  float* w = sm + r.s + t.wwind + ec;
+  const float dc = sm[r.s + t.dc + ec], cn = sm[r.s + t.cn + ec];
+#pragma unroll 4
+  for (int kb = 0; kb < nz; ++kb)
+    w[kb * t.EX] = kb == 0 ? 0.f : -(w[kb * t.EX] + sm[t.sig + kb] * dc) / cn;
+  w[nz * t.EX] = 0.f;
+}
+
+// The terms of scan columns ec0 .. ec0 + kTermCols - 1 of row r (ec = 0 is
+// longitude i0 - 1; columns past ncol are skipped): the surface Exner
+// factors a lane a column, then the levels a segment of 32 at a time, a
+// lane a level (1a).
+__device__ void terms_task(const Args& a, const Ring& t, const ScanRow& r,
+                           const Strip& st, int ec0) {
+  // the terms of a column
+  const int nz = a.nz, lane = lane_id();
+  if (lane < kTermCols && ec0 + lane <= st.ncol)
+    substep_smem[r.x + t.xs + ec0 + lane] = surface_exner(
+        substep_smem + t.sig, a.ptop, substep_smem[r.c0 + ec0 + lane + 3], nz);
+  __syncwarp();
+  for (int m = 0; m < (nz + kSeg - 1) / kSeg; ++m) {
+    const int k = m * kSeg + lane;
+    LevelTerms o[kTermCols];
+#pragma unroll
+    for (int cc = 0; cc < kTermCols; ++cc)
+      o[cc] = level_terms(a, t, r, min(ec0 + cc, st.ncol), k, lane);
+#pragma unroll
+    for (int cc = 0; cc < kTermCols; ++cc)
+      if (k < nz && ec0 + cc <= st.ncol) store_terms(t, r, ec0 + cc, k, o[cc]);
+  }
+}
+
+// The sums and sigma velocities (1b, 1c) of scan columns ec = part,
+// part + parts, ... of row r, a lane a column.
+__device__ void sums_task(const Args& a, const Ring& t, const ScanRow& r,
+                          const Strip& st, int part, int parts) {
+  // the sums of the columns
+  const int ec = part + parts * lane_id();
+  if (ec > st.ncol) return;
+  const int i = wrap(st.i0 - 1 + ec, a.nx);
+  const float* b = substep_smem + r.f0 + kNFields * a.nz * t.P + 3 + ec;
+  scan_sums(a, t, r, ec, i, b[0], b[t.P]);
+  scan_wwind(a, t, r, ec);
 }
 
 // ---------------------------------------------------------------------------
-// Tendencies and update at one point (jr, x, k) of the tile.
+// Tendencies and update at one point (j, i0 + x, k) of row j.
 // ---------------------------------------------------------------------------
+struct UpdRow {                  // shared-memory offsets of what it reads
+  int j;
+  int fs, f0, fn;               // staged rows j-1 (clamped), j, j+1
+  int css, cs, c0, cn;          // COLP rows j-2, j-1 (clamped), j, j+1
+  int gs, g0, gn;               // geometry rows j-1 (clamped), j, j+1
+  int ss, s0;                   // scan slots of rows j-1 (clamped), j
+};
+
 template <bool SAME_BASE>
-__device__ void point_update(const Args& a, const Tile& t, const float* sm,
-                             int j0, int i0, int jr, int x, int k) {
+__device__ void point_update(const Args& a, const Ring& t, const UpdRow& r,
+                             int i0, int x, int k) {
+  const float* sm = substep_smem;
+  const float dt = substep_dt;
   const int nz = a.nz, ny = a.ny, nx = a.nx;
-  const int j = j0 + jr;
+  const int j = r.j;
   const int i = i0 + x;
   const bool has_n = j + 1 < ny;
   const int js = j > 0 ? j - 1 : 0;
   const int jn = has_n ? j + 1 : j;                 // north clamp
-  const float* g = sm + t.geo + (jr + 1) * kNGeo;
+  const float* g = sm + r.g0;
   const float area = g[kArea], area_v = g[kAreaV], dx = g[kDx];
   const float dx2 = dx * dx;
   const int id = (k * ny + j) * nx + i;
@@ -319,29 +658,37 @@ __device__ void point_update(const Args& a, const Tile& t, const float* sm,
   const float r_area = rcp(area), r_dx2 = rcp(dx2), r_dy2 = rcp(a.dy2);
   const float r_earth = rcp(kREarth);
 
-  // staged fields at (kk, jj, i + di) for jj in {js, j, j + 1}: offsets
-  // from this point's column, the strides computed once
-  const int cs = t.nzp, rs = t.sx * t.nzp, fs = t.sy * rs;
-  const float* f0 = sm + t.fields + ((jr + 1) * t.sx + x + 1) * cs;
+  // staged fields at (kk, jj, i + di) for jj in {js, j, j + 1}: a row's
+  // slot in the ring, then offsets from this point's column
+  const int fs = nz * t.P, xl = x + 4;
+  auto frow = [&](int jj) {
+    return jj == j ? r.f0 : jj == j + 1 ? r.fn : r.fs;
+  };
   auto fld = [&](int f, int kk, int jj, int di) {
-    return f0[f * fs + (jj - j) * rs + di * cs + kk];
+    return sm[frow(jj) + f * fs + kk * t.P + xl + di];
   };
   // COLP of the evaluation state at (jj, i + di)
-  const float* c0 = sm + t.colp + (jr + 2) * t.px + x + 2;
-  auto colp = [&](int jj, int di) { return c0[(jj - j) * t.px + di]; };
-  // the scan slot of (jj, i + di), di in {-1, 0}
-  const int s0 = (jr + 1) * t.ex + x + 1;
-  auto slot = [&](int jj, int di) { return s0 + (jj - j) * t.ex + di; };
-  auto cnp = [&](int jj, int di) { return sm[t.cn + slot(jj, di)]; };
-  auto colpb = [&](int jj, int di) { return sm[t.cb + slot(jj, di)]; };
+  auto crow = [&](int jj) {
+    return jj == j ? r.c0 : jj == j + 1 ? r.cn : jj == js ? r.cs : r.css;
+  };
+  auto colp = [&](int jj, int di) { return sm[crow(jj) + xl + di]; };
+  // the geometry of row jj
+  auto grow = [&](int jj) {
+    return jj == j ? r.g0 : jj == j + 1 ? r.gn : r.gs;
+  };
+  // the scans at (jj, i + di), jj in {js, j}, di in {-1, 0}
+  const int e = x + 1;
+  auto srow = [&](int jj) { return jj == j ? r.s0 : r.ss; };
+  auto cnp = [&](int jj, int di) { return sm[srow(jj) + t.cn + e + di]; };
+  auto colpb = [&](int jj, int di) { return sm[srow(jj) + t.cb + e + di]; };
   auto wwind = [&](int kb, int jj, int di) {
-    return sm[t.wwind + slot(jj, di) * t.nwp + kb];
+    return sm[srow(jj) + t.wwind + kb * t.EX + e + di];
   };
   auto phi = [&](int jj, int di) {
-    return sm[t.phi + slot(jj, di) * t.nzp + k];
+    return sm[srow(jj) + t.phi + k * t.EX + e + di];
   };
   auto pvtf = [&](int jj, int di) {
-    return sm[t.pvtf + slot(jj, di) * t.nzp + k];
+    return sm[srow(jj) + t.pvtf + k * t.EX + e + di];
   };
 
   // face-averaged COLP
@@ -359,7 +706,7 @@ __device__ void point_update(const Args& a, const Tile& t, const float* sm,
   };
   auto vflx = [&](int jj, int di) {
     if (jj == 0 || jj >= ny) return 0.f;
-    return fld(kV, k, jj, di) * colp_v_at(jj, di) * g[(jj - j) * kNGeo + kDxs];
+    return fld(kV, k, jj, di) * colp_v_at(jj, di) * sm[grow(jj) + kDxs];
   };
   const float colp_u = colp_u_at(j, 0);
   const float colp_v = colp_v_at(j, 0);
@@ -399,7 +746,7 @@ __device__ void point_update(const Args& a, const Tile& t, const float* sm,
       dqdt = dqdt + coef * ce * lap;
     }
     const float qb = SAME_BASE ? qc_ : qbs[s][id];
-    float qnew = div_rn(qb * cb + a.dt * dqdt, cn, r_cn);
+    float qnew = div_rn(qb * cb + dt * dqdt, cn, r_cn);
     if (s > 0) qnew = qnew < 0.f ? 0.f : qnew;     // NaN passes through
     __stcg(qouts[s] + id, qnew);
   }
@@ -448,7 +795,7 @@ __device__ void point_update(const Args& a, const Tile& t, const float* sm,
     }
     const float ub = SAME_BASE ? uc : a.ub[id];
     const float cu_old = 0.5f * (colpb(j, -1) + cb);
-    __stcg(a.u_out + id, (ub * cu_old + a.dt * dudt) / cn_u);
+    __stcg(a.u_out + id, (ub * cu_old + dt * dudt) / cn_u);
   }
 
   // ---- v momentum at the south face of (j, i) ----
@@ -497,7 +844,7 @@ __device__ void point_update(const Args& a, const Tile& t, const float* sm,
     }
     const float vb = SAME_BASE ? vc : a.vb[id];
     const float cv_old = 0.5f * (colpb(js, 0) + cb);
-    const float vnew = (vb * cv_old + a.dt * dvdt) / cn_v;
+    const float vnew = (vb * cv_old + dt * dvdt) / cn_v;
     // the wall as data: 0 on wall rows. "+ 0" turns the -0 of a negative v
     // times 0 into +0, so the single-device mask equals the index rule bit
     // for bit
@@ -506,110 +853,357 @@ __device__ void point_update(const Args& a, const Tile& t, const float* sm,
 }
 
 // ---------------------------------------------------------------------------
-// The substep: stage, scan, update.
+// A block's run: segments of rows of one strip, each warmed up, then walked
+// row by row.
 // ---------------------------------------------------------------------------
+
+__device__ __forceinline__ ScanRow scan_row(const Ring& t, int ny, int j,
+                                            bool own) {
+  ScanRow r;
+  r.j = j;
+  r.own = own;
+  const bool has_n = j + 1 < ny;
+  r.f0 = t.field_row(j);
+  r.f1 = has_n ? t.field_row(j + 1) : r.f0;
+  r.c0 = t.colp_row(j);
+  r.cs = j > 0 ? t.colp_row(j - 1) : r.c0;
+  r.c1 = has_n ? t.colp_row(j + 1) : r.c0;
+  r.g0 = t.geo_row(j);
+  r.g1 = has_n ? t.geo_row(j + 1) : r.g0;
+  r.s = t.scan_slot(j);
+  r.x = t.scratch_slot(j);
+  return r;
+}
+
+__device__ __forceinline__ UpdRow upd_row(const Ring& t, int ny, int j) {
+  UpdRow r;
+  r.j = j;
+  const int js = j > 0 ? j - 1 : 0, jss = js > 0 ? js - 1 : 0;
+  const int jn = j + 1 < ny ? j + 1 : j;
+  r.fs = t.field_row(js);
+  r.f0 = t.field_row(j);
+  r.fn = t.field_row(jn);
+  r.css = t.colp_row(jss);
+  r.cs = t.colp_row(js);
+  r.c0 = t.colp_row(j);
+  r.cn = t.colp_row(jn);
+  r.gs = t.geo_row(js);
+  r.g0 = t.geo_row(j);
+  r.gn = t.geo_row(jn);
+  r.ss = t.scan_slot(js);
+  r.s0 = t.scan_slot(j);
+  return r;
+}
+
+// One pass of the update of row j: levels k = p * per_warp + lane / txe,
+// lanes along longitude.
 template <bool SAME_BASE>
-__global__ void __launch_bounds__(kThreads, 1)
-substep_kernel(Args args) {
-  extern __shared__ float sm[];
-  // dt, read once a block from the device operand while the tile stages;
-  // the staging's barrier publishes it
-  __shared__ float dt_block;
-  if (threadIdx.x == 0) dt_block = __ldg(args.scalars);
-  Args a = args;
-  const int nz = a.nz, ny = a.ny, nx = a.nx;
-  const Tile t(nz, a.tx, a.tj);
-  const int i0 = blockIdx.x * a.tx, j0 = blockIdx.y * a.tj;
-  const int ncol = min(a.tx, nx - i0), nrow = min(a.tj, ny - j0);
-  const int warp = threadIdx.x / 32, lane = lane_id();
+__device__ __forceinline__ void update_task(const Args& a, const Ring& t,
+                                            const UpdRow& r, const Strip& st,
+                                            int p) {
+  // the update of a pass of levels
+  const int nz = a.nz, lane = lane_id();
+  const int x = lane % st.txe, k = p * st.per_warp + lane / st.txe;
+  if (x < st.ncol && k < nz) point_update<SAME_BASE>(a, t, r, st.i0, x, k);
+}
 
-  // 1. stage: a warp per (field, level, row) line of sx columns
-  load_lines<kWarps>(
-      sm, kNFields, nz, t.sy, t.sx, i0 - 1, nx, t.nzp,
-      [&](int f, int k, int r, const float*& row, int& off) {
-        const float* src = f == kU ? a.u : f == kV ? a.v : f == kPott ? a.pott
-                         : f == kQv ? a.qv : a.qc;
-        row = src + ((size_t)k * ny + clamp_row(j0 - 1 + r, ny)) * nx;
-        off = t.fields + (f * t.sy + r) * t.sx * t.nzp + k;
-      });
-  load_lines<kWarps>(
-      sm, 1, 1, a.tj + 3, t.px, i0 - 2, nx, 1,
-      [&](int, int, int r, const float*& row, int& off) {
-        row = a.colp + (size_t)clamp_row(j0 - 2 + r, ny) * nx;
-        off = t.colp + r * t.px;
-      });
-  for (int q = threadIdx.x; q <= nz; q += kThreads) {
-    sm[t.sig + q] = a.sigma_vb[q];
-    if (q < nz) sm[t.dsig + q] = a.dsigma[q];
-  }
-  for (int q = threadIdx.x; q < (a.tj + 2) * kNGeo; q += kThreads)
-    sm[t.geo + q] = a.geo[clamp_row(j0 - 1 + q / kNGeo, ny) * kNGeo
-                          + q % kNGeo];
-  wait_copies();
-  __syncthreads();
-  a.dt = dt_block;
+// ---------------------------------------------------------------------------
+// A segment's tasks, in the order warps take them from the block's counter:
+// COLP of row jA-2 and rows jA-1 .. jA+1, the scans of the row below the
+// segment and of its first row, the rest of the warm-up's copies (up to
+// row jA + depth - 3); then for each row J the terms of row J+1, the first
+// half of the update of row J, the sums of row J+1 (by then its terms are
+// done), the rest of the update of row J and the copies of row
+// J + depth - 2. A task waits, before it starts, for the tasks it reads
+// from or whose slots it overwrites, all earlier in the order, by counters
+// of finished tasks in shared memory: no task waits on a later one, and no
+// barrier separates the rows.
+// ---------------------------------------------------------------------------
+struct Counters {
+  // by staged slot: an mbarrier that the copies of the slot's row arrive
+  // on as they land (each lane of each of its copy tasks once)
+  unsigned long long landed[kMaxDepth];
+  int ticket;                   // tasks taken
+  int pre;                      // COLP of row jA-2 copied
+  int terms[3];                 // terms tasks finished, by scan slot
+  int sums[3];                  // sums tasks finished, by scan slot
+  int updates[4];               // update passes finished, by row mod 4
+};
 
-  // 2. column scans of the tile, one column west and one row south (the
-  // slots the update reads)
-  const int slots = t.ex * t.ey;
-  // the surface border's Exner factor of each column, a thread per column
-  for (int e = threadIdx.x; e < slots; e += kThreads) {
-    const Col c = scan_col(a, t, e, j0, i0, nrow, ncol);
-    if (!c.active) continue;
-    const float ce = sm[t.colp + (c.j - j0 + 2) * t.px + c.ec + 1];
-    sm[t.xs + e] = surface_exner(sm + t.sig, a.ptop, ce, nz);
-  }
-  __syncthreads();
-  // 1a. a warp per column, levels on the lanes (every lane runs every
-  // segment of 32 levels: the shuffles need the whole warp)
-  for (int e = warp; e < slots; e += kWarps) {
-    const Col c = scan_col(a, t, e, j0, i0, nrow, ncol);
-    if (!c.active) continue;
-    for (int m = 0; m < (nz + 31) / 32; ++m) {
-      const int k = m * 32 + lane;
-      const LevelTerms r = level_terms(a, t, sm, c, k, j0);
-      if (k < nz) store_terms(t, sm, c, k, r);
+// Lane 0 reads the counter with acquire semantics until it reaches `want`;
+// the warp's barrier then orders every lane's reads after it.
+__device__ __forceinline__ void wait_for(const int* c, int want) {
+  if (lane_id() == 0) {
+    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(c));
+    int v;
+    for (;;) {
+      asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n"
+                   : "=r"(v) : "r"(addr) : "memory");
+      if (v >= want) break;
+      __nanosleep(20);
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < slots; e += kThreads) {
-    const Col c = scan_col(a, t, e, j0, i0, nrow, ncol);
-    if (c.active) scan_sums(a, t, sm, c);
+  __syncwarp();
+}
+
+// The warp's barrier orders every lane's writes before lane 0's release.
+__device__ __forceinline__ void finished(int* c) {
+  __syncwarp();
+  if (lane_id() == 0) {
+    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(c));
+    asm volatile("red.release.cta.shared.add.s32 [%0], 1;\n"
+                 :: "r"(addr) : "memory");
   }
-  __syncthreads();
-  for (int e = warp; e < slots; e += kWarps) {
-    const Col c = scan_col(a, t, e, j0, i0, nrow, ncol);
-    if (c.active) scan_wwind(a, t, sm, c);
+}
+
+// The tasks of segment jA .. jB-1 and how many of each a row has; kept in
+// shared memory, so that no warp holds it in registers.
+struct Plan {
+  int jA, jB, last;             // rows; the last row staged
+  int r_lo, r_mid, r_hi;        // rows staged by the warm-up; its scans read
+                                // up to r_mid
+  int j_first;                  // the first row scanned
+  int cols, sums, passes;       // terms, sums and update tasks a row
+  int depth;
+  int npre, ncopy0, nrows0, nfirst;  // the warm-up's tasks
+};
+
+__device__ __forceinline__ int row_tasks(const Plan& p, int j) {
+  return (j + 1 < p.jB ? p.cols + p.sums : 0) + p.passes
+         + (j + p.depth - 2 <= p.last ? kNFields + 1 : 0);
+}
+
+// the update passes of row jj in this segment are finished
+__device__ __forceinline__ void wait_updates(const Plan& p, Counters& c,
+                                             int jj) {
+  if (jj >= p.jA)
+    wait_for(&c.updates[jj & 3], p.passes * ((jj - p.jA) / 4 + 1));
+}
+
+// Copy task f of staged row r, once the rows its slots held are read:
+// every update of rows r-depth-1 .. r-depth+1 in this segment finished. The
+// warp does not wait for its copies: each lane's arrival on the slot's
+// mbarrier comes when they land.
+__device__ __forceinline__ void copy_task(const Args& a, const Ring& t,
+                                          const Strip& st, const Plan& p,
+                                          Counters& c, int r, int f) {
+  for (int jj = r - p.depth - 1; jj <= r - p.depth + 1; ++jj)
+    wait_updates(p, c, jj);
+  copy_lines(a, t, st, r, f);
+  const unsigned bar = static_cast<unsigned>(
+      __cvta_generic_to_shared(&c.landed[t.slot(r)]));
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// The copies of staged row r (its fields, COLP and geometry) have landed:
+// the slot's mbarrier has completed the phase of the slot's
+// ((r - r_lo) / depth)-th row of the segment.
+__device__ __forceinline__ void wait_row(const Ring& t, const Plan& p,
+                                         Counters& c, int r) {
+  if (r < p.r_lo || r > p.last) return;
+  const unsigned bar = static_cast<unsigned>(
+      __cvta_generic_to_shared(&c.landed[t.slot(r)]));
+  const unsigned parity = ((r - p.r_lo) / p.depth) & 1;
+  unsigned done = 0;
+  while (!done)
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// The terms, or the sums, of row R are finished.
+__device__ __forceinline__ void wait_terms(const Plan& p, Counters& c,
+                                           int R) {
+  if (R >= p.j_first)
+    wait_for(&c.terms[R % 3], p.cols * ((R - p.j_first) / 3 + 1));
+}
+
+__device__ __forceinline__ void wait_sums(const Plan& p, Counters& c,
+                                          int R) {
+  if (R >= p.j_first)
+    wait_for(&c.sums[R % 3], p.sums * ((R - p.j_first) / 3 + 1));
+}
+
+// Terms task ec of row R (columns kTermCols * ec ..): once its rows are
+// staged, the scan slot's last row (R-3) is read by the updates of rows R-3
+// and R-2, and the scratch slot's (R-2) by its sums.
+__device__ __forceinline__ void terms_row_task(const Args& a, const Ring& t,
+                                               const Strip& st, const Plan& p,
+                                               Counters& c, int R, int ec) {
+  if (R == p.jA - 1 && R >= 1) wait_for(&c.pre, 1);
+  wait_row(t, p, c, R);
+  wait_row(t, p, c, R + 1);
+  wait_updates(p, c, R - 3);
+  wait_updates(p, c, R - 2);
+  wait_sums(p, c, R - 2);
+  terms_task(a, t, scan_row(t, a.ny, R, R >= p.jA), st, ec * kTermCols);
+  finished(&c.terms[R % 3]);
+}
+
+// Sums task `part` of row R, once its terms are finished.
+__device__ __forceinline__ void sums_row_task(const Args& a, const Ring& t,
+                                              const Strip& st, const Plan& p,
+                                              Counters& c, int R, int part) {
+  wait_terms(p, c, R);
+  sums_task(a, t, scan_row(t, a.ny, R, R >= p.jA), st, part, p.sums);
+  finished(&c.sums[R % 3]);
+}
+
+// Update pass k of row J, once the sums of rows J-1 and J are finished
+// (and with them the staged rows J-1 .. J+1 their terms read).
+template <bool SAME_BASE>
+__device__ __forceinline__ void update_row_task(const Args& a, const Ring& t,
+                                                const Strip& st,
+                                                const Plan& p, Counters& c,
+                                                int J, int k) {
+  wait_sums(p, c, J - 1);
+  wait_sums(p, c, J);
+  update_task<SAME_BASE>(a, t, upd_row(t, a.ny, J), st, k);
+  finished(&c.updates[J & 3]);
+}
+
+// Rows jA .. jB-1 of strip s.
+template <bool SAME_BASE>
+__device__ void segment(const Args& a, const Ring& t, int s, int jA, int jB,
+                        Strip& st, Plan& p, Counters& c) {
+  if (threadIdx.x == 0) {
+    st = make_strip(a, s);
+    p.jA = jA;
+    p.jB = jB;
+    p.depth = a.depth;
+    p.last = min(jB, a.ny - 1);
+    p.r_lo = max(jA - 1, 0);
+    p.r_mid = min(jA + 1, p.last);
+    p.r_hi = min(jA + a.depth - 3, p.last);
+    p.j_first = jA > 0 ? jA - 1 : jA;
+    p.cols = (st.ncol + kTermCols) / kTermCols;
+    p.sums = st.sums;
+    p.passes = st.passes;
+    p.npre = jA >= 2 ? 1 : 0;
+    p.ncopy0 = (p.r_mid - p.r_lo + 1) * (kNFields + 1);
+    p.nrows0 = jA - p.j_first + 1;
+    p.nfirst = p.npre + p.ncopy0 + p.nrows0 * (p.cols + p.sums)
+               + (p.r_hi - p.r_mid) * (kNFields + 1);
+    c.ticket = 0;
+    c.pre = 0;
+    for (int q = 0; q < kMaxDepth; ++q) {
+      const unsigned bar = static_cast<unsigned>(
+          __cvta_generic_to_shared(&c.landed[q]));
+      asm volatile("mbarrier.init.shared.b64 [%0], %1;\n"
+                   :: "r"(bar), "r"((kNFields + 1) * 32) : "memory");
+    }
+    for (int q = 0; q < 3; ++q) c.terms[q] = c.sums[q] = 0;
+    for (int q = 0; q < 4; ++q) c.updates[q] = 0;
   }
   __syncthreads();
 
-  // 3. the update, one thread per point, lanes along longitude
-  const int per_warp = 32 / a.tx;                 // levels a warp takes a pass
-  const int x = lane % a.tx, ksub = lane / a.tx;
-  if (x >= ncol) return;
-  for (int jr = 0; jr < nrow; ++jr)
-    for (int k = warp * per_warp + ksub; k < nz; k += kWarps * per_warp)
-      point_update<SAME_BASE>(a, t, sm, j0, i0, jr, x, k);
+  // a warp's place in the order: row J's tasks start at ticket `start`
+  int J = jA, start = p.nfirst;
+  for (;;) {
+    int q = 0;
+    if (lane_id() == 0) q = atomicAdd(&c.ticket, 1);
+    q = __shfl_sync(kFull, q, 0);
+    if (q < p.nfirst) {                       // the warm-up
+      if (q < p.npre) {                       // COLP of row jA-2
+        copy_lines(a, t, st, jA - 2, -2);
+        land_copies();
+        finished(&c.pre);
+      } else if ((q -= p.npre) < p.ncopy0) {  // the rows its scans read
+        copy_task(a, t, st, p, c, p.r_lo + q / (kNFields + 1),
+                  q % (kNFields + 1) - 1);
+      } else if ((q -= p.ncopy0) < p.nrows0 * p.cols) {
+        terms_row_task(a, t, st, p, c, p.j_first + q / p.cols, q % p.cols);
+      } else if ((q -= p.nrows0 * p.cols) < p.nrows0 * p.sums) {
+        sums_row_task(a, t, st, p, c, p.j_first + q / p.sums, q % p.sums);
+      } else {                                // the rest of the first rows
+        q -= p.nrows0 * p.sums;
+        copy_task(a, t, st, p, c, p.r_mid + 1 + q / (kNFields + 1),
+                  q % (kNFields + 1) - 1);
+      }
+      continue;
+    }
+    while (J < jB && q >= start + row_tasks(p, J)) {
+      start += row_tasks(p, J);
+      ++J;
+    }
+    if (J >= jB) break;
+    q -= start;
+    const int ncols = J + 1 < jB ? p.cols : 0;
+    const int nsums = J + 1 < jB ? p.sums : 0;
+    const int half = p.passes / 2;
+    if (q < ncols)
+      terms_row_task(a, t, st, p, c, J + 1, q);
+    else if ((q -= ncols) < half)
+      update_row_task<SAME_BASE>(a, t, st, p, c, J, q);
+    else if ((q -= half) < nsums)
+      sums_row_task(a, t, st, p, c, J + 1, q);
+    else if ((q -= nsums) < p.passes - half)
+      update_row_task<SAME_BASE>(a, t, st, p, c, J, half + q);
+    else
+      copy_task(a, t, st, p, c, J + p.depth - 2, q - (p.passes - half) - 1);
+  }
+  __syncthreads();
 }
 
 template <bool SAME_BASE>
-int launch(const Args& a, dim3 grid, int smem, cudaStream_t s) {
+__global__ void __launch_bounds__(kThreads, 1)
+substep_kernel(Args args) {
+  __shared__ Strip strip;
+  __shared__ Plan plan;
+  __shared__ Counters counters;
+  // the first barrier publishes dt
+  if (threadIdx.x == 0) substep_dt = __ldg(args.scalars);
+  const Args& a = args;
+  const Ring t(a.nz, a.tx, a.depth);
+  for (int q = threadIdx.x; q <= a.nz; q += kThreads) {
+    substep_smem[t.sig + q] = a.sigma_vb[q];
+    if (q < a.nz) substep_smem[t.dsig + q] = a.dsigma[q];
+  }
+  __syncthreads();
+
+  const int u1 = run_start(a, blockIdx.x + 1);
+  for (int u = run_start(a, blockIdx.x); u < u1;) {
+    const int s = u / a.ny, jA = u - s * a.ny;
+    const int jB = min(a.ny, jA + (u1 - u));
+    segment<SAME_BASE>(a, t, s, jA, jB, strip, plan, counters);
+    u += jB - jA;
+  }
+}
+
+template <bool SAME_BASE>
+int launch(const Args& a, int smem, cudaStream_t s) {
   static int opted = 48 * 1024;                   // the default limit
   const int err = allow_smem(substep_kernel<SAME_BASE>, smem, opted);
   if (err) return err;
-  substep_kernel<SAME_BASE><<<grid, kThreads, smem, s>>>(a);
+  substep_kernel<SAME_BASE><<<a.blocks, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the widest copy (4, 2 or 1 floats) that the rows of every staged field
+// allow: a multiple of it in nx and in each field's address
+int copy_width(int nx, const float* const* fields, int n) {
+  for (int vec = quantum(nx); vec > 1; vec /= 2) {
+    bool ok = true;
+    for (int q = 0; q < n; ++q)
+      ok = ok && reinterpret_cast<uintptr_t>(fields[q]) % (4 * vec) == 0;
+    if (ok) return vec;
+  }
+  return 1;
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes (kernels/fused_substep.py). The
-// predictor passes the evaluation state as the base (same_base=1). tx, tj
-// and smem_bytes are the tile plan (launch_plan); scalars points to the
-// float[2] (dt, frac) on the card (only dt is read here). A plan whose
-// shared memory falls short of the tile's layout, 2 > nz > 128, a tx that
-// does not divide 32 or a null scalars is refused. Returns
-// cudaGetLastError() after the launch; 0 is success.
+// predictor passes the evaluation state as the base (same_base=1). tx,
+// depth, blocks and smem_bytes are the plan (launch_plan: the strip width,
+// the ring depth, the persistent grid and the shared memory); scalars
+// points to the float[2] (dt, frac) on the card (only dt is read here). A
+// plan whose shared memory falls short of the ring's layout, 2 > nz > 128,
+// a tx other than 4, 8, 16 or 32, a depth outside 5..6, no block, an empty
+// grid or a null scalars is refused. Returns cudaGetLastError() after the
+// launch; 0 is success.
 extern "C" int cm_fused_substep_f32(
     const float* u, const float* v, const float* pott, const float* qv,
     const float* qc, const float* colp,
@@ -619,24 +1213,25 @@ extern "C" int cm_fused_substep_f32(
     const float* sigma_vb, const float* dsigma, const float* vmask,
     float* u_out, float* v_out, float* pott_out, float* qv_out, float* qc_out,
     float* colp_out,
-    int nz, int ny, int nx, int tx, int tj, int smem_bytes,
+    int nz, int ny, int nx, int tx, int depth, int blocks, int smem_bytes,
     const float* scalars, float dy, float ptop,
     int same_base, int with_rad, int with_diff, void* stream) {
-  if (nz < 2 || nz > 128 || tx < 1 || tx > 32 || 32 % tx != 0 || tj < 1
-      || scalars == nullptr
-      || smem_bytes < (int)sizeof(float) * Tile(nz, tx, tj).total)
+  if (nz < 2 || nz > 128 || !(tx == 4 || tx == 8 || tx == 16 || tx == 32)
+      || depth < kMinDepth || depth > kMaxDepth || blocks < 1 || ny < 1
+      || nx < 1 || scalars == nullptr
+      || smem_bytes < (int)sizeof(float) * Ring(nz, tx, depth).total)
     return (int)cudaErrorInvalidValue;
+  const float* staged[] = {u, v, pott, qv, qc, colp, colpb, hsurf};
   Args a{u, v, pott, qv, qc, colp, ub, vb, pottb, qvb, qcb, colpb,
          hsurf, rad, geo, sigma_vb, dsigma, vmask,
          u_out, v_out, pott_out, qv_out, qc_out, colp_out,
-         nz, ny, nx, tx, tj,
-         scalars, 0.f, dy, (float)((double)dy * (double)dy), ptop,
+         nz, ny, nx, tx, depth, blocks, copy_width(nx, staged, 8),
+         scalars, dy, (float)((double)dy * (double)dy), ptop,
          with_rad, with_diff};
   if (same_base) {
     a.ub = u; a.vb = v; a.pottb = pott; a.qvb = qv; a.qcb = qc; a.colpb = colp;
   }
-  const dim3 grid((nx + tx - 1) / tx, (ny + tj - 1) / tj);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return same_base ? launch<true>(a, grid, smem_bytes, s)
-                   : launch<false>(a, grid, smem_bytes, s);
+  return same_base ? launch<true>(a, smem_bytes, s)
+                   : launch<false>(a, smem_bytes, s);
 }

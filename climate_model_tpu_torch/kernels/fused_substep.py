@@ -14,9 +14,10 @@ and on the seam strips of the halo-overlap schedule (the header of
 stays in its ghost columns). The kernel sources are
 ``csrc/fused_substep.cu`` (the substep, one launch) and
 ``csrc/physics_epilogue.cu`` (the epilogue, a second launch), with the
-warp-per-column helpers of ``csrc/column.cuh``; their headers say how a
-block's tile, its halo and the warp scans work and what bounds each on the
-card. ``launch_plan`` sizes the tiles and their shared memory.
+warp-per-column helpers of ``csrc/column.cuh``; their headers say how the
+substep's persistent grid marches along latitude through its ring of
+staged rows, how the epilogue's tiles work, and what bounds each on the
+card. ``launch_plan`` sizes both and their shared memory.
 
 * ``predictor`` / ``corrector`` are the wrappers. On a CUDA tensor they
   launch the kernels (fp32, 2 to ``MAX_NZ`` levels) or raise; on a CPU
@@ -86,7 +87,7 @@ PARTS = ("grid", "shard", "south_strip", "north_strip")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "cm_fused_substep_f32": [_P] * 24 + [_I] * 6 + [_P] + [_F] * 2 + [_I] * 3
+    "cm_fused_substep_f32": [_P] * 24 + [_I] * 7 + [_P] + [_F] * 2 + [_I] * 3
                             + [_P],
     "cm_physics_epilogue_f32": [_P] * 25 + [_I] * 6 + [_P] + [_F] + [_I] * 5
                                + [_F] * 9 + [_P],
@@ -99,22 +100,32 @@ _ARGTYPES = {
 SMEM_LIMIT = 232_448         # shared memory a block may use (H100: 227 KB)
 SMEM_TWO_BLOCKS = 115_712    # ... with two blocks on an SM (228 KB, 1 KB each)
 SMS = 132                    # streaming multiprocessors of the H100
+BLOCKS_PER_SM = 1            # the substep's: 512 threads, up to 128 registers
 MAX_NZ = 128                 # 4 levels a lane of a warp (csrc/column.cuh)
-TILE_WIDTHS = (32, 16, 8)    # longitudes a tile, widest first
+TILE_WIDTHS = (32, 16, 8)    # longitudes an epilogue tile, widest first
+STRIP_WIDTHS = (32, 16, 8, 4)  # longitudes a substep strip, widest first
+RING_DEPTHS = (6, 5)         # staged rows of the substep's ring, deepest first
 
 
-def substep_smem_floats(nz: int, tx: int, tj: int) -> int:
-    """Shared memory of a substep tile of tj rows x tx longitudes, in
-    floats (``Tile`` of ``csrc/fused_substep.cu``): the five fields with
-    one column and row around; the scans' wwind, phi with its layer part,
-    pvtf, COLP_new, base COLP, dCOLP/dt and the surface Exner factor for
-    the tile with one column west and one row south; the COLP patch with
-    two columns and rows around; the geometry of the rows with one around;
+def _pitch(n: int) -> int:
+    """The least n' >= n with n' = 4 mod 8 (``pitch`` of
+    ``csrc/fused_substep.cu``)."""
+    return n + (4 - n) % 8
+
+
+def substep_smem_floats(nz: int, tx: int, depth: int) -> int:
+    """Shared memory of the substep's ring for strips of tx longitudes and
+    ``depth`` staged rows, in floats (``Ring`` of ``csrc/fused_substep.cu``):
+    the staged rows' five fields, base COLP and surface height, a line of
+    tx + 5 longitudes each at a pitch of 4 mod 8; COLP's line of depth + 1
+    rows; the geometry of depth rows; three rows of scans (wwind, phi,
+    pvtf, COLP_new, base COLP, dCOLP/dt) and two of scratch (phi's layer
+    part, the surface Exner factor), tx + 1 columns at an odd pitch;
     sigma_vb and dsigma."""
-    nzp, nwp = nz | 1, (nz + 1) | 1
-    e = (tx + 1) * (tj + 1)
-    return (5 * (tj + 2) * (tx + 2) * nzp + e * (nwp + 3 * nzp + 4)
-            + (tj + 3) * (tx + 3) + (tj + 2) * len(GEO_FIELDS) + 2 * nz + 1)
+    p, ex = _pitch(tx + 5), (tx + 1) | 1
+    return (depth * (5 * nz + 2) * p + (depth + 1) * p
+            + depth * len(GEO_FIELDS) + 3 * (3 * nz + 4) * ex
+            + 2 * (nz + 1) * ex + 2 * nz + 1)
 
 
 def epilogue_smem_floats(nz: int, tx: int, tj: int) -> int:
@@ -139,9 +150,113 @@ class TilePlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class SubstepPlan:
+    """The substep's persistent grid: ceil(nx / tx) strips of equal width
+    (``strip_starts``), their (strip, row) units dealt to ``blocks`` blocks
+    in runs of equal weight (a unit weighs its strip's ``pass_lanes``), each
+    block walking its run south to north through a ring of ``depth`` staged
+    rows."""
+    tx: int                  # longitudes a strip at most
+    depth: int               # staged rows in the ring
+    blocks: int              # blocks of the grid (one an SM at most)
+    smem_bytes: int          # dynamic shared memory a block
+    staged_rows_per_row: float   # (field, level) lines copied / needed
+    scanned_cols_per_col: float  # column scans computed / grid columns
+
+
+@dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    substep: TilePlan
+    substep: SubstepPlan
     epilogue: TilePlan
+
+
+def strip_starts(nx: int, tx: int) -> list:
+    """The first longitude of each of the ceil(nx / tx) substep strips, and
+    nx: widths equal to within q, the largest of 4, 2, 1 dividing nx, each
+    start a multiple of q (``strip_start`` of ``csrc/fused_substep.cu``)."""
+    q = 4 if nx % 4 == 0 else 2 if nx % 2 == 0 else 1
+    strips = -(-nx // tx)
+    return [q * (s * (nx // q) // strips) for s in range(strips + 1)]
+
+
+def pass_lanes(ncol: int) -> int:
+    """The lanes an update pass of a strip of ncol columns spans: ncol
+    rounded up to a power of two (``pass_lanes`` of
+    ``csrc/fused_substep.cu``), what a row of the strip costs."""
+    lanes = 1
+    while lanes < ncol:
+        lanes *= 2
+    return lanes
+
+
+def run_start(ny: int, nx: int, tx: int, blocks: int, b: int) -> int:
+    """The first (strip, row) unit of block b's run, unit = strip * ny +
+    row: a unit weighs its strip's ``pass_lanes`` and belongs to the block
+    whose share of the weight (b / blocks to (b + 1) / blocks of the whole)
+    holds its midpoint; as many blocks as units give each block one
+    (``run_start`` of ``csrc/fused_substep.cu``)."""
+    starts = strip_starts(nx, tx)
+    units = (len(starts) - 1) * ny
+    if blocks >= units:
+        return min(b, units)
+    lanes = [pass_lanes(e - s) for s, e in zip(starts, starts[1:])]
+    share, g = b * sum(lanes) * ny, blocks         # the target: share / g
+    before = 0
+    for s, w in enumerate(lanes):
+        if (before + w * ny) * g > share or s == len(lanes) - 1:
+            num = 2 * share - g * (2 * before + w)
+            j = 0 if num <= 0 else -(-num // (2 * g * w))
+            return (s + 1) * ny if j >= ny else s * ny + j
+        before += w * ny
+
+
+def substep_segments(ny: int, nx: int, tx: int, blocks: int) -> list:
+    """Each block's run as the segments it walks: (strip, first row, end
+    row) within one strip, in the order of the kernel."""
+    out = []
+    for b in range(blocks):
+        u, u1, segs = run_start(ny, nx, tx, blocks, b), run_start(
+            ny, nx, tx, blocks, b + 1), []
+        while u < u1:
+            s, j0 = divmod(u, ny)
+            j1 = min(ny, j0 + u1 - u)
+            segs.append((s, j0, j1))
+            u += j1 - j0
+        out.append(segs)
+    return out
+
+
+def _substep_counts(ny: int, nx: int, tx: int, blocks: int) -> tuple:
+    """(staged_rows_per_row, scanned_cols_per_col) of the plan: a segment
+    of rows j0 .. j1-1 copies rows j0-1 .. j1 (those in the grid) of its
+    strip's columns and one around, and scans rows j0-1 (where there is
+    one) .. j1-1 of its columns and one west."""
+    starts = strip_starts(nx, tx)
+    staged = scanned = 0
+    for segs in substep_segments(ny, nx, tx, blocks):
+        for s, j0, j1 in segs:
+            ncol = starts[s + 1] - starts[s]
+            staged += (min(j1, ny - 1) - max(j0 - 1, 0) + 1) * (ncol + 2)
+            scanned += (j1 - j0 + (j0 > 0)) * (ncol + 1)
+    return staged / (ny * nx), scanned / (ny * nx)
+
+
+def _substep_plan(nz: int, ny: int, nx: int) -> SubstepPlan:
+    """The widest strip whose ring fits a block, then the deepest ring of
+    ``RING_DEPTHS`` that fits it; as many blocks as SMs (or units)."""
+    fits = [(tx, d) for tx in STRIP_WIDTHS for d in RING_DEPTHS
+            if 4 * substep_smem_floats(nz, tx, d) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"no substep strip of {nz} levels fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    tx = fits[0][0]
+    depth = next(d for w, d in fits if w == tx)
+    blocks = min(SMS * BLOCKS_PER_SM, -(-nx // tx) * ny)
+    staged, scanned = _substep_counts(ny, nx, tx, blocks)
+    return SubstepPlan(tx=tx, depth=depth, blocks=blocks,
+                       smem_bytes=4 * substep_smem_floats(nz, tx, depth),
+                       staged_rows_per_row=staged,
+                       scanned_cols_per_col=scanned)
 
 
 def _tile(floats, nz: int, ny: int, nx: int, rows: tuple,
@@ -163,18 +278,18 @@ def _tile(floats, nz: int, ny: int, nx: int, rows: tuple,
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(nz: int, ny: int, nx: int) -> LaunchPlan:
-    """The tiles, grids and dynamic shared memory of the substep and
-    epilogue launches on a (nz, ny, nx) block, computed once per shape.
-    Raises ValueError on a shape the kernels do not take: fewer than 2 or
-    more than ``MAX_NZ`` levels, or an empty grid."""
+    """The substep's strips, ring and grid, and the epilogue's tiles and
+    grid, with their dynamic shared memory, on a (nz, ny, nx) block,
+    computed once per shape. Raises ValueError on a shape the kernels do
+    not take: fewer than 2 or more than ``MAX_NZ`` levels, or an empty
+    grid."""
     if not 2 <= nz <= MAX_NZ:
         raise ValueError(f"the kernels take 2 to {MAX_NZ} levels, not {nz}")
     if ny < 1 or nx < 1:
         raise ValueError(f"empty grid {ny}x{nx}")
     return LaunchPlan(
-        # the substep runs one block of 16 warps an SM, the epilogue two
-        # blocks an SM at up to 32 levels
-        substep=_tile(substep_smem_floats, nz, ny, nx, (3, 2), SMEM_LIMIT),
+        substep=_substep_plan(nz, ny, nx),
+        # the epilogue runs two blocks an SM at up to 32 levels
         epilogue=_tile(epilogue_smem_floats, nz, ny, nx, (2,),
                        SMEM_TWO_BLOCKS))
 
@@ -518,7 +633,7 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
             forcing.hsurf.data_ptr(), rad_ptr, geo.data_ptr(),
             grid.sigma_vb.data_ptr(), grid.dsigma.data_ptr(), _ptr(vmask),
             *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
-            nz, ny, nx, sp.tx, sp.tj, sp.smem_bytes,
+            nz, ny, nx, sp.tx, sp.depth, sp.blocks, sp.smem_bytes,
             scal, float(grid.dy), float(grid.ptop),
             int(base is None), int(with_rad), int(with_diff), stream)
         if err != 0:

@@ -172,7 +172,9 @@ def test_micro_bench_keys():
                 "pred_vs_bytes", "corr_vs_bytes"):
         assert key in rep, key
     assert rep["config"] == "64x32x8" and "rad_ms" not in rep
-    assert rep["plan"]["substep"]["grid"] == [2, 32]
+    # 2 strips of 32 longitudes x 32 rows: a block a (strip, row) unit
+    assert rep["plan"]["substep"]["blocks"] == 64
+    assert rep["plan"]["substep"]["tx"] == 32
     rep = micro.micro_bench(cfg=small3(), iters=2, device="cpu")
     assert rep["rad_every_steps"] > 1 and rep["step_model_ms"] > 0
     assert rep["pred_ms"] > 0 and rep["corr_ms"] > 0 and rep["rad_ms"] > 0

@@ -1,10 +1,12 @@
 """The launch plan of the substep and physics-epilogue kernels
 (``kernels/fused_substep.py::launch_plan``): for every level count the
-kernels take and every block the port launches, each kernel's tiles cover
-every column of the block once, its shared memory fits one block of the
-card, and shapes the kernels do not take are refused. The kernels compute
-their tile layouts from the same formulas; the card checks them
-(``chip_smoke.py``, and the ``gpu`` test below).
+kernels take and every block the port launches, the substep's persistent
+grid updates every column of the block in exactly one run, its runs are
+balanced, its ring fits one block of the card and its halo counts stay
+small; the epilogue's tiles cover every column once; and shapes the kernels
+do not take are refused. The kernels compute their layouts and runs from
+the same formulas; the card checks them (``chip_smoke.py``, and the ``gpu``
+test below).
 """
 
 import numpy as np
@@ -27,57 +29,140 @@ LEVELS = (2, 8, 32, 64, 96, 128)
 # #4's 9x186
 BLOCKS = ((180, 360), (183, 186), (9, 186), (32, 64), (720, 1440),
           (186, 186))
-FLOATS = {"substep": fs.substep_smem_floats,
-          "epilogue": fs.epilogue_smem_floats}
+# the shard blocks and seam strips of #4 and #5 on 2x2, #4's on 1x4 and 4x1
+MESH_BLOCKS = ((183, 366), (9, 366), (363, 726), (9, 726), (360, 186),
+               (96, 720), (9, 720))
+
+
+def substep_hits(ny, nx, sp):
+    """How many runs of the substep plan update each (row, column)."""
+    starts = fs.strip_starts(nx, sp.tx)
+    hits = np.zeros((ny, nx), dtype=np.int64)
+    for segs in fs.substep_segments(ny, nx, sp.tx, sp.blocks):
+        for s, j0, j1 in segs:
+            hits[j0:j1, starts[s]:starts[s + 1]] += 1
+    return hits
+
+
+def run_weights(ny, nx, sp):
+    """The weight of each block's run: its units' pass lanes."""
+    starts = fs.strip_starts(nx, sp.tx)
+    return [sum((j1 - j0) * fs.pass_lanes(starts[s + 1] - starts[s])
+                for s, j0, j1 in segs)
+            for segs in fs.substep_segments(ny, nx, sp.tx, sp.blocks)]
 
 
 @pytest.mark.parametrize("ny,nx", BLOCKS, ids=lambda v: str(v))
 @pytest.mark.parametrize("nz", LEVELS)
 def test_plan_covers_every_column_once(nz, ny, nx):
     plan = fs.launch_plan(nz, ny, nx)
-    for name, tile in (("substep", plan.substep),
-                       ("epilogue", plan.epilogue)):
-        assert tile.tx in fs.TILE_WIDTHS and 32 % tile.tx == 0, name
-        assert tile.tj >= 1, name
-        gx, gy = tile.grid
-        hits = np.zeros((ny, nx), dtype=np.int64)
-        for by in range(gy):
-            for bx in range(gx):
-                j0, i0 = by * tile.tj, bx * tile.tx
-                # a block's own columns: its tile, cut at the block's edge
-                hits[j0:min(j0 + tile.tj, ny), i0:min(i0 + tile.tx, nx)] += 1
-        assert (hits == 1).all(), (name, tile)
-        # no block of the grid is empty
-        assert (gx - 1) * tile.tx < nx and (gy - 1) * tile.tj < ny, name
-        assert tile.smem_bytes == 4 * FLOATS[name](nz, tile.tx, tile.tj)
-        assert tile.smem_bytes <= fs.SMEM_LIMIT == 232_448, (name, tile)
+    sp = plan.substep
+    # the substep: strips of at most tx longitudes, widths equal to within
+    # the 4 columns a copy moves, each column of the block in one run
+    assert sp.tx in fs.STRIP_WIDTHS and 32 % sp.tx == 0
+    starts = fs.strip_starts(nx, sp.tx)
+    widths = np.diff(starts)
+    assert starts[0] == 0 and starts[-1] == nx and (widths >= 1).all()
+    assert widths.max() <= sp.tx and widths.max() - widths.min() <= 4
+    assert (substep_hits(ny, nx, sp) == 1).all(), sp
+    assert sp.depth in fs.RING_DEPTHS
+    assert sp.smem_bytes == 4 * fs.substep_smem_floats(nz, sp.tx, sp.depth)
+    assert sp.smem_bytes <= fs.SMEM_LIMIT == 232_448, sp
+    # the epilogue: tiles of tx x tj, each column in one tile
+    tile = plan.epilogue
+    assert tile.tx in fs.TILE_WIDTHS and 32 % tile.tx == 0
+    assert tile.tj >= 1
+    gx, gy = tile.grid
+    hits = np.zeros((ny, nx), dtype=np.int64)
+    for by in range(gy):
+        for bx in range(gx):
+            j0, i0 = by * tile.tj, bx * tile.tx
+            # a block's own columns: its tile, cut at the block's edge
+            hits[j0:min(j0 + tile.tj, ny), i0:min(i0 + tile.tx, nx)] += 1
+    assert (hits == 1).all(), tile
+    # no block of the grid is empty
+    assert (gx - 1) * tile.tx < nx and (gy - 1) * tile.tj < ny
+    assert tile.smem_bytes == 4 * fs.epilogue_smem_floats(nz, tile.tx,
+                                                          tile.tj)
+    assert tile.smem_bytes <= fs.SMEM_LIMIT, tile
+
+
+@pytest.mark.parametrize("ny,nx", BLOCKS + MESH_BLOCKS, ids=lambda v: str(v))
+def test_plan_runs_are_balanced(ny, nx):
+    """The persistent grid is no larger than the card's SMs times blocks an
+    SM (nor than its units); the runs' weights differ from the mean by less
+    than one strip-row, a unit weighing its strip's pass lanes; a grid with
+    as many blocks as units gives each block one."""
+    sp = fs.launch_plan(32, ny, nx).substep
+    starts = fs.strip_starts(nx, sp.tx)
+    units = (len(starts) - 1) * ny
+    assert 1 <= sp.blocks <= min(fs.SMS * fs.BLOCKS_PER_SM, units)
+    w = run_weights(ny, nx, sp)
+    unit = max(fs.pass_lanes(e - s) for s, e in zip(starts, starts[1:]))
+    mean = sum(w) / sp.blocks
+    assert max(abs(x - mean) for x in w) < unit, (min(w), max(w), mean)
+    if sp.blocks == units:
+        assert all(sum(j1 - j0 for _, j0, j1 in segs) == 1 for segs in
+                   fs.substep_segments(ny, nx, sp.tx, sp.blocks))
 
 
 def test_plan_at_the_main_shapes():
-    """Config #3 and #4's shard block take 32-wide tiles of several rows;
-    the epilogue's leave room for two blocks on an SM; a 9-row seam strip
-    takes one row a tile, so its few columns spread over more blocks."""
+    """Config #3, #4's shard block and #5 and its 4x8 middle block take
+    strips of 32 longitudes at most and a ring of 6 rows, one block for
+    each SM; each halo count lies under the tiled plan it replaced
+    (5/3 x 34/32 lines, 4/3 x 33/32 scans at #3); the epilogue's tiles leave
+    room for two blocks on an SM; a 9-row seam strip takes a unit, one row
+    of one strip, a block, and its epilogue one row a tile."""
     for ny, nx in ((180, 360), (183, 186), (720, 1440), (186, 186)):
         plan = fs.launch_plan(32, ny, nx)
-        assert plan.substep.tx == plan.epilogue.tx == 32
-        assert plan.substep.tj > 1 and plan.epilogue.tj > 1
+        sp = plan.substep
+        assert (sp.tx, sp.depth, sp.blocks) == (32, 6, fs.SMS)
+        assert sp.staged_rows_per_row < 5 / 3 * 34 / 32
+        assert sp.scanned_cols_per_col < 4 / 3 * 33 / 32
+        assert plan.epilogue.tx == 32 and plan.epilogue.tj > 1
         assert plan.epilogue.smem_bytes <= fs.SMEM_TWO_BLOCKS
     strip = fs.launch_plan(32, 9, 186)
-    assert strip.substep.tj == strip.epilogue.tj == 1
+    assert strip.substep.blocks == 6 * 9
+    assert strip.epilogue.tj == 1
 
 
 def test_plan_at_baseline5_is_baseline3s():
-    """Config #5 (16x #3's columns) takes #3's tiles and shared memory; its
-    1440 longitudes fill 45 tiles of 32 exactly (#3's 360 need 12, the last
-    a quarter full). Its largest index, of a 3-D field
-    of 32x720x1440 = 33,177,600 cells, fits the kernels' 32-bit ``int``
-    point index (``csrc/fused_substep.cu``, ``point_update``)."""
+    """Config #5 (16x #3's columns) takes #3's strip width, ring and shared
+    memory and as many blocks; its 1440 longitudes fill 45 strips of 32
+    exactly (#3's 360 take 12 of 28 and 32), so each of #5's runs is about
+    245 rows against #3's 16, and its halo counts are lower. Both counts
+    stay under 1.25 and 1.15 at both shapes. Its largest index, of a 3-D
+    field of 32x720x1440 = 33,177,600 cells, fits the kernels' 32-bit
+    ``int`` point index (``csrc/fused_substep.cu``, ``point_update``)."""
     p3, p5 = fs.launch_plan(32, 180, 360), fs.launch_plan(32, 720, 1440)
-    for t3, t5 in ((p3.substep, p5.substep), (p3.epilogue, p5.epilogue)):
-        assert (t5.tx, t5.tj, t5.smem_bytes) == (t3.tx, t3.tj, t3.smem_bytes)
-        assert t5.grid[1] == 4 * t3.grid[1]
-    assert p5.substep.grid == (45, 240) and p5.epilogue.grid == (45, 360)
+    s3, s5 = p3.substep, p5.substep
+    assert (s5.tx, s5.depth, s5.smem_bytes, s5.blocks) == (
+        s3.tx, s3.depth, s3.smem_bytes, s3.blocks)
+    assert set(np.diff(fs.strip_starts(1440, s5.tx))) == {32}
+    assert set(np.diff(fs.strip_starts(360, s3.tx))) == {28, 32}
+    rows5 = [sum(j1 - j0 for _, j0, j1 in segs)
+             for segs in fs.substep_segments(720, 1440, s5.tx, s5.blocks)]
+    assert min(rows5) >= 245 and max(rows5) <= 246
+    for sp in (s3, s5):
+        assert sp.staged_rows_per_row <= 1.25
+        assert sp.scanned_cols_per_col <= 1.15
+    assert s5.staged_rows_per_row < s3.staged_rows_per_row
+    assert s5.scanned_cols_per_col < s3.scanned_cols_per_col
+    assert (p5.epilogue.tx, p5.epilogue.tj, p5.epilogue.smem_bytes) == (
+        p3.epilogue.tx, p3.epilogue.tj, p3.epilogue.smem_bytes)
+    assert p5.epilogue.grid == (45, 360)
     assert 32 * 720 * 1440 == 33_177_600 < 2**31 - 1
+
+
+@pytest.mark.parametrize("ny,nx,staged,scanned", [
+    (180, 360, 1.1852, 1.0907), (720, 1440, 1.0710, 1.0354)])
+def test_plan_halo_counts(ny, nx, staged, scanned):
+    """The counts at #3 and #5, from the segments: a segment of rows j0 ..
+    j1-1 copies rows j0-1 .. j1 of its strip's columns and one around, and
+    scans rows j0-1 .. j1-1 of its columns and one west."""
+    sp = fs.launch_plan(32, ny, nx).substep
+    assert sp.staged_rows_per_row == pytest.approx(staged, abs=1e-4)
+    assert sp.scanned_cols_per_col == pytest.approx(scanned, abs=1e-4)
 
 
 @pytest.mark.parametrize("nz,ny,nx", [(1, 180, 360), (fs.MAX_NZ + 1, 9, 186),
