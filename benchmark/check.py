@@ -4,7 +4,9 @@ replays of both parities, the predictor, the corrector with the physics
 epilogue, a radiation refresh, and the dt the host loop chose for it) and
 its fields are held against the program's, each by a limit of its own.
 
-The reference starts from the program's own state at the start of that
+The reference is the package that the configuration names
+(``harness.reference_of``), run at the configuration's working precision.
+It starts from the program's own state at the start of that
 chunk (the fields and the radiation caches that the program carried in):
 a run of the reference from the seeded state through every earlier chunk
 would take longer than the window. The start is checked by itself: the
@@ -19,7 +21,6 @@ import math
 
 import torch
 
-from .reference.model import STATE_FIELDS
 # the fields held against the reference after the chunk: the dynamics'
 # prognostics, the surface temperature (surface model) and the radiative
 # heating (the refresh within the chunk); the microphysics and turbulence
@@ -37,8 +38,7 @@ def start_gap(start: dict, arrays: dict) -> float:
     """The largest difference between the window's first input and the
     seeded arrays, cast as the restart cast them (0 when exact)."""
     gap = 0.0
-    for f in STATE_FIELDS:
-        x = start["fields"][f]
+    for f, x in start["fields"].items():
         ref = torch.as_tensor(arrays[f]).to(x.dtype)
         gap = max(gap, max_gap(x, ref))
     gap = max(gap, abs(float(start["t"]) - float(arrays["t"])),
@@ -46,17 +46,18 @@ def start_gap(start: dict, arrays: dict) -> float:
     return gap
 
 
-def follow(rcfg, snaps: dict, arrays: dict, call: dict, device) -> dict:
+def follow(ref, rcfg, snaps: dict, arrays: dict, call: dict,
+           device) -> dict:
     """The readings of a run: ``start`` (the window's first input against
     the seed), ``dt`` (the chunk's dt against the host loop's rule worked
     out again) and, for each ``COMPARED`` field, the largest difference
-    between the program's state after the chunk and the reference's, run
-    from the chunk's input for as many steps."""
-    from .reference import model as ref
-    dev = ref.reference_device(device)
+    between the program's state after the chunk and that of the reference
+    ``ref`` (``harness.Reference``), run from the chunk's input for as many
+    steps."""
+    dev = ref.model.reference_device(device)
     readings = dict(start=start_gap(snaps["start"], arrays))
     s_in, s_out = snaps["in"], snaps["out"]
-    out, dt = reference_chunk(rcfg, s_in, call["n"], dev)
+    out, dt = reference_chunk(ref, rcfg, s_in, call["n"], dev)
     readings["dt"] = abs(float(call["dt"]) - dt)
     readings["steps"] = abs(int(s_out["step"]) - out.step)
     for f in COMPARED:
@@ -64,29 +65,30 @@ def follow(rcfg, snaps: dict, arrays: dict, call: dict, device) -> dict:
     return readings
 
 
-def reference_chunk(rcfg, s_in: dict, n: int, dev, store=None):
-    """The reference's float32 state after ``n`` steps from snapshot
-    ``s_in``, at the dt the host loop's rule gives, and that dt. With
-    ``store`` (the control) the state is rounded to that dtype before the
-    first step and after every step."""
-    from .reference import model as ref
-    dtype = torch.float32
-    grid, forcing = ref.build(rcfg, dev, dtype)
-    state = ref.make_state(s_in["fields"], s_in["t"], s_in["step"], dev,
-                           dtype)
+def reference_chunk(ref, rcfg, s_in: dict, n: int, dev, store=None):
+    """The state of the reference ``ref`` after ``n`` steps from snapshot
+    ``s_in``, at the configuration's working precision (``rcfg.dtype``)
+    and the dt the host loop's rule gives, and that dt. With ``store`` (the
+    control) the state is rounded to that dtype before the first step and
+    after every step."""
+    m = ref.model
+    dtype = getattr(torch, rcfg.dtype)
+    grid, forcing = m.build(rcfg, dev, dtype)
+    state = m.make_state(s_in["fields"], s_in["t"], s_in["step"], dev,
+                         dtype)
 
     def held(st):
         if store is None:
             return st
         return st.replace(**{f: getattr(st, f).to(store).to(dtype)
-                             for f in STATE_FIELDS})
+                             for f in m.STATE_FIELDS})
 
     state = held(state)
-    dt = ref.chunk_dt(state, grid, rcfg)
+    dt = m.chunk_dt(state, grid, rcfg)
     grid = grid.replace(dt=dt)
     with torch.no_grad():
         for _ in range(n):
-            state = held(ref.step(state, grid, forcing, rcfg))
+            state = held(m.step(state, grid, forcing, rcfg))
     return state, dt
 
 

@@ -1,10 +1,12 @@
-"""The control of ``correct``: the plain reference put in the program's
-place with its state held in bfloat16, the precision below the
-configurations' float32 (rounded before the first step and after every
-step; the arithmetic stays float32), held against the float32 reference by
-the cell's limits. It has to come out as not correct. (TF32 would change
-nothing: the model has no matrix product. The reference computed wholly in
-bfloat16 goes non-finite within its first step and gives no number.)
+"""The control of ``correct``: the plain reference that judges the cell
+(``harness.reference_of``) put in the program's place with its state held
+one precision below the configuration's (``LOWER``: bfloat16 under
+float32, float32 under float64; rounded before the first step and after
+every step, the arithmetic staying at the configuration's), held against
+the same reference at the configuration's precision by the cell's limits.
+It has to come out as not correct. (TF32 would change nothing: the model
+has no matrix product. The reference computed wholly in bfloat16 goes
+non-finite within its first step and gives no number.)
 
     python3 benchmark/control.py --workload bl3_run --seeds 21 22 23
 
@@ -31,23 +33,27 @@ import torch  # noqa: E402
 from benchmark import check, harness, inputs  # noqa: E402
 
 
-def readings(cell, seed: int, device="cuda", low=torch.bfloat16) -> dict:
+# the precision below each working precision a configuration may state
+LOWER = {"float64": torch.float32, "float32": torch.bfloat16}
+
+
+def readings(cell, seed: int, device="cuda") -> dict:
     """The control's reading of each compared field: the largest gap
-    between the reference with its state held at ``low`` and at float32
-    after the cell's first chunk from the seeded state."""
-    from benchmark.reference.config import config_from_dict
-    from benchmark.reference.model import reference_device
-    dev = reference_device(device)
-    nl = harness.run_namelist(cell, 1)
-    rcfg = config_from_dict(nl)
+    between the reference with its state held one precision below the
+    configuration's and at the configuration's, after the cell's first
+    chunk from the seeded state."""
+    ref = harness.reference_of(cell)
+    dev = ref.model.reference_device(device)
+    rcfg = ref.config.config_from_dict(harness.run_namelist(cell, 1))
     n, _ = harness.chunk_steps(cell)
-    arrays = inputs.seeded_state(rcfg, seed)
+    arrays = inputs.seeded_state(ref, rcfg, seed)
     s_in = dict(fields={f: torch.as_tensor(arrays[f])
-                        for f in check.STATE_FIELDS},
+                        for f in ref.model.STATE_FIELDS},
                 t=torch.as_tensor(arrays["t"]), step=0)
-    out32, _ = check.reference_chunk(rcfg, s_in, n, dev)
-    out_low, _ = check.reference_chunk(rcfg, s_in, n, dev, store=low)
-    return {f: check.max_gap(getattr(out_low, f), getattr(out32, f))
+    out, _ = check.reference_chunk(ref, rcfg, s_in, n, dev)
+    out_low, _ = check.reference_chunk(ref, rcfg, s_in, n, dev,
+                                       store=LOWER[rcfg.dtype])
+    return {f: check.max_gap(getattr(out_low, f), getattr(out, f))
             for f in check.COMPARED}
 
 

@@ -38,7 +38,9 @@ FLOPS_PER_POINT = 350
 EPILOGUE_FLOPS_PER_POINT = 350
 STEP_FLOPS_PER_POINT = 2 * FLOPS_PER_POINT + EPILOGUE_FLOPS_PER_POINT
 
-DTYPE_BYTES = 4                  # float32, as both configurations state
+# float32, as bl3 and bl5 state; a reader of another configuration passes
+# its own width (the run record's ``dtype``)
+DTYPE_BYTES = 4
 
 
 def peaks(name: str) -> Peaks:
@@ -61,8 +63,9 @@ def step_bytes_per_point(rad_every_steps: int,
     return (25 + 2 + 4.0 / max(rad_every_steps, 1)) * dtype_bytes
 
 
-def step_bytes(nx: int, ny: int, nz: int, rad_every_steps: int) -> float:
-    return step_bytes_per_point(rad_every_steps) * nx * ny * nz
+def step_bytes(nx: int, ny: int, nz: int, rad_every_steps: int,
+               dtype_bytes: int = DTYPE_BYTES) -> float:
+    return step_bytes_per_point(rad_every_steps, dtype_bytes) * nx * ny * nz
 
 
 def step_flops(nx: int, ny: int, nz: int) -> float:

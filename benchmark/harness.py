@@ -3,7 +3,9 @@ reading of the trace and the comparison with the plain reference.
 
 A cell is ``workloads/<cell>.json`` (its configuration's name, chips and
 traffic parameters) over ``configs/<config>.toml`` (the namelist as run,
-with a ``[benchmark]`` table of its source). The window drives the entry
+with a ``[benchmark]`` table of its source and, where its step is not the
+one ``reference/`` follows, the plain reference that judges it:
+``reference_of``). The window drives the entry
 users call, ``climate_model_tpu_torch.cli.run``, resumed through
 ``restart_from`` from the seeded state (``inputs.py``). The harness finds
 the chunk runner that ``cli.run`` calls once a chunk by a wrapper of its own
@@ -24,16 +26,21 @@ Every run does the same work: the number of chunks follows from
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import os
+import re
 import shutil
 import sys
 import tempfile
 import time
 import tomllib
+from types import ModuleType
+from typing import NamedTuple
 
 import torch
 
@@ -45,7 +52,8 @@ PORT = "climate_model_tpu_torch"
 # top-level module names that may not be loaded in a run (compared whole:
 # the port's name begins with the JAX package's)
 FORBIDDEN = ("jax", "jaxlib", "flax", "climate_model_tpu")
-STATE_FIELDS = check.STATE_FIELDS
+# the reference of a configuration whose [benchmark] table names none
+REFERENCE = "reference"
 
 
 def manifest() -> dict:
@@ -56,7 +64,8 @@ def manifest() -> dict:
 @dataclasses.dataclass
 class Cell:
     """A workload: its name, configuration (the TOML namelist as a dict,
-    without its ``[benchmark]`` table), chips and traffic parameters."""
+    without its ``[benchmark]`` table), chips, traffic parameters, limits
+    and the reference package that judges it."""
 
     name: str
     config: str
@@ -64,6 +73,7 @@ class Cell:
     namelist: dict
     traffic: dict
     limits: dict
+    reference: str = REFERENCE
 
 
 def load_cell(name: str) -> Cell:
@@ -72,16 +82,103 @@ def load_cell(name: str) -> Cell:
     with open(os.path.join(BENCH, "configs", f"{wl['config']}.toml"),
               "rb") as f:
         nl = tomllib.load(f)
-    nl.pop("benchmark", None)
+    table = nl.pop("benchmark", {})
     return Cell(name=name, config=wl["config"], chips=int(wl["chips"]),
-                namelist=nl, traffic=wl["traffic"], limits=wl["limits"])
+                namelist=nl, traffic=wl["traffic"], limits=wl["limits"],
+                reference=table.get("reference", REFERENCE))
 
 
-def loaded_forbidden(modules=None) -> list:
+class Reference(NamedTuple):
+    """A plain reference package: its name (relative to ``benchmark/``) and
+    the modules the harness reads of it."""
+
+    name: str
+    config: ModuleType      # config_from_dict
+    grid: ModuleType        # make_grid
+    init: ModuleType        # initial_state_np
+    model: ModuleType       # STATE_FIELDS, reference_device, build,
+    #                         make_state, step, chunk_dt
+
+
+def reference_of(cell: Cell) -> Reference:
+    """The plain reference that judges ``cell``: the package that its
+    configuration's ``[benchmark] reference`` names, a dotted path relative
+    to ``benchmark/`` (``reference`` where the key is absent). Raises where
+    the package, or a module of the benchmark that it imports, imports
+    ``jax``, the JAX package or anything of the port."""
+    name = cell.reference
+    if not re.fullmatch(r"[A-Za-z_]\w*(\.[A-Za-z_]\w*)*", name):
+        raise ValueError(f"{cell.config}: reference {name!r} is no dotted "
+                         f"package path relative to benchmark/")
+    found = loaded_forbidden((), (name,))
+    if found:
+        raise ImportError(f"{cell.config}: the reference {name!r} imports "
+                          f"{found}")
+    pkg = f"{__package__}.{name}"
+    return Reference(name, *(importlib.import_module(f"{pkg}.{m}")
+                             for m in ("config", "grid", "init", "model")))
+
+
+def loaded_forbidden(modules=None, references=()) -> list:
     """The forbidden top-level names among ``modules`` (default: every
-    module this process has loaded)."""
+    module this process has loaded), and those, with the port, that a
+    reference package in ``references`` imports (``reference_imports``)."""
     names = sys.modules if modules is None else modules
-    return sorted({m.partition(".")[0] for m in names} & set(FORBIDDEN))
+    found = {m.partition(".")[0] for m in names} & set(FORBIDDEN)
+    for ref in references:
+        found |= reference_imports(ref) & {*FORBIDDEN, PORT}
+    return sorted(found)
+
+
+def _imported(path: str, package: list) -> set:
+    """The modules that the file ``path``, of the package ``package`` (its
+    dotted name's parts), names in its import statements, absolute."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] \
+                if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            out |= {mod} | {f"{mod}.{a.name}" for a in node.names}
+    return out
+
+
+def _benchmark_file(mod: str):
+    """The file of the benchmark's module ``mod`` (dotted), or None."""
+    head, _, rest = mod.partition(".")
+    if head != __package__ or not rest:
+        return None
+    base = os.path.join(BENCH, *rest.split("."))
+    for path in (base + ".py", os.path.join(base, "__init__.py")):
+        if os.path.isfile(path):
+            return path
+    return None
+
+
+def reference_imports(name: str) -> set:
+    """The top-level names that the reference package ``name`` imports, read
+    from the source: in each of its files and, in turn, in each module of
+    the benchmark that one of them imports."""
+    root = os.path.join(BENCH, *name.split("."))
+    todo = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+            if f.endswith(".py")]
+    seen, names = set(), set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        package = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
+        for mod in _imported(path, package):
+            names.add(mod.partition(".")[0])
+            found = _benchmark_file(mod)
+            if found:
+                todo.append(found)
+    return names
 
 
 # ---------------------------------------------------------------------------
@@ -89,13 +186,13 @@ def loaded_forbidden(modules=None) -> list:
 # ---------------------------------------------------------------------------
 
 def chunk_steps(cell: Cell) -> tuple:
-    """(steps a chunk, dt) at the configuration's initial dt, as
-    ``cli.run`` sizes its chunks."""
-    from .reference.config import config_from_dict
-    from .reference.grid import make_grid
-    rcfg = config_from_dict(cell.namelist)
-    dt = float(make_grid(rcfg.grid, rcfg.numerics, dtype=torch.float32,
-                         device="cpu").dt)
+    """(steps a chunk, dt) at the configuration's initial dt in its working
+    precision, as ``cli.run`` sizes its chunks."""
+    ref = reference_of(cell)
+    rcfg = ref.config.config_from_dict(cell.namelist)
+    dt = float(ref.grid.make_grid(rcfg.grid, rcfg.numerics,
+                                  dtype=getattr(torch, rcfg.dtype),
+                                  device="cpu").dt)
     return max(int(cell.traffic["chunk_hours"] * 3600.0 / dt), 1), dt
 
 
@@ -132,31 +229,34 @@ def _is_sharded(state) -> bool:
     return hasattr(state, "layouts") and hasattr(state, "states")
 
 
-def snapshot(state) -> dict:
-    """A copy on the device of ``state``'s fields (for a sharded state,
+def snapshot(state, fields: tuple) -> dict:
+    """A copy on the device of ``state``'s ``fields`` (for a sharded state,
     this rank's interior block), with ``t``, ``step`` and, for a block, its
     place in the global grid."""
     if _is_sharded(state):
         (st,), (lay,) = state.states, state.layouts
-        fields = {f: getattr(st, f)[..., lay.rows, lay.cols].clone()
-                  for f in STATE_FIELDS}
+        copies = {f: getattr(st, f)[..., lay.rows, lay.cols].clone()
+                  for f in fields}
         where = (lay.lat_idx, lay.lon_idx)
     else:
         st = state
-        fields = {f: getattr(st, f).clone() for f in STATE_FIELDS}
+        copies = {f: getattr(st, f).clone() for f in fields}
         where = None
-    return dict(fields=fields, t=st.t.clone(), step=int(st.step),
+    return dict(fields=copies, t=st.t.clone(), step=int(st.step),
                 where=where)
 
 
 class Window:
     """Wraps ``make_chunk_runner``: opens the window at runner call 1,
     copies the input of call 0 and the input and output of call
-    ``compare``, keeps each call's steps and dt, and drives the tracer."""
+    ``compare`` (their ``fields``), keeps each call's steps and dt, and
+    drives the tracer."""
 
-    def __init__(self, compare: int, device: torch.device, tracer=None,
-                 trace_chunks: int = 0, distributed: bool = False):
+    def __init__(self, compare: int, device: torch.device, fields: tuple,
+                 tracer=None, trace_chunks: int = 0,
+                 distributed: bool = False):
         self.compare = compare
+        self.fields = fields
         self.device = device
         self.cuda = device.type == "cuda"
         self.tracer = tracer
@@ -180,7 +280,7 @@ class Window:
             self.peaks.append(torch.cuda.max_memory_allocated(self.device)
                               - self.held)
             before = torch.cuda.memory_allocated(self.device)
-        self.snaps[key] = snapshot(state)
+        self.snaps[key] = snapshot(state, self.fields)
         if self.cuda:
             self.held += torch.cuda.memory_allocated(self.device) - before
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -238,7 +338,6 @@ def patched(window: Window):
     """The port's chunk runner wrapped by ``window``, and the harness's spans
     around the diagnostics, the NetCDF writes and the checkpoints; restored
     on exit."""
-    import importlib
     model = importlib.import_module(f"{PORT}.model")
     metrics = importlib.import_module(f"{PORT}.io.metrics")
     netcdf = importlib.import_module(f"{PORT}.io.netcdf")
@@ -283,8 +382,8 @@ def global_snapshot(snap: dict, distributed: bool) -> dict:
     n_lat = 1 + max(w[0] for w in wheres)
     n_lon = 1 + max(w[1] for w in wheres)
     out = {}
-    for f in STATE_FIELDS:
-        x = snap["fields"][f].contiguous()
+    for f, x in snap["fields"].items():
+        x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(world)] \
             if rank == 0 else None
         tdist.gather(x, parts, dst=0)
@@ -317,7 +416,7 @@ def _gather_objects(obj, distributed: bool) -> list:
     return out
 
 
-def _readback(out_dir: str, state) -> dict:
+def _readback(out_dir: str, state, fields: tuple) -> dict:
     """The last NetCDF snapshot and the checkpoint, read back from disk,
     against the state ``cli.run`` returned: the largest difference of any
     field each holds (both exact copies of the state's float32 values)."""
@@ -325,7 +424,7 @@ def _readback(out_dir: str, state) -> dict:
 
     import numpy as np
     from scipy.io import netcdf_file
-    host = {f: getattr(state, f).detach().cpu().numpy() for f in STATE_FIELDS}
+    host = {f: getattr(state, f).detach().cpu().numpy() for f in fields}
     nc_names = dict(UWIND="u", VWIND="v", POTT="pott", QV="qv", QC="qc",
                     COLP="colp", RAIN="rain", TSURF="tsurf",
                     SOILMOIST="soil_moist")
@@ -344,14 +443,13 @@ def _readback(out_dir: str, state) -> dict:
     if os.path.exists(path):
         with np.load(path) as z:
             ck_err = max(float(np.max(np.abs(
-                z[f].astype(np.float64) - host[f]))) for f in STATE_FIELDS)
+                z[f].astype(np.float64) - host[f]))) for f in fields)
             ck_err = max(ck_err, abs(float(z["t"]) - float(state.t)),
                          abs(int(z["step"]) - int(state.step)))
     return dict(nc_snapshot=nc_err, checkpoint=ck_err)
 
 
 def _free_program():
-    import importlib
     importlib.import_module(f"{PORT}.graphs").clear_cache()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -363,15 +461,14 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
     """Run ``cell`` once; the result's fields on rank 0 (None on the other
     ranks). ``device`` 'cpu' runs the port's eager loop and the kernels'
     plain versions (tests); every device number is then left out."""
-    import importlib
     t_start = time.time() if t_start is None else t_start
     cli = importlib.import_module(f"{PORT}.cli")
     cfg_port = importlib.import_module(f"{PORT}.core.namelist")
-    from .reference.config import config_from_dict as ref_config
+    ref = reference_of(cell)
     chunks = n_chunks(cell, seconds)
     nl = run_namelist(cell, chunks)
     pcfg = cfg_port.config_from_dict(json.loads(json.dumps(nl)))
-    rcfg = ref_config(json.loads(json.dumps(nl)))
+    rcfg = ref.config.config_from_dict(json.loads(json.dumps(nl)))
     distributed = cell.chips > 1
     compare = inputs.compared_chunk(seed, chunks)
     if distributed:
@@ -395,7 +492,7 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
         if rank == 0:
             base = os.environ.get("TMPDIR") or tempfile.gettempdir()
             work = tempfile.mkdtemp(prefix=f"bench-{cell.name}-", dir=base)
-            arrays = inputs.seeded_state(rcfg, seed)
+            arrays = inputs.seeded_state(ref, rcfg, seed)
             conv = importlib.import_module(f"{PORT}.io.convert")
             ckmod = importlib.import_module(f"{PORT}.io.checkpoint")
             st0 = conv.state_from_numpy(arrays, device="cpu",
@@ -408,21 +505,23 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
             tdist.broadcast_object_list(holder, src=0)
             work = holder[0]
         try:
-            return _run(cell, seed, trace, dev, t_start, cli, pcfg, rcfg,
-                        chunks, compare, distributed, rank, work, arrays,
-                        (t_inputs, t_seeded))
+            return _run(cell, seed, trace, dev, t_start, cli, pcfg, ref,
+                        rcfg, chunks, compare, distributed, rank, work,
+                        arrays, (t_inputs, t_seeded))
         finally:
             if rank == 0 and work:
                 shutil.rmtree(work, ignore_errors=True)
 
 
-def _run(cell, seed, trace, dev, t_start, cli, pcfg, rcfg, chunks, compare,
-         distributed, rank, work, arrays, marks):
+def _run(cell, seed, trace, dev, t_start, cli, pcfg, ref, rcfg, chunks,
+         compare, distributed, rank, work, arrays, marks):
     from . import trace as tracing
     tr = cell.traffic
     cuda = dev.type == "cuda"
     tracer = tracing.Tracer(cuda) if trace else None
-    window = Window(compare, dev, tracer, tr["trace_chunks"], distributed)
+    fields = ref.model.STATE_FIELDS
+    window = Window(compare, dev, fields, tracer, tr["trace_chunks"],
+                    distributed)
     out_dir = os.path.join(work, "out") if tr.get("out_dir") else None
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -433,7 +532,7 @@ def _run(cell, seed, trace, dev, t_start, cli, pcfg, rcfg, chunks, compare,
     wall = t_close - window.t_open
     if tracer is not None and tracer.events is None:
         tracer.stop()
-    forbidden = loaded_forbidden()
+    forbidden = loaded_forbidden(references=(ref.name,))
     peak = window.peak_bytes()
     calls = window.calls
     own = dict(rank=rank, peak=peak, calls=calls, forbidden=forbidden,
@@ -445,7 +544,7 @@ def _run(cell, seed, trace, dev, t_start, cli, pcfg, rcfg, chunks, compare,
              for k in ("start", "in", "out")}
     readback = None
     if rank == 0 and out_dir:
-        readback = _readback(out_dir, result.state)
+        readback = _readback(out_dir, result.state, fields)
     aborted = result.aborted
     del result
     _free_program()
@@ -459,7 +558,7 @@ def _run(cell, seed, trace, dev, t_start, cli, pcfg, rcfg, chunks, compare,
     sim_s = sum(c["n"] * c["dt"] for c in window_calls)
     points = gc.nx * gc.ny * gc.nz
     t_ref = time.perf_counter()
-    readings = check.follow(rcfg, snaps, arrays, calls[compare], dev)
+    readings = check.follow(ref, rcfg, snaps, arrays, calls[compare], dev)
     ref_s = time.perf_counter() - t_ref
     if readback is not None:
         readings.update(readback)
@@ -471,6 +570,7 @@ def _run(cell, seed, trace, dev, t_start, cli, pcfg, rcfg, chunks, compare,
         forbidden=sorted({m for r in ranks for m in r["forbidden"]}),
         chunks=len(window_calls), compare=compare, grid=(gc.nx, gc.ny, gc.nz),
         rad_every_steps=pcfg.physics.rad_every_steps, reference_s=ref_s,
+        dtype=rcfg.dtype, reference=ref.name,
         setup_parts=dict(
             imports=marks[0] - t_start, seeded_restart=marks[1] - marks[0],
             to_first_chunk=window.wall_call0 - marks[1],

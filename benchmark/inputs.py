@@ -6,14 +6,13 @@ every cell perturbs alike (``POTT_K``, ``QV_REL``).
 The same seed gives the same arrays; every seed gives the same sizes, so the
 work of a run does not depend on its seed. The program gets them as a
 restart file (``cli.run``'s ``restart_from``); the reference gets the same
-arrays.
+arrays. The init is the one of the reference that judges the configuration
+(``harness.reference_of``).
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-from .reference.init import initial_state_np
 
 # the radiation caches start empty: the first step refreshes them
 _CACHES3 = ("dpottdt_rad",)
@@ -24,11 +23,12 @@ POTT_K = 0.1
 QV_REL = 0.01
 
 
-def seeded_state(cfg, seed: int) -> dict:
+def seeded_state(ref, cfg, seed: int) -> dict:
     """Float64 arrays of every State field, ``t`` 0 and ``step`` 0:
     POTT plus ``POTT_K`` K of white noise, QV times (1 + ``QV_REL`` of
-    white noise), clipped at 0. ``cfg`` is the reference's config."""
-    st, _, _ = initial_state_np(cfg)
+    white noise), clipped at 0. ``ref`` is the reference
+    (``harness.Reference``), ``cfg`` its config."""
+    st, _, _ = ref.init.initial_state_np(cfg)
     rng = np.random.default_rng(int(seed))
     shape3 = st["pott"].shape
     st["pott"] = st["pott"] + POTT_K * rng.standard_normal(

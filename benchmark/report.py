@@ -10,7 +10,7 @@ import os
 
 import torch
 
-from . import counts, trace
+from . import counts, spans, trace
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
 
@@ -29,8 +29,10 @@ def applies(metric: dict, cell: str) -> bool:
 
 
 def run_record(cell, res: dict) -> dict:
-    """What the readers read: the window's totals and, per rank, its
-    runner calls and traced records."""
+    """What the readers read: the window's totals, the configuration's
+    working precision (``dtype``, so that a reader counts bytes at its
+    width) and the reference that judged the run, and, per rank, its runner
+    calls and traced records."""
     info = res["info"]
     card = torch.cuda.get_device_name(0) if torch.cuda.is_available() \
         else None
@@ -44,7 +46,8 @@ def run_record(cell, res: dict) -> dict:
                 mesh=tuple(cell.traffic["mesh"]), wall_s=info["wall_s"],
                 steps=info["steps"], sim_s=info["sim_s"],
                 setup_s=info["setup_s"], peak_bytes=info["peak_bytes"],
-                rad_every_steps=info["rad_every_steps"],
+                rad_every_steps=info["rad_every_steps"], dtype=info["dtype"],
+                reference=info["reference"],
                 peaks=counts.peaks(card) if card else None, ranks=ranks)
 
 
@@ -69,8 +72,9 @@ def _device(info: dict, run: dict, traced: bool) -> dict:
 
 def breakdown(run: dict) -> dict:
     """Rank 0's device operations that took the most time in the traced
-    window, by name, and its longest idle gaps, by the harness's span the
-    host was in when each began ('host loop' between them)."""
+    window, by name, and its longest idle gaps, by the innermost span, the
+    harness's or the program's, that the host was in when each began
+    (``spans.host_at``)."""
     r = run["ranks"][0]
     w = trace.window(r["trace"])
     if w is None:
@@ -80,17 +84,11 @@ def breakdown(run: dict) -> dict:
         if e > w[0] and s < w[1]:
             by_name[name] = by_name.get(name, 0) + min(e, w[1]) - max(s, w[0])
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    spans = r["trace"]["spans"]
     gaps = sorted(trace.idle_gaps(r["trace"]["ops"], *w),
                   key=lambda g: g[0] - g[1])[:10]
-
-    def host_at(t):
-        inside = [s for s in spans if s[1] <= t <= s[2]
-                  and s[0] != "bench.trace_end"]
-        return max(inside, key=lambda s: s[1])[0] if inside else "host loop"
-
     return dict(device_ops=[[n, v / 1e9] for n, v in ops],
-                idle_gaps=[[host_at(a), (b - a) / 1e9] for a, b in gaps])
+                idle_gaps=[[spans.host_at(r["trace"], a), (b - a) / 1e9]
+                           for a, b in gaps])
 
 
 def result_line(cell, res: dict, traced: bool, manifest: dict) -> dict:

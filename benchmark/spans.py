@@ -2,17 +2,13 @@
 chunks split by part, and the radiation refresh's device time.
 
 The port marks its host loop with ``record_function`` ranges named
-``cm.<what>`` (``climate_model_tpu_torch/trace.py``; the prefix is a
-literal here, so that the benchmark imports nothing of the port):
-``cm.chunk`` around ``cm.runner``, ``cm.gather``, ``cm.diagnostics``,
-``cm.log`` and the output (``cm.output.snapshot``, ``cm.output.checkpoint``,
-each with a ``.fetch`` and a ``.write``), and ``cm.step.radiation`` around
-each replay of a step that refreshes the radiation. They lie on the
-profiler's clock, as the device operations do.
-
-``records`` is ``trace.records`` with one more key, ``program_spans``
-[(name, start, end)]: ``spans`` and ``ops`` are the same lists, so every
-reader of them reads what it read before. What reads ``program_spans``:
+``cm.<what>`` (``climate_model_tpu_torch/trace.py``): ``cm.chunk`` around
+``cm.runner``, ``cm.gather``, ``cm.diagnostics``, ``cm.log`` and the
+output (``cm.output.snapshot``, ``cm.output.checkpoint``, each with a
+``.fetch`` and a ``.write``), and ``cm.step.radiation`` around each replay
+of a step that refreshes the radiation. They lie on the profiler's clock,
+as the device operations do, and ``trace.records`` keeps them as
+``program_spans`` [(name, start, end)]. What reads them:
 
 * ``boundary_ms(run, part)``: at the chunk boundaries (``boundaries``:
   from a runner call's last device operation to the next call's first),
@@ -25,12 +21,14 @@ reader of them reads what it read before. What reads ``program_spans``:
   ``cm.step.radiation`` span, the union of its operations' device time,
   less the median of that time over the plain replays of the same traced
   chunks; the mean over the refreshes, the largest over the ranks;
-* ``breakdown(run)``: ``report.breakdown`` with each idle gap named by the
-  innermost span, the harness's or the program's, the host was in.
+* ``host_at(rec, t)``: the innermost span, the harness's or the program's,
+  the host was in; ``report.breakdown`` names the idle gaps by it.
 
-``python3 benchmark/spans.py --workload NAME --seed N --seconds S`` runs a
-cell traced, as ``benchmark/run.py --trace 1`` does, with the program's
-spans kept: its result line holds these metrics beside the others.
+The readers ``metrics/boundary_ms.*.py`` and
+``metrics/radiation_ms_per_refresh.py`` read them in ``benchmark/run.py
+--trace 1``. ``python3 benchmark/spans.py --workload NAME --seed N
+--seconds S`` runs a cell so, and its result line holds every reading of
+``metrics`` beside them (the parts no reader of ``BENCHMARK.json`` takes).
 """
 
 from __future__ import annotations
@@ -49,32 +47,13 @@ if __name__ == "__main__":
 
 from benchmark import trace  # noqa: E402
 
-PREFIX = "cm."
+PREFIX = trace.PROGRAM_PREFIX
 RADIATION = PREFIX + "step.radiation"
 PARTS = ("diagnostics", "gather", "output", "log", "runner", "step")
 # the parts' children that ``metrics`` reads too
 CHILDREN = ("diagnostics.fetch", "output.snapshot.fetch",
             "output.snapshot.write", "output.checkpoint.fetch",
             "output.checkpoint.write")
-
-
-def program_spans(events) -> list:
-    """(name, start, end) of the host's ranges named ``cm.``, by start."""
-    from torch.autograd import DeviceType
-    out = [(ev.name(), ev.start_ns(), ev.end_ns()) for ev in events
-           if ev.device_type() == DeviceType.CPU
-           and ev.name().startswith(PREFIX)]
-    return sorted(out, key=lambda s: (s[1], -s[2]))
-
-
-_trace_records = trace.records
-
-
-def records(events, rank: int) -> dict:
-    """``trace.records`` and the program's spans."""
-    rec = _trace_records(events, rank)
-    rec["program_spans"] = program_spans(events)
-    return rec
 
 
 def _innermost(spans, t):
@@ -86,23 +65,9 @@ def host_at(rec: dict, t: int) -> str:
     """The innermost span, the harness's or the program's, that the host
     was in at ``t`` ('host loop' where it was in none)."""
     spans = [s for s in rec["spans"] if s[0] != "bench.trace_end"] \
-        + rec.get("program_spans", [])
+        + rec["program_spans"]
     s = _innermost(spans, t)
     return s[0] if s else "host loop"
-
-
-def breakdown(run: dict) -> dict:
-    """``report.breakdown`` with the idle gaps named by ``host_at``."""
-    from benchmark import report
-    out = report.breakdown(run)
-    r = run["ranks"][0]
-    w = trace.window(r["trace"])
-    if w is not None:
-        gaps = sorted(trace.idle_gaps(r["trace"]["ops"], *w),
-                      key=lambda g: g[0] - g[1])[:10]
-        out["idle_gaps"] = [[host_at(r["trace"], a), (b - a) / 1e9]
-                            for a, b in gaps]
-    return out
 
 
 def _of_part(name: str, part: str) -> bool:
@@ -162,7 +127,7 @@ def part_ns(rec: dict, part: str) -> tuple:
     w = trace.window(rec)
     if w is None:
         return None
-    spans = rec.get("program_spans", [])
+    spans = rec["program_spans"]
     mine = [s for s in spans if _of_part(s[0], part)
             and s[2] > w[0] and s[1] < w[1]]
     if not mine:
@@ -194,7 +159,7 @@ def replay_ns(rec: dict) -> tuple:
     """The device time (union) of each graph replay of the traced runner
     calls, split into those launched inside a ``cm.step.radiation`` span
     and the others: (refreshing, plain) lists of ns."""
-    rad = [s for s in rec.get("program_spans", []) if s[0] == RADIATION]
+    rad = [s for s in rec["program_spans"] if s[0] == RADIATION]
     by_launch = {}
     for chunk in trace.chunk_ops(rec):
         for op in chunk:
@@ -251,28 +216,24 @@ def metrics(run: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A cell run traced with the program's spans kept.
+# A cell run traced with every reading of the program's spans.
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
-    """``benchmark/run.py``'s run of a cell, traced, with ``records`` in
-    place of ``trace.records`` and the readings of the program's spans in
-    the result line (under ``program_spans``)."""
+    """``benchmark/run.py``'s run of a cell, traced, with every reading of
+    ``metrics`` in the result line (under ``program_spans``)."""
     from benchmark import report
     from benchmark import run as bench
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--trace" not in argv:
         argv += ["--trace", "1"]
-    trace.records = records
     result_line = report.result_line
 
     def line(cell, res, traced, manifest):
         out = result_line(cell, res, traced, manifest)
         if traced:
-            run = report.run_record(cell, res)
             checks = out.pop("checks")      # kept the line's last key
-            out["program_spans"] = metrics(run)
-            out["breakdown"] = breakdown(run)
+            out["program_spans"] = metrics(report.run_record(cell, res))
             out["checks"] = checks
         return out
 

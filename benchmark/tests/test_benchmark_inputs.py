@@ -3,25 +3,26 @@ others, and every seed the same sizes."""
 
 import numpy as np
 
-from benchmark import inputs
-from benchmark.reference.config import config_from_dict
+from benchmark import harness, inputs
 
 from ._small import small_cell
 
+REF = harness.reference_of(small_cell("bl3_run"))
+
 
 def _cfg():
-    return config_from_dict(small_cell("bl3_run").namelist)
+    return REF.config.config_from_dict(small_cell("bl3_run").namelist)
 
 
 def test_same_seed_same_arrays():
-    a = inputs.seeded_state(_cfg(), 2**33 + 5)
-    b = inputs.seeded_state(_cfg(), 2**33 + 5)
+    a = inputs.seeded_state(REF, _cfg(), 2**33 + 5)
+    b = inputs.seeded_state(REF, _cfg(), 2**33 + 5)
     assert all(np.array_equal(a[k], b[k]) for k in a)
 
 
 def test_seeds_differ_in_pott_and_qv_only():
-    a = inputs.seeded_state(_cfg(), 1)
-    b = inputs.seeded_state(_cfg(), 2)
+    a = inputs.seeded_state(REF, _cfg(), 1)
+    b = inputs.seeded_state(REF, _cfg(), 2)
     assert {k for k in a if a[k].shape != b[k].shape} == set()
     assert {k for k in a if not np.array_equal(a[k], b[k])} == {"pott",
                                                                 "qv"}

@@ -4,7 +4,7 @@ to the JAX package)."""
 
 import torch
 
-from benchmark import check, harness, inputs
+from benchmark import harness, inputs
 from benchmark.reference import model as ref
 from benchmark.reference.config import config_from_dict
 
@@ -22,7 +22,7 @@ def test_reference_equals_the_ports_plain_path():
     nl = harness.run_namelist(cell, 2)
     nl["dtype"] = "float64"
     pcfg, rcfg = pc(dict(nl)), config_from_dict(dict(nl))
-    arrays = inputs.seeded_state(rcfg, 77)
+    arrays = inputs.seeded_state(harness.reference_of(cell), rcfg, 77)
     _, pforcing, pgrid = initialize(pcfg, device="cpu")
     pstate = state_from_numpy(arrays, device="cpu", dtype=torch.float64)
     pstep = make_step_fn(pcfg, dynamics=lambda s, g, f: step_matsuno(
@@ -34,6 +34,6 @@ def test_reference_equals_the_ports_plain_path():
     for _ in range(n):
         pstate = pstep(pstate, pgrid, pforcing)
         rstate = ref.step(rstate, grid, forcing, rcfg)
-    for f in check.STATE_FIELDS:
+    for f in ref.STATE_FIELDS:
         assert torch.equal(getattr(pstate, f), getattr(rstate, f)), f
     assert pstate.step == rstate.step == n

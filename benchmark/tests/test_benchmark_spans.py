@@ -1,4 +1,5 @@
-"""The program's spans in a traced window (``benchmark/spans.py``), on
+"""The program's spans in a traced window (``trace.records``'
+``program_spans``, read by ``benchmark/spans.py``), on
 hand-made profiler events in the style of ``test_benchmark_trace.py``:
 three chunks, 100 ms apart, each a runner call (a copy in, two step
 replays, a copy out), then the chunk diagnostics (a reduction, a fetch and
@@ -34,6 +35,9 @@ METRICS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "metrics")
 CHUNKS = 3
 REFRESHING = (0, 2)
+# the readers of the program's spans
+PROGRAM_READERS = ("boundary_ms.diagnostics", "boundary_ms.gather",
+                   "boundary_ms.output", "radiation_ms_per_refresh")
 
 
 class Span(Ev):
@@ -117,18 +121,17 @@ def window_events(gather=False, slow=0.0, program=True):
 
 def run_of(ranks):
     """A run record of traced windows, a rank each (``ranks``: keyword
-    sets of ``window_events``), read by ``records``."""
+    sets of ``window_events``), read by ``trace.records``."""
     calls = [dict(n=2, dt=10.0)] * (1 + CHUNKS + 1)
     out = []
     for i, kw in enumerate(ranks):
-        program = kw.get("program", True)
-        rec = (spans.records if program else trace.records)(
-            window_events(**kw), rank=i)
+        rec = trace.records(window_events(**kw), rank=i)
         out.append(dict(rank=i, calls=calls, traced_calls=calls[1:1 + CHUNKS],
                         trace=rec))
     return dict(cell="hand", chips=len(ranks), grid=(64, 32, 8),
                 mesh=(1, len(ranks)), wall_s=1.0, steps=12, sim_s=120.0,
                 setup_s=1.0, peak_bytes=0, rad_every_steps=4,
+                dtype="float32", reference="reference",
                 peaks=counts.peaks("NVIDIA H100 80GB HBM3"), ranks=out)
 
 
@@ -141,9 +144,11 @@ def read(name, run):
 
 
 def test_program_spans_kept_and_the_rest_unchanged():
-    with_ = spans.records(window_events(), rank=0)
+    with_ = trace.records(window_events(), rank=0)
     without = trace.records(window_events(program=False), rank=0)
-    assert set(with_) == set(without) | {"program_spans"}
+    assert set(with_) == set(without) == {"rank", "spans", "program_spans",
+                                          "ops"}
+    assert without["program_spans"] == []
     assert with_["spans"] == without["spans"]
     assert with_["ops"] == without["ops"]
     names = [s[0] for s in with_["program_spans"]]
@@ -159,9 +164,14 @@ def test_program_spans_kept_and_the_rest_unchanged():
 @pytest.mark.parametrize("name", [m["name"] for m in
                                   harness.manifest()["per_layer"]])
 def test_existing_readers_read_the_same(name, ranks):
+    """Every reader that reads none of the program's spans reads the same
+    with them; one that reads them reads nothing without them."""
     plain = run_of([dict(kw, program=False) for kw in ranks])
     kept = run_of(ranks)
-    assert read(name, kept) == read(name, plain)
+    if name in PROGRAM_READERS:
+        assert read(name, plain) is None
+    else:
+        assert read(name, kept) == read(name, plain)
 
 
 def test_existing_readers_read_something():
@@ -175,8 +185,25 @@ def test_existing_readers_read_something():
         assert read(name, run) is not None, name
 
 
+@pytest.mark.parametrize("ranks,want", [
+    # one rank: the parts of test_parts_of_one_rank, a refresh 3 ms
+    ([{}], {"boundary_ms.diagnostics": 25.0, "boundary_ms.gather": None,
+            "boundary_ms.output": 13.0, "radiation_ms_per_refresh": 3.0}),
+    # the slower second rank, which gathers
+    ([{}, dict(gather=True, slow=5.0)],
+     {"boundary_ms.diagnostics": 29.0, "boundary_ms.gather": 1.0,
+      "boundary_ms.output": 13.0, "radiation_ms_per_refresh": 3.0}),
+], ids=["one", "two-ranks"])
+def test_program_readers(ranks, want):
+    run = run_of(ranks)
+    for name in PROGRAM_READERS:
+        got = read(name, run)
+        assert got == (None if want[name] is None
+                       else pytest.approx(want[name])), name
+
+
 def test_boundaries():
-    rec = spans.records(window_events(), rank=0)
+    rec = trace.records(window_events(), rank=0)
     assert spans.boundaries(rec) == [(ms(45), ms(103)), (ms(145), ms(203)),
                                      (ms(245), ms(300))]
 
@@ -224,7 +251,7 @@ def test_parts_take_the_slowest_rank(part, want):
 
 
 def test_idle_under_no_span_counts_for_no_part():
-    rec = spans.records(window_events(), rank=0)
+    rec = trace.records(window_events(), rank=0)
     segs = spans._segments(rec["program_spans"], ms(85), ms(103))
     assert segs == [(ms(85), ms(90), "cm.chunk"), (ms(90), ms(100), None),
                     (ms(100), ms(103), "cm.runner")]
@@ -258,8 +285,8 @@ def test_refreshes_against_the_cadence():
 
 def test_breakdown_names_a_gap_by_the_innermost_span():
     run = run_of([{}])
-    plain = report.breakdown(run)
-    named = spans.breakdown(run)
+    plain = report.breakdown(run_of([dict(program=False)]))
+    named = report.breakdown(run)
     assert named["device_ops"] == plain["device_ops"]
     # the longest gaps: 75-103 ms, which the harness saw begin in its
     # NetCDF write and the program in the snapshot's fetch; 49-73 ms, in
@@ -276,12 +303,9 @@ def test_breakdown_names_a_gap_by_the_innermost_span():
         "cm.output.snapshot.write"
 
 
-def test_the_port_spans_reach_the_trace(monkeypatch):
-    """A small cell on the CPU through the whole harness, ``records`` in
-    place of ``trace.records``: the chunk loop's spans lie in the traced
-    window, once a traced chunk, and the harness's records are those it
-    keeps without them."""
-    monkeypatch.setattr(trace, "records", spans.records)
+def test_the_port_spans_reach_the_trace():
+    """A small cell on the CPU through the whole harness: the chunk loop's
+    spans lie in the traced window, once a traced chunk."""
     res = run_small("bl3_output", trace=True)
     rec = res["info"]["ranks"][0]["trace"]
     w = trace.window(rec)

@@ -9,7 +9,7 @@ import os
 import pytest
 from torch.autograd import DeviceType
 
-from benchmark import report, trace
+from benchmark import counts, report, trace
 
 MS = 1_000_000
 METRICS = os.path.join(os.path.dirname(os.path.dirname(
@@ -42,6 +42,16 @@ class Ev:
         return False
 
 
+class Shadow(Ev):
+    """A ``record_function`` range's shadow on the device timeline."""
+
+    def __init__(self, name, start, end):
+        super().__init__(name, start, end, 0, cpu=False)
+
+    def is_user_annotation(self):
+        return True
+
+
 def _read(name, run):
     spec = importlib.util.spec_from_file_location(
         "m_" + name, os.path.join(METRICS, f"{name}.py"))
@@ -50,15 +60,26 @@ def _read(name, run):
     return mod.read(run)
 
 
-def window_events(stray=False):
+def window_events(stray=False, program=False):
     """Three traced chunks of two steps each, 100 ms apart; each runner
     call copies the state in (a launch of its own), replays a step graph
     twice (a kernel, an NCCL kernel, a pack copy and a concatenation each)
     and copies the state out. The device runs a chunk from 10 to 60 ms
-    after its call begins; the host loop follows until the next call."""
+    after its call begins; the host loop follows until the next call.
+    ``program`` adds the program's ``cm.`` ranges around the chunk, the
+    runner call, the first replay (a radiation refresh) and the
+    diagnostics, with their shadows on the device."""
     ev, corr = [], 1
     for c in range(3):
         t0 = c * 100 * MS
+        if program:
+            ev += [Ev("cm.chunk", t0, t0 + 80 * MS),
+                   Ev("cm.runner", t0, t0 + 5 * MS),
+                   Ev("cm.step.radiation", t0 + 2 * MS, t0 + 2 * MS + 20),
+                   Ev("cm.diagnostics", t0 + 5 * MS, t0 + 70 * MS),
+                   Ev("cm.diagnostics.fetch", t0 + 6 * MS, t0 + 70 * MS),
+                   Shadow("cm.chunk", t0 + 10 * MS, t0 + 60 * MS),
+                   Shadow("cm.step.radiation", t0 + 11 * MS, t0 + 30 * MS)]
         ev.append(Ev("bench.runner", t0, t0 + 5 * MS))
         ev.append(Ev("cudaMemcpyAsync", t0 + 1 * MS, t0 + 1 * MS + 10, corr))
         ev.append(Ev("Memcpy DtoD (Device -> Device)", t0 + 10 * MS,
@@ -146,6 +167,31 @@ def test_exchange_ms_per_step(stray):
     assert _read("exchange_ms_per_step", run) == pytest.approx(3.0)
     assert _read("exchange_ms_per_step", run_of(window_events(stray),
                                                 chips=1)) is None
+
+
+@pytest.mark.parametrize("name", [
+    "loop_gap_ms", "io_ms_per_chunk", "enqueue_ms_per_step", "step_mfu",
+    "roofline_pct.predictor", "roofline_pct.corrector",
+    "exchange_ms_per_step", "device_idle_pct"])
+@pytest.mark.parametrize("stray", [False, True])
+def test_readers_read_the_same_with_program_spans(name, stray):
+    """The program's spans are kept beside the harness's, and every reader
+    that the benchmark had before them reads what it read without them."""
+    kept = trace.records(window_events(stray, program=True), rank=0)
+    plain = trace.records(window_events(stray), rank=0)
+    assert [s[0] for s in kept["program_spans"]].count("cm.chunk") == 3
+    assert plain["program_spans"] == []
+    assert (kept["spans"], kept["ops"]) == (plain["spans"], plain["ops"])
+    with_, without = (run_of(window_events(stray, program=p))
+                      for p in (True, False))
+    for run in (with_, without):
+        run.update(grid=(64, 32, 8), mesh=(1, 1), rad_every_steps=4,
+                   peaks=counts.peaks("NVIDIA H100 80GB HBM3"))
+    got = _read(name, with_)
+    assert got == _read(name, without)
+    # the window writes no files and launches no corrector (but a stray)
+    if name not in ("io_ms_per_chunk", "roofline_pct.corrector"):
+        assert got is not None
 
 
 def test_device_idle_and_breakdown():

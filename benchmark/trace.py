@@ -7,7 +7,10 @@ has been enqueued, starts at the window's first runner call and stops at the
 runner call ``trace_chunks`` later, so the traced window holds whole chunks
 with their host loop between them. The harness's spans are
 ``record_function`` ranges named ``bench.<what>`` around its calls into the
-program; a device operation is tied to the runner call that launched it by
+program; the program's own are named ``cm.<what>``
+(``climate_model_tpu_torch/trace.py``; the prefix is a literal here, so
+that the benchmark imports nothing of the port), read by ``spans.py``. A
+device operation is tied to the runner call that launched it by
 the correlation id of its launch, and to a step's graph replay where that
 launch is a ``cudaGraphLaunch`` (every operation of a replay carries the
 replay's correlation id).
@@ -19,6 +22,7 @@ import torch
 from torch.autograd import DeviceType
 
 SPAN_PREFIX = "bench."
+PROGRAM_PREFIX = "cm."
 
 
 class Tracer:
@@ -46,16 +50,19 @@ class Tracer:
 
 def records(events, rank: int) -> dict:
     """The spans and device operations of a traced window, times in ns on
-    the trace's clock: ``spans`` [(name, start, end)], ``ops`` [(name,
-    start, end, launch, replay)], ``launch`` the host time of the call that
+    the trace's clock: ``spans`` [(name, start, end)] the harness's,
+    ``program_spans`` the same of the program's, ``ops`` [(name, start,
+    end, launch, replay)], ``launch`` the host time of the call that
     launched the op (None where the trace does not link it), ``replay``
     whether that call was a graph launch."""
-    spans, launches, dev = [], {}, []
+    spans, program, launches, dev = [], [], {}, []
     for ev in events:
         name = ev.name()
         if ev.device_type() == DeviceType.CPU:
             if name.startswith(SPAN_PREFIX):
                 spans.append((name, ev.start_ns(), ev.end_ns()))
+            elif name.startswith(PROGRAM_PREFIX):
+                program.append((name, ev.start_ns(), ev.end_ns()))
             elif name.startswith("cuda") and ev.correlation_id():
                 # a CUDA runtime call (cudaLaunchKernel, cudaGraphLaunch,
                 # cudaMemcpyAsync, ...): its correlation id is the one of
@@ -71,8 +78,9 @@ def records(events, rank: int) -> dict:
             if ev.correlation_id() else (None, False)
         ops.append((ev.name(), ev.start_ns(), ev.end_ns(), launch, replay))
     spans.sort(key=lambda s: s[1])
+    program.sort(key=lambda s: (s[1], -s[2]))
     ops.sort(key=lambda o: o[1])
-    return dict(rank=rank, spans=spans, ops=ops)
+    return dict(rank=rank, spans=spans, program_spans=program, ops=ops)
 
 
 def window(rec: dict) -> tuple:
