@@ -165,6 +165,23 @@ and exits non-zero:
                host's enqueue ms a step, the device's busy ms a step and
                idle share, and each kernel's device ms in the captured
                step (``torch.profiler``);
+18. rk4      -- the RK4 stage kernel (``rk4_stage_kernel<1..4>``) at #3
+               in fp32: each stage kind on the plain chain's inputs
+               against ``fs.rk4_stage_plain``, the next stage state and the
+               accumulator field by field (RK4_TOL, RK4_ACC_TOL), the wall
+               mask equal to the index rule bit for bit; the four stages
+               chained against the plain RK4 step (RK4_STEP_TOL); the
+               planted faults (RK4_FAULTS: k2 weighted 1 in place of 2,
+               COLP_new from the stage state in place of the t_n state)
+               must each break a bound; then #3 with ``time_stepping =
+               "rk4"`` through ``cli.run`` in chunks of COMPILED_CHUNK steps
+               (dt changes, radiation refreshes), eager and compiled in
+               turns, bit for bit and counted alike (four stage launches
+               and one epilogue a step, nothing else), with ms/step, the
+               host's enqueue, the device's busy ms and idle share and each
+               kernel's device ms in the captured step; each stage kind
+               and the epilogue alone timed against its plain version, in
+               turns, beside its bound, for the ``kernels`` line;
 16. across cards -- only with ``--multicard``, which needs four cards: the
                paths across ranks, one card per rank under NCCL, each held
                against the same grid on one card in this process, read back
@@ -229,6 +246,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -236,7 +254,8 @@ import torch.distributed as tdist
 
 from climate_model_tpu_torch import cli, model
 from climate_model_tpu_torch.bench.micro import device_ms, launch_ms, sync
-from climate_model_tpu_torch.bench.roofline import substep_bound_ms
+from climate_model_tpu_torch.bench.roofline import (
+    EPILOGUE_FLOPS_PER_POINT, bound_ms, substep_bound_ms)
 from climate_model_tpu_torch.bench.stability import probe_stability
 from climate_model_tpu_torch.core.config import (GridConfig, ModelConfig,
                                                  NumericsConfig,
@@ -636,9 +655,9 @@ def card_line() -> str:
 
 def kernel_name(mangled: str) -> str:
     """A readable name of a kernel of csrc/ from its mangled one: the name
-    and its template arguments (the substep's same_base, the epilogue's
-    levels a lane)."""
-    m = re.search(r"\d([a-z_]+_kernel)(.*)", mangled)
+    and its template arguments (the substep's same_base, the RK4 stage,
+    the epilogue's levels a lane)."""
+    m = re.search(r"\d((?:rk4_)?[a-z_]+_kernel)(.*)", mangled)
     if not m:
         return mangled
     args = re.findall(r"L[ib](\d+)E", m.group(2).split("Ev", 1)[0])
@@ -3004,7 +3023,9 @@ COMPILED_FAULTS = ("replays keep the capture-time dt",
 # the short names of the kernels in a profile
 KERNEL_SHORT = (("substep_kernel<true>", "substep(predictor)"),
                 ("substep_kernel<false>", "substep(corrector)"),
-                ("epilogue_kernel", "epilogue"))
+                ("epilogue_kernel", "epilogue")) \
+    + tuple((f"rk4_stage_kernel<{m}>", f"rk4 stage {m}")
+            for m in (1, 2, 3, 4))
 
 
 def compiled_config(dev):
@@ -3293,6 +3314,262 @@ MC_CLI_RUNS = (("b4_2x2_overlap", MC_B4_ARGV + ["--halo-overlap"]),
 # (c)'s horizon at #4: 50 steps at 16.715 s, in two chunks of 25
 MC_B4_50_ARGV = ["run", "--baseline", "4", "--days", "0.00967",
                  "--out-every-hours", "0.12"]
+
+
+# Phase 18 (rk4). Per-field bounds on max|kernel - plain| for ONE stage at
+# config #3 in fp32, from the plain RK4 chain's inputs (the moist check
+# state, moist_state, so that qv and qc move): the next stage state, and the
+# accumulator (w dt k, the conserved tendencies' units: Pa m/s for u and v,
+# Pa K for pott, Pa for colp, Pa kg/kg for qv and qc). RK4_STEP_TOL bounds
+# the four stages chained against the plain step's dynamics (``step_rk4``).
+# Each is 3.1-3.9x the largest error an H100 read over the four stages
+# (state: u 1.25e-4 m/s, v 3.24e-5 m/s, pott 6.1e-5 K, qv 9.3e-10, qc
+# 1.16e-10, colp 7.8e-3 Pa; accumulator: u 3.80, v 0.99, pott 2.79e-3, qv
+# 4.8e-7, qc 8.9e-8, colp 1.02e-6; chained: u 7.8e-5, v 2.2e-5, pott
+# 6.1e-5, qv 1.9e-9, qc 1.16e-10, colp 7.8e-3). A planted fault has to
+# break a bound after the stage it is planted in or after the step.
+RK4_TOL = {"u": 4e-4, "v": 1e-4, "pott": 2e-4, "qv": 3e-9, "qc": 4e-10,
+           "colp": 0.03}
+RK4_ACC_TOL = {"u": 12.0, "v": 3.5, "pott": 1e-2, "qv": 1.5e-6,
+               "qc": 3e-7, "colp": 4e-6}
+RK4_STEP_TOL = {"u": 3e-4, "v": 7e-5, "pott": 2e-4, "qv": 6e-9,
+                "qc": 4e-10, "colp": 0.03}
+RK4_FAULTS = ("k2 weighted 1 in place of 2",
+              "COLP_new from the stage state in place of the t_n state")
+RK4_REPLACES = "climate_model_tpu/dycore/stepper.py:42 (step_rk4, plain)"
+RK4_PHASE_MSG = ("each RK4 stage kind agrees with its plain version at #3 "
+                 "fp32, chained with the plain step; each planted fault "
+                 "breaks a bound; #3 RK4 compiled equals eager bit for bit, "
+                 "counted alike")
+
+
+def rk4_counts() -> dict:
+    return {**{f"rk4_k{m}": getattr(fs.rk4_stage, f"k{m}_launches")
+               for m in (1, 2, 3, 4)},
+            "epilogue": fs.epilogue.launches,
+            **{k: v for k, v in read_counts().items() if v}}
+
+
+def acc_view(acc: dict):
+    return types.SimpleNamespace(**acc)
+
+
+def rk4_chain(ci: CheckInputs, stage_fn, mask, fault=None):
+    """The four stages of one RK4 step from ``ci.state`` by ``stage_fn``
+    (``fs.rk4_stage`` or ``fs.rk4_stage_plain``): the stage states, and the
+    accumulator before and after each stage. ``fault`` plants one of
+    RK4_FAULTS on the way."""
+    g, f, dt, st = ci.grid, ci.forcing, ci.grid.dt, ci.moist
+    acc = fs.rk4_accumulator(st)
+    states, accs = [st], []
+    for m in (1, 2, 3, 4):
+        before = {k: v.clone() for k, v in acc.items()}
+        y0 = st
+        if fault == RK4_FAULTS[1] and m == 2:
+            y0 = st.replace(colp=states[-1].colp)
+        nxt = stage_fn(states[-1], y0, acc, g, f, dt, stage=m, vmask=mask,
+                       **ci.kw)
+        if fault == RK4_FAULTS[0] and m == 2:
+            for k in acc:
+                acc[k] = before[k] + 0.5 * (acc[k] - before[k])
+        states.append(nxt)
+        accs.append((before, {k: v.clone() for k, v in acc.items()}))
+    return states, accs
+
+
+def rk4_stage_checks(ci: CheckInputs, bad: list) -> dict:
+    """Each stage kind on the plain chain's inputs against its plain
+    version; the chained stages against the plain step; the planted
+    faults."""
+    g, f, dt, vm = ci.grid, ci.forcing, ci.grid.dt, ci.vmask
+    want, want_acc = rk4_chain(ci, fs.rk4_stage_plain, vm)
+    errs = {}
+    for m in (1, 2, 3, 4):
+        for mask in (vm, None):
+            acc = {k: v.clone() for k, v in want_acc[m - 1][0].items()}
+            got = fs.rk4_stage(want[m - 1], ci.moist, acc, g, f, dt,
+                               stage=m, vmask=mask, **ci.kw)
+            if mask is None:
+                same = bitwise_equal(got, masked) and all(
+                    torch.equal(acc[k].view(torch.int32),
+                                acc_m[k].view(torch.int32)) for k in acc)
+                if not same:
+                    bad.append(f"rk4 stage {m}: the mask differs from the "
+                               "index rule")
+                continue
+            masked, acc_m = got, acc
+            e = field_errors(got, want[m], RK4_TOL)
+            ea = field_errors(acc_view(acc), acc_view(want_acc[m - 1][1]),
+                              RK4_ACC_TOL) if m < 4 else {}
+            errs[f"rk4_stage{m}"] = e
+            print(f"  rk4 stage {m} max|kernel-plain|: state "
+                  + show(e, RK4_TOL)
+                  + (f"; accumulator {show(ea, RK4_ACC_TOL)}" if ea else ""),
+                  flush=True)
+            bad += [f"rk4 stage {m}: {x} over its bound"
+                    for x in over(e, RK4_TOL)]
+            bad += [f"rk4 stage {m}: accumulator {x} over its bound"
+                    for x in over(ea, RK4_ACC_TOL)]
+    print("  rk4 stages: the single-device mask equals the index rule bit "
+          "for bit", flush=True)
+    # the epilogue alone, after the last stage, on the plain stage 4 state
+    got = fs.epilogue(want[4], g, f, dt, phys=ci.phys, vmask=vm)
+    errs["rk4_epilogue"] = field_errors(
+        got, fs.epilogue_plain(want[4], g, f, dt, phys=ci.phys, vmask=vm),
+        EPI_TOL)
+    print("  rk4 epilogue alone max|kernel-plain|: "
+          + show(errs["rk4_epilogue"], EPI_TOL), flush=True)
+    bad += [f"rk4 epilogue: {x} over its bound"
+            for x in over(errs["rk4_epilogue"], EPI_TOL)]
+    plain_step = stepper_rk4(ci.moist, g, f, ci.cfg)
+    e = field_errors(want[4], plain_step, RK4_STEP_TOL)
+    print("  rk4 plain stages chained vs plain step_rk4 (fp32): "
+          + show(e, RK4_STEP_TOL), flush=True)
+    got, _ = rk4_chain(ci, fs.rk4_stage, vm)
+    errs["rk4_step"] = field_errors(got[4], plain_step, RK4_STEP_TOL)
+    print("  rk4 kernel stages chained vs plain step_rk4: "
+          + show(errs["rk4_step"], RK4_STEP_TOL), flush=True)
+    bad += [f"rk4 chained stages: {x} over its bound"
+            for x in over(errs["rk4_step"], RK4_STEP_TOL)]
+    for fault in RK4_FAULTS:
+        got, got_acc = rk4_chain(ci, fs.rk4_stage, vm, fault=fault)
+        per = field_errors(got[4], plain_step, RK4_STEP_TOL)
+        one = field_errors(got[2], want[2], RK4_TOL)
+        one_acc = field_errors(acc_view(got_acc[1][1]),
+                               acc_view(want_acc[1][1]), RK4_ACC_TOL)
+        print(f"  planted fault {fault}: after stage 2 state "
+              f"{show(one, RK4_TOL)}; accumulator "
+              f"{show(one_acc, RK4_ACC_TOL)}; after the step "
+              f"{show(per, RK4_STEP_TOL)}", flush=True)
+        if not (over(one, RK4_TOL) or over(one_acc, RK4_ACC_TOL)
+                or over(per, RK4_STEP_TOL)):
+            bad.append(f"rk4 with '{fault}' stays within every bound")
+    return errs
+
+
+def epilogue_bound_ms(state, forcing, out, vmask) -> tuple:
+    """(ms, what bounds it): the least time of the epilogue alone, each
+    tensor it reads counted once and each it writes once, at the card's
+    peaks."""
+    reads = [getattr(state, f) for f in ("u", "v", "pott", "qv", "qc",
+                                         "colp", "tsurf", "rain",
+                                         "soil_moist", "swflx_sfc",
+                                         "lwflx_sfc")]
+    reads += [forcing.land_mask, forcing.evap_eff, vmask]
+    writes = [getattr(out, f) for f in ("u", "v", "pott", "qv", "qc",
+                                        "tsurf", "rain", "soil_moist")]
+    n_bytes = sum(t.numel() * t.element_size() for t in reads + writes)
+    return bound_ms(n_bytes, EPILOGUE_FLOPS_PER_POINT * state.u.numel(),
+                    state.u.device)
+
+
+def time_rk4(ci: CheckInputs, card: str) -> dict:
+    """Each stage kind and the epilogue alone against its plain version,
+    in turns, on the plain chain's inputs, beside its bound: a stage's
+    bytes and operations as ``benchmark/reference_rk4/counts.py`` counts
+    them (the yardstick of ``roofline_pct.rk4_stage``), the epilogue's by
+    ``epilogue_bound_ms``. The stages' calls keep adding into a copy of
+    the accumulator, which changes no stage's work."""
+    from benchmark.reference_rk4 import counts as rk4_work
+    g, f, dt, vm = ci.grid, ci.forcing, ci.grid.dt, ci.vmask
+    want, want_acc = rk4_chain(ci, fs.rk4_stage_plain, vm)
+    nz, ny, nx = ci.moist.u.shape
+    timing = {}
+    for m in (1, 2, 3, 4):
+        acc = {k: v.clone() for k, v in want_acc[m - 1][0].items()}
+        args = (want[m - 1], ci.moist, acc, g, f, dt)
+        kw = dict(stage=m, vmask=vm, **ci.kw)
+        bound = bound_ms(rk4_work.stage_bytes(m, nx, ny, nz),
+                         rk4_work.stage_flops(nx, ny, nz), ci.moist.u.device)
+        timing[f"rk4_stage{m}"] = kernel_timing(
+            f"rk4 stage {m}",
+            lambda args=args, kw=kw: fs.rk4_stage(*args, **kw),
+            lambda args=args, kw=kw: fs.rk4_stage_plain(*args, **kw),
+            bound, card)
+    s4, ekw = want[4], dict(phys=ci.phys, vmask=vm)
+    timing["rk4_epilogue"] = kernel_timing(
+        "rk4 epilogue alone",
+        lambda: fs.epilogue(s4, g, f, dt, **ekw),
+        lambda: fs.epilogue_plain(s4, g, f, dt, **ekw),
+        epilogue_bound_ms(s4, f, fs.epilogue(s4, g, f, dt, **ekw), vm),
+        card)
+    return timing
+
+
+def stepper_rk4(state, grid, forcing, cfg):
+    from climate_model_tpu_torch.dycore.stepper import step_rk4
+    return step_rk4(state, grid, forcing,
+                    cfg.replace(numerics=dataclasses.replace(
+                        cfg.numerics, time_stepping="rk4")))
+
+
+def rk4_compiled(dev, card: str, bad: list) -> dict:
+    """#3 with RK4 through ``cli.run``, eager and compiled in turns."""
+    from climate_model_tpu_torch import graphs as cg
+    base = compiled_config(dev)
+    cfg = base.replace(numerics=dataclasses.replace(base.numerics,
+                                                    time_stepping="rk4"))
+    runs = {}
+    for turn, graphs in enumerate((False, None, None, False)):
+        if graphs is None:
+            cg.clear_cache()
+        res, _, steady, caps, peak = compiled_run(cfg, dev, graphs,
+                                                  dt_change=True)
+        counts = rk4_counts()
+        name = "eager" if graphs is False else "graphs"
+        runs.setdefault(name, []).append((res, counts, steady, caps))
+        print(f"  #3 rk4 turn {turn + 1} {name}: {res.steps} steps "
+              f"{res.chunks}, dt {res.dts}, after the first chunk "
+              f"{steady:.4f} ms/step; {caps} graphs captured; {peak}"
+              + (f"; {capture_line(dev)}" if name == "graphs" else "")
+              + f" [{card}]", flush=True)
+    ref, ref_counts = runs["eager"][0][0], runs["eager"][0][1]
+    n = ref.steps
+    want = {**{f"rk4_k{m}": n for m in (1, 2, 3, 4)}, "epilogue": n,
+            "radiation_refreshes": ref_counts.get("radiation_refreshes", 0)}
+    if ref_counts != want or len(set(ref.dts)) < 2:
+        bad.append(f"#3 rk4: counts {ref_counts}, dts {ref.dts}: expected "
+                   f"{want} and a dt change")
+    for name, items in runs.items():
+        for res, counts, _, caps in items:
+            if not same_run(res, ref):
+                bad.append(f"#3 rk4 {name} run differs from the eager run")
+            if counts != ref_counts:
+                bad.append(f"#3 rk4 {name}: counts {counts} != eager "
+                           f"{ref_counts}")
+            if name == "graphs" and caps != 4:
+                bad.append(f"#3 rk4: {caps} graphs captured, expected 4")
+    s = ref.state
+    wind = float(max(s.u.abs().max(), s.v.abs().max()))
+    print(f"  #3 rk4 compiled vs eager: bitwise equal "
+          f"{all(same_run(r[0], ref) for r in runs['graphs'])}; counts "
+          f"{ref_counts}; max|V| {wind:.2f} m/s, mean COLP "
+          f"{float(s.colp.mean()):.1f} Pa", flush=True)
+    cg.clear_cache()
+    eager = step_readings(cfg, ref, dev, False)
+    graph = step_readings(cfg, runs["graphs"][0][0], dev, None)
+    print("  #3 rk4 one more chunk from each run's end: "
+          + show_readings("eager", eager) + "; "
+          + show_readings("compiled", graph) + f" [{card}]", flush=True)
+    print(f"  #3 rk4 captured step, device time a step by kernel: "
+          f"{show_kernels(graph['kernels'])} [{card}]", flush=True)
+    cg.clear_cache()
+    return dict(eager=eager, graphs=graph, counts=ref_counts)
+
+
+def rk4_path(dev, card: str) -> dict:
+    """Phase 18."""
+    bad = []
+    ci = check_inputs(dev)
+    errs = rk4_stage_checks(ci, bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    timing = time_rk4(ci, card)
+    del ci
+    readings = rk4_compiled(dev, card, bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return dict(errs=errs, timing=timing, counts=readings["counts"])
 
 
 def on_mesh(argv, n_lat: int, n_lon: int) -> list:
@@ -3983,12 +4260,14 @@ def multicard_path(dev, card: str) -> list:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def kernel_entry(kname, source, path, launches, err, tol, tm) -> dict:
+def kernel_entry(kname, source, path, launches, err, tol, tm,
+                 replaces="climate_model_tpu/kernels/fused_substep.py:1047"
+                 ) -> dict:
     """One variant's entry of the ``kernels`` line."""
     return {
         "name": f"fused_substep_{kname}", "route": "cuda",
         "source": f"climate_model_tpu_torch/kernels/csrc/{source}",
-        "replaces": "climate_model_tpu/kernels/fused_substep.py:1047",
+        "replaces": replaces,
         "path": path, "launches": launches,
         # fields differ in units: the max is colp's (Pa); each field's
         # error and the largest error/bound ratio are listed beside it
@@ -4160,6 +4439,11 @@ def main(argv=None) -> int:
           "chunk equals the eager loop bit for bit, counted alike, with no "
           "capture after a dt change; each planted fault breaks it")
 
+    # ---- 18. RK4 on the stage kernel ----
+    t = time.perf_counter()
+    rk4 = rk4_path(dev, card)
+    phase("rk4", t, RK4_PHASE_MSG)
+
     print("[across cards] not run: phase 16 runs only under --multicard, "
           f"on {MC_WORLD} cards (python3 chip_smoke.py --multicard)",
           flush=True)
@@ -4200,6 +4484,17 @@ def main(argv=None) -> int:
                       clim["tols"][gate] if epi else FIELD_TOL,
                       clim["timing"][gate][kname])
             kernels.append(dict(e, name=f"{e['name']}_{nx}x{ny}x{nz}"))
+    # RK4 has no kernel in the JAX package: its plain step_rk4 is replaced
+    rk4_run = "packed scan, BASELINE #3 with RK4 (compiled chunk)"
+    for m in (1, 2, 3, 4):
+        kernels.append(kernel_entry(
+            f"rk4_stage{m}", "fused_substep.cu", rk4_run,
+            rk4["counts"][f"rk4_k{m}"], rk4["errs"][f"rk4_stage{m}"],
+            RK4_TOL, rk4["timing"][f"rk4_stage{m}"], replaces=RK4_REPLACES))
+    kernels.append(kernel_entry(
+        "rk4_epilogue", "physics_epilogue.cu", rk4_run,
+        rk4["counts"]["epilogue"], rk4["errs"]["rk4_epilogue"], EPI_TOL,
+        rk4["timing"]["rk4_epilogue"], replaces=RK4_REPLACES))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(f"total {time.perf_counter() - T0:.1f}s", flush=True)

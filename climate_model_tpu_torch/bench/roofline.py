@@ -15,8 +15,9 @@ a traced Mosaic kernel) has no counterpart on the card; the share of the
 card's fp32 peak (``step_kernel_flops_per_point``) takes its place.
 
 ``substep_work`` counts one substep call's bytes (each input read once,
-each output written once) and operations; ``substep_bound_ms``, the larger
-of the two over the card's rates, is the bound of every kernel in
+each output written once) and operations; ``bound_ms`` is the larger of
+bytes and operations over the card's rates; ``substep_bound_ms``, that of
+``substep_work``, is the bound of every substep variant in
 ``chip_smoke.py``, and the bytes over the memory rate are the byte floors
 of ``bench --micro``.
 """
@@ -163,10 +164,16 @@ def substep_work(ev, base, grid, forcing, out, phys=None, vmask=None,
 def substep_bound_ms(ev, base, grid, forcing, out, phys=None, vmask=None
                      ) -> tuple:
     """(ms, what bounds it): the least time for one substep call on the
-    device of ``ev``, the larger of its bytes over the memory rate and its
-    operations over the fp32 rate (``substep_work``)."""
-    pk = peaks(card_name(ev.u.device))
+    device of ``ev`` (``bound_ms`` of ``substep_work``)."""
     n_bytes, flops = substep_work(ev, base, grid, forcing, out, phys, vmask)
+    return bound_ms(n_bytes, flops, ev.u.device)
+
+
+def bound_ms(n_bytes: float, flops: float, device) -> tuple:
+    """(ms, what bounds it): the least time of ``n_bytes`` of traffic and
+    ``flops`` operations on ``device``, the larger of the bytes over the
+    memory rate and the operations over the fp32 rate."""
+    pk = peaks(card_name(device))
     t_bytes = n_bytes / pk.bytes_per_s
     t_ops = flops / pk.fp32_flops
     if t_bytes >= t_ops:

@@ -137,6 +137,8 @@ def describe_path(cfg: ModelConfig, mesh=None) -> str:
             from .dist.halo import describe
             return describe(cfg, mesh)
         return "per-step (plain PyTorch dynamics, backend=jnp)"
+    if mesh is None and cfg.numerics.time_stepping == "rk4":
+        return "packed scan (four RK4 stages, then the physics epilogue)"
     if mesh is None:
         return "packed scan (corrector with physics epilogue)"
     sh = cfg.sharding

@@ -2,15 +2,17 @@
 
 Port of ``climate_model_tpu/dycore/stepper.py``. The reference's
 ``lax.scan`` loop is a Python loop (``run_scan``). With ``backend='pallas'``
-the dynamics step is the fused substep kernel, launched twice a step
-(predictor, then corrector) on the plain State layout
-(``kernels/fused_substep.py``); on CPU tensors the kernel wrappers take the
-plain ``substep``. The kernels carry Matsuno only, so that backend refuses
-Euler and RK4, as the reference's does. ``step_matsuno``, ``step_euler`` and
-``step_rk4`` are the plain steps: what ``backend='jnp'`` runs on whatever
-device the state is on (the per-term tendency switches included);
-``step_matsuno`` is also the reference the tests and ``chip_smoke.py`` hold
-the kernel path against.
+the dynamics step is the fused substep kernel on the plain State layout
+(``kernels/fused_substep.py``), launched twice a step for Matsuno
+(predictor, then corrector), or the RK4 stage kernel, launched four times a
+step for RK4 (on one device only: it has no shard-local or seam-strip
+variant); on CPU tensors the kernel wrappers take their plain versions.
+That backend refuses Euler, as the reference's does. ``step_matsuno``,
+``step_euler`` and ``step_rk4`` are the plain steps: what
+``backend='jnp'`` runs on whatever device the state is on (the per-term
+tendency switches included); ``step_matsuno`` and ``step_rk4`` are also
+the references the tests and ``chip_smoke.py`` hold the kernel paths
+against.
 """
 
 from __future__ import annotations
@@ -112,13 +114,43 @@ def _fused_matsuno_step_fn(cfg: ModelConfig):
     return step
 
 
-def check_pallas(cfg: ModelConfig) -> None:
-    """The reference's two refusals of ``backend='pallas'``
-    (``climate_model_tpu/dycore/stepper.py:145-154``): the kernels carry
-    Matsuno only, and every tendency."""
+def _fused_rk4_step_fn(cfg: ModelConfig):
+    """RK4 stepper on the stage kernel: four launches a step, the
+    accumulator allocated a step; physics sources/splits stay around it."""
+    from ..kernels.fused_substep import rk4_accumulator, rk4_stage
+
     num = cfg.numerics
-    if num.time_stepping != "matsuno":
-        raise ValueError("backend='pallas' supports matsuno only")
+    kw = dict(with_rad=cfg.physics.radiation,
+              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+
+    def step(state: State, grid: Grid, forcing: Forcing) -> State:
+        acc = rk4_accumulator(state)
+        s = state
+        for stage in (1, 2, 3, 4):
+            s = rk4_stage(s, state, acc, grid, forcing, grid.dt,
+                          stage=stage, **kw)
+        return s
+
+    return step
+
+
+_FUSED = {"matsuno": _fused_matsuno_step_fn, "rk4": _fused_rk4_step_fn}
+
+
+def check_pallas(cfg: ModelConfig) -> None:
+    """The refusals of ``backend='pallas'``: the kernels carry Matsuno and
+    RK4 (the reference's carry Matsuno only,
+    ``climate_model_tpu/dycore/stepper.py:145-154``), RK4 on one device
+    only, and every tendency."""
+    num = cfg.numerics
+    if num.time_stepping not in _FUSED:
+        raise ValueError("backend='pallas' supports matsuno and rk4 only, "
+                         f"not {num.time_stepping!r}")
+    sh = cfg.sharding
+    if num.time_stepping == "rk4" and sh.mesh_lat * sh.mesh_lon > 1:
+        raise ValueError("backend='pallas' runs rk4 on one device only: the "
+                         "RK4 stage kernel has no shard-local or seam-strip "
+                         f"variant (mesh {sh.mesh_lat}x{sh.mesh_lon})")
     if not (num.wind_tendency and num.colp_tendency
             and num.temperature_tendency and num.moisture_tendency):
         raise ValueError("backend='pallas' requires all tendencies on "
@@ -129,13 +161,14 @@ def check_pallas(cfg: ModelConfig) -> None:
 def dynamics_step_fn(cfg: ModelConfig):
     """The dynamics stepper for ``cfg``: ``step(state, grid, forcing)``.
     As in the reference, ``cfg.backend`` decides: ``'pallas'`` launches the
-    substep kernels (on CPU tensors their plain version) and refuses what
-    they do not carry (``check_pallas``); any other backend (``'jnp'``)
-    takes the plain step of ``cfg.numerics.time_stepping`` (``_STEPPERS``)
-    on whatever device the state is on."""
+    kernels of ``cfg.numerics.time_stepping`` (the Matsuno substeps or the
+    RK4 stages; on CPU tensors their plain versions) and refuses what they
+    do not carry (``check_pallas``); any other backend (``'jnp'``) takes
+    the plain step of ``cfg.numerics.time_stepping`` (``_STEPPERS``) on
+    whatever device the state is on."""
     if cfg.backend == "pallas":
         check_pallas(cfg)
-        return _fused_matsuno_step_fn(cfg)
+        return _FUSED[cfg.numerics.time_stepping](cfg)
     ts = cfg.numerics.time_stepping
     try:
         raw = _STEPPERS[ts]

@@ -14,8 +14,13 @@ sharded programs jitted too (``dist/packed_halo.py:295``). Here:
   the result out, so the caller's state stays valid.
 * **Graphs.** One ``torch.cuda.CUDAGraph`` per (buffer parity, radiation
   refresh or not), warmed up on a side stream and captured there, from one
-  private memory pool. A step is radiation on its interval, the predictor,
-  the corrector with the epilogue, then ``t += dt`` from the device scalar.
+  private memory pool. A Matsuno step is radiation on its interval, the
+  predictor, the corrector with the epilogue, then ``t += dt`` from the
+  device scalar; an RK4 step (one device) the four stages and the
+  epilogue in its place, with buffers of its own allocated once
+  (``model.packed_work``: two stage states, written in turns, and the
+  accumulator), beside the two sets that hold the t_n state and the
+  result.
 * **Replay.** By the host step counter, so the radiation cadence stays
   ``step % rad_every_steps``; a chunk is a count of replays. A new ``dt``
   is a write into the scalar buffer (``kernels/fused_substep.py::
@@ -63,7 +68,8 @@ from .dist.packed_halo import (PROG_FIELDS, RAD_FIELDS, ShardStep,
 from .dist.sharding import ShardedState
 from .dycore.stepper import check_pallas
 from .kernels.fused_substep import (StepScalars, autoconv_tau, corrector,
-                                    geo_table, predictor, wall_mask)
+                                    epilogue, geo_table, predictor,
+                                    rk4_stage, wall_mask)
 from .physics.radiation import radiation_refresh, radiation_step, refresh_due
 from .trace import span
 
@@ -72,7 +78,9 @@ COUNTERS = tuple((fn, name) for fn in (predictor, corrector)
                  for name in ("launches", "masked_launches", "shard_launches",
                               "south_strip_launches",
                               "north_strip_launches")) \
-    + ((corrector, "epilogue_launches"), (radiation_step, "refreshes"))
+    + ((corrector, "epilogue_launches"),) \
+    + tuple((rk4_stage, f"k{m}_launches") for m in (1, 2, 3, 4)) \
+    + ((epilogue, "launches"), (radiation_step, "refreshes"))
 CACHE_SIZE = 4          # runners kept, least recently used first out
 
 captures = 0            # graphs captured by this process
@@ -214,7 +222,8 @@ class PackedGraphs(_Captured):
 
     def __init__(self, cfg: ModelConfig, state: State, grid: Grid,
                  forcing: Forcing, capture):
-        from .model import packed_dynamics_fn, phys_epilogue_tuple
+        from .model import (packed_dynamics_fn, packed_work,
+                            phys_epilogue_tuple)
         super().__init__(capture, _refresh_kinds(cfg))
         self.cfg, self.grid, self.forcing = cfg, grid, forcing
         self.dyn = packed_dynamics_fn(cfg)
@@ -222,7 +231,8 @@ class PackedGraphs(_Captured):
         self.scalars = StepScalars(state.device,
                                    autoconv_tau(phys_epilogue_tuple(cfg)))
         self.scalars.set(grid.dt)
-        self.launch = dict(scalars=self.scalars, geo=geo_table(grid))
+        self.launch = dict(scalars=self.scalars, geo=geo_table(grid),
+                           **packed_work(cfg, state))
         self.vmask = wall_mask(state.v.shape[-2], state.dtype, state.device)
         _load(state, self.sets[0], self.rad, self.t)
         self._build(self.step)

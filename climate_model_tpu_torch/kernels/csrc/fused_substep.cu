@@ -20,6 +20,23 @@
 // dt never rebuilds or re-specialises anything, and a captured CUDA graph
 // (climate_model_tpu_torch/graphs.py) takes a new dt without a re-capture.
 //
+// The same machinery runs one stage of classical RK4 on the conserved
+// variables y = (COLP, COLP_u u, COLP_v v, COLP POTT, COLP QV, COLP QC)
+// (rk4_stage_kernel<STAGE>, STAGE = 1..4; climate_model_tpu_torch/dycore/
+// stepper.py::step_rk4): the tendencies k at the stage state, as the
+// predictor computes them (its COLP_new, for the sigma velocity and the
+// vertical fluxes, is the stage state's COLP + dt dCOLP/dt with the full
+// dt, as tendencies(s, s.colp, dt) has it); then, from the t_n state y0,
+// the next stage state y0 + c dt k (c = 1/2, 1/2, 1) in primitive form,
+// QV and QC clamped at 0 and the v wall kept, as from_conserved does, and
+// w dt k (w = 1/6, 1/3, 1/3, 1/6) added to an accumulator of the conserved
+// tendencies in device memory (written by stages 1-3, read by 2-4). The
+// last stage writes y0 + the accumulator in primitive form. A point of the
+// accumulator is read and written by one thread (its COLP by the scan of
+// its own column); only the last stage, which writes none of it, reads the
+// accumulated COLP of the columns around. The stage's scan slot holds one
+// more row: the next state's COLP.
+//
 // Layout: the plain State layout of the port. 3-D fields are contiguous
 // (nz, ny, nx) fp32, 2-D fields (ny, nx). Longitude is periodic (an index
 // wrap); latitude has rigid walls: south/north "clamp" neighbours replicate
@@ -181,7 +198,19 @@ struct Args {
   const float* scalars;                              // (dt, frac) on the card
   float dy, dy2, ptop;
   int with_rad, with_diff;
+  // an RK4 stage's accumulator of w dt k (null in a Matsuno substep)
+  float *acc_u = nullptr, *acc_v = nullptr, *acc_pott = nullptr,
+        *acc_qv = nullptr, *acc_qc = nullptr, *acc_colp = nullptr;
 };
+
+// RK4 stage m: the next stage state is y0 + c dt k_m, and w dt k_m is
+// accumulated
+__host__ __device__ constexpr float stage_c(int m) {
+  return m == 3 ? 1.f : 0.5f;
+}
+__host__ __device__ constexpr float stage_w(int m) {
+  return m == 1 || m == 4 ? 1.f / 6.f : 1.f / 3.f;
+}
 
 // the least n' >= n with n' = 4 mod 8: a line's pitch, a multiple of 4
 // floats (16-byte copies) whose multiples by 32 consecutive levels fall in
@@ -201,12 +230,13 @@ struct Ring {
   int sslot;      // floats of a scan slot
   int xslot;      // floats of a scratch slot
   int wwind, phi, pvtf, cn, cb, dc;   // offsets in a scan slot
+  int cx;                             // an RK4 stage's: the next COLP
   int phil, xs;                       // offsets in a scratch slot
   int fields, colp, geo, scan, scratch, sig, dsig, total;
   int depth;                          // staged rows in the ring
   unsigned md, md1;                   // ceil(2^32 / depth), ... / (depth + 1)
 
-  __host__ __device__ Ring(int nz, int tx, int depth_) {
+  __host__ __device__ Ring(int nz, int tx, int depth_, bool stage = false) {
     depth = depth_;
     md = 0xffffffffu / depth + 1;
     md1 = 0xffffffffu / (depth + 1) + 1;
@@ -219,7 +249,8 @@ struct Ring {
     cn = pvtf + nz * EX;
     cb = cn + EX;
     dc = cb + EX;
-    sslot = dc + EX;
+    cx = dc + EX;
+    sslot = cx + (stage ? EX : 0);
     phil = 0;
     xs = phil + nz * EX;
     xslot = xs + EX;
@@ -383,19 +414,26 @@ __device__ __forceinline__ void line_item(const Strip& st, int vec, int nw,
 }
 
 // What the update of row r reads from device memory beside the ring (the
-// radiative heating, and the corrector's base state), fetched into L2 with
-// the copies of row r + depth - 4: a lane a (field, level) line, both ends
-// of its longitudes.
+// radiative heating, the corrector's base state, and an RK4 stage's t_n
+// state and accumulator), fetched into L2 with the copies of row
+// r + depth - 4: a lane a (field, level) line, both ends of its longitudes.
+template <int STAGE>
 __device__ __forceinline__ void prefetch_update_rows(const Args& a,
                                                      const Strip& st, int r) {
-  const bool base = a.ub != a.u;
-  const int nf = (base ? kNFields : 0) + (a.with_rad ? 1 : 0);
+  const bool base = STAGE == 0 ? a.ub != a.u : STAGE > 1;
+  const int nb = base ? kNFields : 0, na = STAGE > 1 ? kNFields : 0;
+  const int nf = nb + na + (a.with_rad ? 1 : 0);
   if (r < 0 || r >= a.ny || nf == 0) return;
   for (int q = lane_id(); q < nf * a.nz; q += 32) {
     const int f = q / a.nz, k = q - f * a.nz;
-    const float* fld = !base || f == kNFields ? a.rad
-                     : f == kU ? a.ub : f == kV ? a.vb : f == kPott ? a.pottb
-                     : f == kQv ? a.qvb : a.qcb;
+    const int g = f < nb ? f : f - nb;
+    const float* fld = f >= nb + na ? a.rad
+                     : f < nb ? (g == kU ? a.ub : g == kV ? a.vb
+                                 : g == kPott ? a.pottb : g == kQv ? a.qvb
+                                 : a.qcb)
+                     : g == kU ? a.acc_u : g == kV ? a.acc_v
+                     : g == kPott ? a.acc_pott : g == kQv ? a.acc_qv
+                     : a.acc_qc;
     const float* row = fld + ((size_t)k * a.ny + r) * a.nx + st.i0;
     asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row));
     asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + st.ncol - 1));
@@ -406,6 +444,7 @@ __device__ __forceinline__ void prefetch_update_rows(const Args& a,
 // a lane a copy (a line of more than 32 copies in turns of 32); f = -1 is
 // COLP's line (two columns west) and the row's geometry, f = -2 COLP's
 // line alone.
+template <int STAGE>
 __device__ void copy_lines(const Args& a, const Ring& t, const Strip& st,
                            int r, int f) {
   const int nz = a.nz, ny = a.ny, nx = a.nx, lane = lane_id();
@@ -429,7 +468,7 @@ __device__ void copy_lines(const Args& a, const Ring& t, const Strip& st,
     }
     const int g = lane - (32 - kNGeo);
     if (g >= 0) copy(t.geo_row(r) + g, a.geo + r * kNGeo + g, 4);
-    prefetch_update_rows(a, st, r - (a.depth - 4));
+    prefetch_update_rows<STAGE>(a, st, r - (a.depth - 4));
     return;
   }
   const int sub = lane / st.items;
@@ -528,7 +567,10 @@ __device__ __forceinline__ void store_terms(const Ring& t, const ScanRow& r,
 // sum from the surface up (phi, replacing the jumps). Each loop reads
 // kChunk levels' values before it adds and stores them, so the reads do not
 // wait on the adds; the column's base COLP and surface height come read
-// already.
+// already. In an RK4 stage the base is the t_n state, and the tendencies'
+// COLP_new is the evaluation state's COLP + dt dCOLP/dt; the next state's
+// COLP (cx) and the accumulator's are written beside them.
+template <int STAGE>
 __device__ void scan_sums(const Args& a, const Ring& t, const ScanRow& r,
                           int ec, int i, float cb, float hsurf) {
   float* sm = substep_smem;
@@ -552,11 +594,29 @@ __device__ void scan_sums(const Args& a, const Ring& t, const ScanRow& r,
   }
   const float dcolpdt = -csum;
   const float dt = substep_dt;
-  const float cn = cb + dt * dcolpdt;
-  sm[r.s + t.cn + ec] = cn;
-  sm[r.s + t.cb + ec] = cb;
-  sm[r.s + t.dc + ec] = dcolpdt;
-  if (r.own && ec >= 1) a.colp_out[j * nx + i] = cn;
+  if constexpr (STAGE == 0) {
+    const float cn = cb + dt * dcolpdt;
+    sm[r.s + t.cn + ec] = cn;
+    sm[r.s + t.cb + ec] = cb;
+    sm[r.s + t.dc + ec] = dcolpdt;
+    if (r.own && ec >= 1) a.colp_out[j * nx + i] = cn;
+  } else {
+    const int id = j * nx + i;
+    const float wdt = stage_w(STAGE) * dt;
+    const float cx = STAGE == 4
+        ? cb + (a.acc_colp[id] + wdt * dcolpdt)
+        : cb + stage_c(STAGE) * dt * dcolpdt;
+    sm[r.s + t.cn + ec] = sm[r.c0 + ec + 3] + dt * dcolpdt;
+    sm[r.s + t.cb + ec] = cb;
+    sm[r.s + t.dc + ec] = dcolpdt;
+    sm[r.s + t.cx + ec] = cx;
+    if (r.own && ec >= 1) {
+      a.colp_out[id] = cx;
+      if constexpr (STAGE == 1) a.acc_colp[id] = wdt * dcolpdt;
+      else if constexpr (STAGE < 4)
+        a.acc_colp[id] = a.acc_colp[id] + wdt * dcolpdt;
+    }
+  }
 
   const float* own = sm + r.x + t.phil + ec;
   float* phi = sm + r.s + t.phi + ec;
@@ -617,6 +677,7 @@ __device__ void terms_task(const Args& a, const Ring& t, const ScanRow& r,
 
 // The sums and sigma velocities (1b, 1c) of scan columns ec = part,
 // part + parts, ... of row r, a lane a column.
+template <int STAGE>
 __device__ void sums_task(const Args& a, const Ring& t, const ScanRow& r,
                           const Strip& st, int part, int parts) {
   // the sums of the columns
@@ -624,7 +685,7 @@ __device__ void sums_task(const Args& a, const Ring& t, const ScanRow& r,
   if (ec > st.ncol) return;
   const int i = wrap(st.i0 - 1 + ec, a.nx);
   const float* b = substep_smem + r.f0 + kNFields * a.nz * t.P + 3 + ec;
-  scan_sums(a, t, r, ec, i, b[0], b[t.P]);
+  scan_sums<STAGE>(a, t, r, ec, i, b[0], b[t.P]);
   scan_wwind(a, t, r, ec);
 }
 
@@ -639,7 +700,19 @@ struct UpdRow {                  // shared-memory offsets of what it reads
   int ss, s0;                   // scan slots of rows j-1 (clamped), j
 };
 
-template <bool SAME_BASE>
+// An RK4 stage's increment of a conserved variable from the t_n state, for
+// its tendency k at (stage) point id: c dt k, or at the last stage the
+// accumulator; w dt k is added to the accumulator (stages 1-3).
+template <int STAGE>
+__device__ __forceinline__ float stage_increment(float* acc, int id, float k,
+                                                 float dt) {
+  const float wdt = stage_w(STAGE) * dt;
+  if constexpr (STAGE == 4) return acc[id] + wdt * k;
+  __stcg(acc + id, STAGE == 1 ? wdt * k : acc[id] + wdt * k);
+  return stage_c(STAGE) * dt * k;
+}
+
+template <bool SAME_BASE, int STAGE>
 __device__ void point_update(const Args& a, const Ring& t, const UpdRow& r,
                              int i0, int x, int k) {
   const float* sm = substep_smem;
@@ -681,6 +754,7 @@ __device__ void point_update(const Args& a, const Ring& t, const UpdRow& r,
   auto srow = [&](int jj) { return jj == j ? r.s0 : r.ss; };
   auto cnp = [&](int jj, int di) { return sm[srow(jj) + t.cn + e + di]; };
   auto colpb = [&](int jj, int di) { return sm[srow(jj) + t.cb + e + di]; };
+  auto cxp = [&](int jj, int di) { return sm[srow(jj) + t.cx + e + di]; };
   auto wwind = [&](int kb, int jj, int di) {
     return sm[srow(jj) + t.wwind + kb * t.EX + e + di];
   };
@@ -721,6 +795,7 @@ __device__ void point_update(const Args& a, const Ring& t, const UpdRow& r,
   // ---- scalars: pott (radiative source), qv, qc ----
   const float* qbs[3] = {a.pottb, a.qvb, a.qcb};
   float* qouts[3] = {a.pott_out, a.qv_out, a.qc_out};
+  float* qaccs[3] = {a.acc_pott, a.acc_qv, a.acc_qc};
   const float w_top = wwind(k, j, 0), w_bot = wwind(k + 1, j, 0);
 #pragma unroll
   for (int s = 0; s < 3; ++s) {
@@ -746,7 +821,14 @@ __device__ void point_update(const Args& a, const Ring& t, const UpdRow& r,
       dqdt = dqdt + coef * ce * lap;
     }
     const float qb = SAME_BASE ? qc_ : qbs[s][id];
-    float qnew = div_rn(qb * cb + dt * dqdt, cn, r_cn);
+    float qnew;
+    if constexpr (STAGE == 0) {
+      qnew = div_rn(qb * cb + dt * dqdt, cn, r_cn);
+    } else {
+      const float cx = cxp(j, 0);
+      qnew = div_rn(qb * cb + stage_increment<STAGE>(qaccs[s], id, dqdt, dt),
+                    cx, rcp(cx));
+    }
     if (s > 0) qnew = qnew < 0.f ? 0.f : qnew;     // NaN passes through
     __stcg(qouts[s] + id, qnew);
   }
@@ -795,13 +877,21 @@ __device__ void point_update(const Args& a, const Ring& t, const UpdRow& r,
     }
     const float ub = SAME_BASE ? uc : a.ub[id];
     const float cu_old = 0.5f * (colpb(j, -1) + cb);
-    __stcg(a.u_out + id, (ub * cu_old + dt * dudt) / cn_u);
+    if constexpr (STAGE == 0) {
+      __stcg(a.u_out + id, (ub * cu_old + dt * dudt) / cn_u);
+    } else {
+      const float cx_u = 0.5f * (cxp(j, -1) + cxp(j, 0));
+      __stcg(a.u_out + id,
+             (ub * cu_old + stage_increment<STAGE>(a.acc_u, id, dudt, dt))
+             / cx_u);
+    }
   }
 
   // ---- v momentum at the south face of (j, i) ----
   {
     if (j == 0 && !a.vmask) {                       // south wall, by index
       __stcg(a.v_out + id, 0.f);
+      if constexpr (STAGE >= 1 && STAGE <= 3) __stcg(a.acc_v + id, 0.f);
       return;
     }
     const float vc = fld(kV, k, j, 0), ve = fld(kV, k, j, 1);
@@ -844,7 +934,16 @@ __device__ void point_update(const Args& a, const Ring& t, const UpdRow& r,
     }
     const float vb = SAME_BASE ? vc : a.vb[id];
     const float cv_old = 0.5f * (colpb(js, 0) + cb);
-    const float vnew = (vb * cv_old + dt * dvdt) / cn_v;
+    float vnew;
+    if constexpr (STAGE == 0) {
+      vnew = (vb * cv_old + dt * dvdt) / cn_v;
+    } else {
+      // the wall holds the tendency at 0 too (enforce_v_walls(dvdt))
+      if (a.vmask) dvdt = dvdt * a.vmask[j] + 0.f;
+      const float cx_v = 0.5f * (cxp(js, 0) + cxp(j, 0));
+      vnew = (vb * cv_old + stage_increment<STAGE>(a.acc_v, id, dvdt, dt))
+             / cx_v;
+    }
     // the wall as data: 0 on wall rows. "+ 0" turns the -0 of a negative v
     // times 0 into +0, so the single-device mask equals the index rule bit
     // for bit
@@ -897,14 +996,15 @@ __device__ __forceinline__ UpdRow upd_row(const Ring& t, int ny, int j) {
 
 // One pass of the update of row j: levels k = p * per_warp + lane / txe,
 // lanes along longitude.
-template <bool SAME_BASE>
+template <bool SAME_BASE, int STAGE>
 __device__ __forceinline__ void update_task(const Args& a, const Ring& t,
                                             const UpdRow& r, const Strip& st,
                                             int p) {
   // the update of a pass of levels
   const int nz = a.nz, lane = lane_id();
   const int x = lane % st.txe, k = p * st.per_warp + lane / st.txe;
-  if (x < st.ncol && k < nz) point_update<SAME_BASE>(a, t, r, st.i0, x, k);
+  if (x < st.ncol && k < nz)
+    point_update<SAME_BASE, STAGE>(a, t, r, st.i0, x, k);
 }
 
 // ---------------------------------------------------------------------------
@@ -984,12 +1084,13 @@ __device__ __forceinline__ void wait_updates(const Plan& p, Counters& c,
 // every update of rows r-depth-1 .. r-depth+1 in this segment finished. The
 // warp does not wait for its copies: each lane's arrival on the slot's
 // mbarrier comes when they land.
+template <int STAGE>
 __device__ __forceinline__ void copy_task(const Args& a, const Ring& t,
                                           const Strip& st, const Plan& p,
                                           Counters& c, int r, int f) {
   for (int jj = r - p.depth - 1; jj <= r - p.depth + 1; ++jj)
     wait_updates(p, c, jj);
-  copy_lines(a, t, st, r, f);
+  copy_lines<STAGE>(a, t, st, r, f);
   const unsigned bar = static_cast<unsigned>(
       __cvta_generic_to_shared(&c.landed[t.slot(r)]));
   asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
@@ -1043,29 +1144,31 @@ __device__ __forceinline__ void terms_row_task(const Args& a, const Ring& t,
 }
 
 // Sums task `part` of row R, once its terms are finished.
+template <int STAGE>
 __device__ __forceinline__ void sums_row_task(const Args& a, const Ring& t,
                                               const Strip& st, const Plan& p,
                                               Counters& c, int R, int part) {
   wait_terms(p, c, R);
-  sums_task(a, t, scan_row(t, a.ny, R, R >= p.jA), st, part, p.sums);
+  sums_task<STAGE>(a, t, scan_row(t, a.ny, R, R >= p.jA), st, part,
+                   p.sums);
   finished(&c.sums[R % 3]);
 }
 
 // Update pass k of row J, once the sums of rows J-1 and J are finished
 // (and with them the staged rows J-1 .. J+1 their terms read).
-template <bool SAME_BASE>
+template <bool SAME_BASE, int STAGE>
 __device__ __forceinline__ void update_row_task(const Args& a, const Ring& t,
                                                 const Strip& st,
                                                 const Plan& p, Counters& c,
                                                 int J, int k) {
   wait_sums(p, c, J - 1);
   wait_sums(p, c, J);
-  update_task<SAME_BASE>(a, t, upd_row(t, a.ny, J), st, k);
+  update_task<SAME_BASE, STAGE>(a, t, upd_row(t, a.ny, J), st, k);
   finished(&c.updates[J & 3]);
 }
 
 // Rows jA .. jB-1 of strip s.
-template <bool SAME_BASE>
+template <bool SAME_BASE, int STAGE>
 __device__ void segment(const Args& a, const Ring& t, int s, int jA, int jB,
                         Strip& st, Plan& p, Counters& c) {
   if (threadIdx.x == 0) {
@@ -1107,19 +1210,20 @@ __device__ void segment(const Args& a, const Ring& t, int s, int jA, int jB,
     q = __shfl_sync(kFull, q, 0);
     if (q < p.nfirst) {                       // the warm-up
       if (q < p.npre) {                       // COLP of row jA-2
-        copy_lines(a, t, st, jA - 2, -2);
+        copy_lines<STAGE>(a, t, st, jA - 2, -2);
         land_copies();
         finished(&c.pre);
       } else if ((q -= p.npre) < p.ncopy0) {  // the rows its scans read
-        copy_task(a, t, st, p, c, p.r_lo + q / (kNFields + 1),
+        copy_task<STAGE>(a, t, st, p, c, p.r_lo + q / (kNFields + 1),
                   q % (kNFields + 1) - 1);
       } else if ((q -= p.ncopy0) < p.nrows0 * p.cols) {
         terms_row_task(a, t, st, p, c, p.j_first + q / p.cols, q % p.cols);
       } else if ((q -= p.nrows0 * p.cols) < p.nrows0 * p.sums) {
-        sums_row_task(a, t, st, p, c, p.j_first + q / p.sums, q % p.sums);
+        sums_row_task<STAGE>(a, t, st, p, c, p.j_first + q / p.sums,
+                             q % p.sums);
       } else {                                // the rest of the first rows
         q -= p.nrows0 * p.sums;
-        copy_task(a, t, st, p, c, p.r_mid + 1 + q / (kNFields + 1),
+        copy_task<STAGE>(a, t, st, p, c, p.r_mid + 1 + q / (kNFields + 1),
                   q % (kNFields + 1) - 1);
       }
       continue;
@@ -1136,27 +1240,26 @@ __device__ void segment(const Args& a, const Ring& t, int s, int jA, int jB,
     if (q < ncols)
       terms_row_task(a, t, st, p, c, J + 1, q);
     else if ((q -= ncols) < half)
-      update_row_task<SAME_BASE>(a, t, st, p, c, J, q);
+      update_row_task<SAME_BASE, STAGE>(a, t, st, p, c, J, q);
     else if ((q -= half) < nsums)
-      sums_row_task(a, t, st, p, c, J + 1, q);
+      sums_row_task<STAGE>(a, t, st, p, c, J + 1, q);
     else if ((q -= nsums) < p.passes - half)
-      update_row_task<SAME_BASE>(a, t, st, p, c, J, half + q);
+      update_row_task<SAME_BASE, STAGE>(a, t, st, p, c, J, half + q);
     else
-      copy_task(a, t, st, p, c, J + p.depth - 2, q - (p.passes - half) - 1);
+      copy_task<STAGE>(a, t, st, p, c, J + p.depth - 2,
+                       q - (p.passes - half) - 1);
   }
   __syncthreads();
 }
 
-template <bool SAME_BASE>
-__global__ void __launch_bounds__(kThreads, 1)
-substep_kernel(Args args) {
-  __shared__ Strip strip;
-  __shared__ Plan plan;
-  __shared__ Counters counters;
+// A block's runs of rows, for the kernels below.
+template <bool SAME_BASE, int STAGE>
+__device__ __forceinline__ void block_runs(const Args& args, Strip& strip,
+                                           Plan& plan, Counters& counters) {
   // the first barrier publishes dt
   if (threadIdx.x == 0) substep_dt = __ldg(args.scalars);
   const Args& a = args;
-  const Ring t(a.nz, a.tx, a.depth);
+  const Ring t(a.nz, a.tx, a.depth, STAGE > 0);
   for (int q = threadIdx.x; q <= a.nz; q += kThreads) {
     substep_smem[t.sig + q] = a.sigma_vb[q];
     if (q < a.nz) substep_smem[t.dsig + q] = a.dsigma[q];
@@ -1167,18 +1270,50 @@ substep_kernel(Args args) {
   for (int u = run_start(a, blockIdx.x); u < u1;) {
     const int s = u / a.ny, jA = u - s * a.ny;
     const int jB = min(a.ny, jA + (u1 - u));
-    segment<SAME_BASE>(a, t, s, jA, jB, strip, plan, counters);
+    segment<SAME_BASE, STAGE>(a, t, s, jA, jB, strip, plan, counters);
     u += jB - jA;
   }
+}
+
+// A Matsuno substep: the predictor (SAME_BASE) or the corrector.
+template <bool SAME_BASE>
+__global__ void __launch_bounds__(kThreads, 1)
+substep_kernel(Args args) {
+  __shared__ Strip strip;
+  __shared__ Plan plan;
+  __shared__ Counters counters;
+  block_runs<SAME_BASE, 0>(args, strip, plan, counters);
+}
+
+// RK4 stage STAGE (1..4); the first evaluates at the t_n state itself.
+template <int STAGE>
+__global__ void __launch_bounds__(kThreads, 1)
+rk4_stage_kernel(Args args) {
+  __shared__ Strip strip;
+  __shared__ Plan plan;
+  __shared__ Counters counters;
+  block_runs<STAGE == 1, STAGE>(args, strip, plan, counters);
+}
+
+template <typename K>
+int launch_kernel(K kernel, int& opted, const Args& a, int smem,
+                  cudaStream_t s) {
+  const int err = allow_smem(kernel, smem, opted);
+  if (err) return err;
+  kernel<<<a.blocks, kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <bool SAME_BASE>
 int launch(const Args& a, int smem, cudaStream_t s) {
   static int opted = 48 * 1024;                   // the default limit
-  const int err = allow_smem(substep_kernel<SAME_BASE>, smem, opted);
-  if (err) return err;
-  substep_kernel<SAME_BASE><<<a.blocks, kThreads, smem, s>>>(a);
-  return (int)cudaGetLastError();
+  return launch_kernel(substep_kernel<SAME_BASE>, opted, a, smem, s);
+}
+
+template <int STAGE>
+int launch_stage(const Args& a, int smem, cudaStream_t s) {
+  static int opted = 48 * 1024;
+  return launch_kernel(rk4_stage_kernel<STAGE>, opted, a, smem, s);
 }
 
 // the widest copy (4, 2 or 1 floats) that the rows of every staged field
@@ -1234,4 +1369,51 @@ extern "C" int cm_fused_substep_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return same_base ? launch<true>(a, smem_bytes, s)
                    : launch<false>(a, smem_bytes, s);
+}
+
+// One RK4 stage (rk4_stage_kernel<stage>): the tendencies at the stage state
+// (u .. colp), the next stage state from the t_n state (u0 .. colp0; the
+// stage state itself at stage 1) into the outputs, and the accumulator
+// (acc_*, in place; (nz, ny, nx) and, for COLP, (ny, nx)) as the header
+// says. The plan is the stage's (launch_plan: its scan slot holds one more
+// row). Refused as cm_fused_substep_f32 refuses, and a stage outside 1..4
+// or a null accumulator.
+extern "C" int cm_rk4_stage_f32(
+    const float* u, const float* v, const float* pott, const float* qv,
+    const float* qc, const float* colp,
+    const float* u0, const float* v0, const float* pott0, const float* qv0,
+    const float* qc0, const float* colp0,
+    const float* hsurf, const float* rad, const float* geo,
+    const float* sigma_vb, const float* dsigma, const float* vmask,
+    float* u_out, float* v_out, float* pott_out, float* qv_out, float* qc_out,
+    float* colp_out,
+    float* acc_u, float* acc_v, float* acc_pott, float* acc_qv,
+    float* acc_qc, float* acc_colp,
+    int nz, int ny, int nx, int tx, int depth, int blocks, int smem_bytes,
+    const float* scalars, float dy, float ptop,
+    int stage, int with_rad, int with_diff, void* stream) {
+  if (nz < 2 || nz > 128 || !(tx == 4 || tx == 8 || tx == 16 || tx == 32)
+      || depth < kMinDepth || depth > kMaxDepth || blocks < 1 || ny < 1
+      || nx < 1 || scalars == nullptr || stage < 1 || stage > 4
+      || !acc_u || !acc_v || !acc_pott || !acc_qv || !acc_qc || !acc_colp
+      || smem_bytes < (int)sizeof(float) * Ring(nz, tx, depth, true).total)
+    return (int)cudaErrorInvalidValue;
+  if (stage == 1) {
+    u0 = u; v0 = v; pott0 = pott; qv0 = qv; qc0 = qc; colp0 = colp;
+  }
+  const float* staged[] = {u, v, pott, qv, qc, colp, colp0, hsurf};
+  Args a{u, v, pott, qv, qc, colp, u0, v0, pott0, qv0, qc0, colp0,
+         hsurf, rad, geo, sigma_vb, dsigma, vmask,
+         u_out, v_out, pott_out, qv_out, qc_out, colp_out,
+         nz, ny, nx, tx, depth, blocks, copy_width(nx, staged, 8),
+         scalars, dy, (float)((double)dy * (double)dy), ptop,
+         with_rad, with_diff,
+         acc_u, acc_v, acc_pott, acc_qv, acc_qc, acc_colp};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case 1: return launch_stage<1>(a, smem_bytes, s);
+    case 2: return launch_stage<2>(a, smem_bytes, s);
+    case 3: return launch_stage<3>(a, smem_bytes, s);
+    default: return launch_stage<4>(a, smem_bytes, s);
+  }
 }

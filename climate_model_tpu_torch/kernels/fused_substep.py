@@ -2,7 +2,8 @@
 their plain PyTorch version.
 
 Port of the variants of ``climate_model_tpu/kernels/fused_substep.py::
-make_fused_substep_packed`` that the Matsuno paths launch: the predictor
+make_fused_substep_packed`` that the Matsuno paths launch, and the port's
+own RK4 stage on the same machinery (below): the predictor
 (``same_base=True``) and the corrector (``same_base=False``), with the
 radiative source and horizontal diffusion switched by launch arguments; the
 v wall either by row index or from a ``(ny,)`` mask (``wall_mask=True``);
@@ -31,10 +32,21 @@ card. ``launch_plan`` sizes both and their shared memory.
   ``.north_strip_launches`` of each wrapper.
 * ``fused_substep_plain`` is the plain version: the stepper's ``substep``,
   then, with ``phys``, the port's own surface, turbulence and microphysics
-  splits on the pressure of the new colp. The CPU tests use it, and
-  ``chip_smoke.py`` holds the kernels against it on the card.
+  splits on the pressure of the new colp (``epilogue_plain``). The CPU
+  tests use it, and ``chip_smoke.py`` holds the kernels against it on the
+  card.
+* ``rk4_stage`` is one stage of RK4 on the conserved variables
+  (``dycore/stepper.py::step_rk4``) on a whole grid, ``rk4_stage_kernel<1>``
+  to ``<4>`` of ``csrc/fused_substep.cu``: the tendencies at the stage
+  state, the next stage state from the t_n state, and w dt k into an
+  accumulator in device memory (``rk4_accumulator``); its plain version,
+  ``rk4_stage_plain``, composes ``tendencies`` and ``proceed``. It counts
+  ``rk4_stage.k1_launches`` to ``.k4_launches``. ``epilogue`` launches the
+  physics epilogue alone, after the last stage (``epilogue.launches``).
+  The RK4 step runs on one device only: the stage has no shard-local or
+  seam-strip variant.
 
-``dt`` and the autoconversion fraction reach both kernels as a runtime
+``dt`` and the autoconversion fraction reach every kernel as a runtime
 operand, a float32 ``(dt, frac)`` on the device (``StepScalars``; the
 reference's ``jnp.stack([dt_s, frac])``): the eager path keeps one buffer
 per value, a captured step (``graphs.py``) its own, which a new dt
@@ -91,6 +103,8 @@ _ARGTYPES = {
                             + [_P],
     "cm_physics_epilogue_f32": [_P] * 25 + [_I] * 6 + [_P] + [_F] + [_I] * 5
                                + [_F] * 9 + [_P],
+    "cm_rk4_stage_f32": [_P] * 30 + [_I] * 7 + [_P] + [_F] * 2 + [_I] * 3
+                        + [_P],
 }
 
 # ---------------------------------------------------------------------------
@@ -113,18 +127,19 @@ def _pitch(n: int) -> int:
     return n + (4 - n) % 8
 
 
-def substep_smem_floats(nz: int, tx: int, depth: int) -> int:
+def substep_smem_floats(nz: int, tx: int, depth: int,
+                        stage: bool = False) -> int:
     """Shared memory of the substep's ring for strips of tx longitudes and
     ``depth`` staged rows, in floats (``Ring`` of ``csrc/fused_substep.cu``):
     the staged rows' five fields, base COLP and surface height, a line of
     tx + 5 longitudes each at a pitch of 4 mod 8; COLP's line of depth + 1
     rows; the geometry of depth rows; three rows of scans (wwind, phi,
-    pvtf, COLP_new, base COLP, dCOLP/dt) and two of scratch (phi's layer
-    part, the surface Exner factor), tx + 1 columns at an odd pitch;
-    sigma_vb and dsigma."""
+    pvtf, COLP_new, base COLP, dCOLP/dt, and an RK4 ``stage``'s next COLP)
+    and two of scratch (phi's layer part, the surface Exner factor), tx + 1
+    columns at an odd pitch; sigma_vb and dsigma."""
     p, ex = _pitch(tx + 5), (tx + 1) | 1
     return (depth * (5 * nz + 2) * p + (depth + 1) * p
-            + depth * len(GEO_FIELDS) + 3 * (3 * nz + 4) * ex
+            + depth * len(GEO_FIELDS) + 3 * (3 * nz + 4 + stage) * ex
             + 2 * (nz + 1) * ex + 2 * nz + 1)
 
 
@@ -241,11 +256,12 @@ def _substep_counts(ny: int, nx: int, tx: int, blocks: int) -> tuple:
     return staged / (ny * nx), scanned / (ny * nx)
 
 
-def _substep_plan(nz: int, ny: int, nx: int) -> SubstepPlan:
+def _substep_plan(nz: int, ny: int, nx: int,
+                  stage: bool = False) -> SubstepPlan:
     """The widest strip whose ring fits a block, then the deepest ring of
     ``RING_DEPTHS`` that fits it; as many blocks as SMs (or units)."""
     fits = [(tx, d) for tx in STRIP_WIDTHS for d in RING_DEPTHS
-            if 4 * substep_smem_floats(nz, tx, d) <= SMEM_LIMIT]
+            if 4 * substep_smem_floats(nz, tx, d, stage) <= SMEM_LIMIT]
     if not fits:
         raise ValueError(f"no substep strip of {nz} levels fits "
                          f"{SMEM_LIMIT} bytes of shared memory")
@@ -254,7 +270,8 @@ def _substep_plan(nz: int, ny: int, nx: int) -> SubstepPlan:
     blocks = min(SMS * BLOCKS_PER_SM, -(-nx // tx) * ny)
     staged, scanned = _substep_counts(ny, nx, tx, blocks)
     return SubstepPlan(tx=tx, depth=depth, blocks=blocks,
-                       smem_bytes=4 * substep_smem_floats(nz, tx, depth),
+                       smem_bytes=4 * substep_smem_floats(nz, tx, depth,
+                                                          stage),
                        staged_rows_per_row=staged,
                        scanned_cols_per_col=scanned)
 
@@ -292,6 +309,15 @@ def launch_plan(nz: int, ny: int, nx: int) -> LaunchPlan:
         # the epilogue runs two blocks an SM at up to 32 levels
         epilogue=_tile(epilogue_smem_floats, nz, ny, nx, (2,),
                        SMEM_TWO_BLOCKS))
+
+
+@functools.lru_cache(maxsize=None)
+def rk4_stage_plan(nz: int, ny: int, nx: int) -> SubstepPlan:
+    """The RK4 stage's persistent grid on a (nz, ny, nx) block: the
+    substep's, with the stage's scan slots (one more row each). Raises
+    ValueError where ``launch_plan`` does, or where no ring fits."""
+    launch_plan(nz, ny, nx)
+    return _substep_plan(nz, ny, nx, stage=True)
 
 
 @dataclasses.dataclass
@@ -483,17 +509,29 @@ def fused_substep_plain(ev: State, base: State | None, grid: Grid,
     port's ``surface_step``, ``turbulence_step`` and ``microphysics_step``
     in that order, on the pressure of the new colp and the time-n surface
     fields of ``base``, which also replaces tsurf, rain and soil_moist."""
-    from ..dycore.operators import diagnose_pressure
     from ..dycore.stepper import substep
-    from ..physics.microphysics import microphysics_step
-    from ..physics.surface import surface_step
-    from ..physics.turbulence import turbulence_step
 
     out = substep(ev, ev if base is None else base, dt, grid, forcing,
                   _plain_cfg(with_rad, with_diff))
     out = _apply_wall(out, vmask)
     if phys is None:
         return out
+    return epilogue_plain(out, grid, forcing, dt, phys=phys, vmask=vmask)
+
+
+def epilogue_plain(state: State, grid: Grid, forcing: Forcing, dt: float, *,
+                   phys: tuple, vmask: torch.Tensor | None = None) -> State:
+    """The physics epilogue in plain PyTorch, on a post-dynamics ``state``
+    that carries the time-n surface fields: the port's ``surface_step``,
+    ``turbulence_step`` and ``microphysics_step`` in that order, on the
+    pressure of its colp, v multiplied by ``vmask`` after the surface drag
+    and after the turbulence."""
+    from ..dycore.operators import diagnose_pressure
+    from ..physics.microphysics import microphysics_step
+    from ..physics.surface import surface_step
+    from ..physics.turbulence import turbulence_step
+
+    out = state
     cfg = _phys_cfg(phys)
     press = diagnose_pressure(out.colp, grid)
     if cfg.physics.surface:
@@ -505,6 +543,60 @@ def fused_substep_plain(ev: State, base: State | None, grid: Grid,
     if cfg.physics.microphysics:
         out = microphysics_step(out, grid, forcing, cfg, dt, press=press)
     return out
+
+
+# RK4 on the conserved variables (``dycore/stepper.py::step_rk4``): stage m
+# evaluates k_m at its state, gives the next stage state y0 + c dt k_m
+# (``RK4_C``, stages 1-3) and adds w dt k_m to the accumulator (``RK4_W``);
+# the last stage gives y0 + the accumulator.
+RK4_C = (0.5, 0.5, 1.0)
+RK4_W = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+ACC_FIELDS = ("u", "v", "pott", "qv", "qc", "colp")
+
+
+def rk4_accumulator(state: State) -> dict:
+    """The accumulator of an RK4 step on ``state``'s grid: a tensor a field
+    of ``ACC_FIELDS`` (the conserved tendencies' w dt k summed), unset."""
+    return {f: torch.empty_like(getattr(state, f)) for f in ACC_FIELDS}
+
+
+def rk4_stage_plain(ev: State, y0: State, acc: dict, grid: Grid,
+                    forcing: Forcing, dt: float, *, stage: int,
+                    with_rad: bool, with_diff: bool,
+                    vmask: torch.Tensor | None = None) -> State:
+    """RK4 stage ``stage`` (1 to 4) in plain PyTorch, with the kernel's
+    terms: the tendencies k at ``ev`` (``tendencies(ev, ev.colp, dt)``, as
+    ``step_rk4`` evaluates them), w dt k into ``acc`` (set at stage 1, added
+    at 2 and 3; read, not written, at 4), and the next state: ``proceed``
+    from the t_n state ``y0`` by c dt, with COLP_new = COLP0 + c dt dCOLP/dt;
+    at stage 4 ``proceed`` from ``y0`` by the accumulator (dt 1). Returns
+    ``y0`` with u, v, pott, qv, qc and colp replaced, v times ``vmask``."""
+    from ..dycore.tendencies import proceed, tendencies
+
+    tend = tendencies(ev, ev.colp, dt, grid, forcing,
+                      _plain_cfg(with_rad, with_diff))
+    if vmask is not None:
+        tend = tend._replace(dvdt=tend.dvdt * vmask[:, None])
+    k = dict(u=tend.dudt, v=tend.dvdt, pott=tend.dpottdt, qv=tend.dqvdt,
+             qc=tend.dqcdt, colp=tend.dcolpdt)
+    wdt = RK4_W[stage - 1] * dt
+    if stage == 4:
+        total = {f: acc[f] + wdt * k[f] for f in ACC_FIELDS}
+        tend = tend._replace(dudt=total["u"], dvdt=total["v"],
+                             dpottdt=total["pott"], dqvdt=total["qv"],
+                             dqcdt=total["qc"],
+                             colp_new=y0.colp + total["colp"])
+        out = proceed(y0, tend, 1.0)
+    else:
+        for f in ACC_FIELDS:
+            if stage == 1:
+                acc[f].copy_(wdt * k[f])
+            else:
+                acc[f].add_(wdt * k[f])
+        cdt = RK4_C[stage - 1] * dt
+        out = proceed(y0, tend._replace(colp_new=y0.colp
+                                        + cdt * tend.dcolpdt), cdt)
+    return _apply_wall(out, vmask)
 
 
 # ---------------------------------------------------------------------------
@@ -641,23 +733,63 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
                                f"{err}")
         if phys is None:
             return b.replace(**out)
-        p = dict(zip(PHYS_FIELDS, phys))
-        err = lib.cm_physics_epilogue_f32(
-            *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
-            *(getattr(b, f).data_ptr() for f in _FIELDS2),
-            forcing.land_mask.data_ptr(), forcing.evap_eff.data_ptr(),
-            forcing.hsurf.data_ptr(), _ptr(vmask), grid.sigma_vb.data_ptr(),
-            grid.dsigma.data_ptr(),
-            *(out[f].data_ptr() for f in _FIELDS3),
-            *(out[f].data_ptr() for f in _FIELDS2_OUT),
-            nz, ny, nx, ep.tx, ep.tj, ep.smem_bytes,
-            scal, float(grid.ptop),
-            *(int(bool(p[f])) for f in _EPI_SWITCHES),
-            *(float(p[f]) for f in _EPI_PARAMS), stream)
+        _epilogue_call(lib, dyn, colp, b, grid, forcing, phys, vmask, ep,
+                       scal, out, stream)
+    return b.replace(**out)
+
+
+def _epilogue_call(lib, dyn: dict, colp, b: State, grid: Grid,
+                   forcing: Forcing, phys: tuple, vmask, ep: TilePlan,
+                   scal: int, out: dict, stream):
+    """One launch of ``epilogue_kernel`` on the post-dynamics fields ``dyn``
+    and ``colp``, with the time-n surface fields of ``b``, into ``out``."""
+    nz, ny, nx = dyn["u"].shape
+    p = dict(zip(PHYS_FIELDS, phys))
+    err = lib.cm_physics_epilogue_f32(
+        *(dyn[f].data_ptr() for f in _FIELDS3), colp.data_ptr(),
+        *(getattr(b, f).data_ptr() for f in _FIELDS2),
+        forcing.land_mask.data_ptr(), forcing.evap_eff.data_ptr(),
+        forcing.hsurf.data_ptr(), _ptr(vmask), grid.sigma_vb.data_ptr(),
+        grid.dsigma.data_ptr(),
+        *(out[f].data_ptr() for f in _FIELDS3),
+        *(out[f].data_ptr() for f in _FIELDS2_OUT),
+        nz, ny, nx, ep.tx, ep.tj, ep.smem_bytes,
+        scal, float(grid.ptop),
+        *(int(bool(p[f])) for f in _EPI_SWITCHES),
+        *(float(p[f]) for f in _EPI_PARAMS), stream)
     if err != 0:
         raise RuntimeError(f"physics epilogue launch failed: CUDA error "
                            f"{err}")
-    return b.replace(**out)
+
+
+def _launch_stage(ev: State, y0: State, acc: dict, grid: Grid,
+                  forcing: Forcing, dt: float, stage: int, with_rad: bool,
+                  with_diff: bool, vmask, scalars: StepScalars | None, geo,
+                  out) -> State:
+    dev = ev.u.device
+    nz, ny, nx = ev.u.shape
+    sp = rk4_stage_plan(nz, ny, nx)
+    if geo is None:
+        geo = geo_table(grid)
+    if out is None:
+        out = {f: torch.empty_like(getattr(ev, f)) for f in ACC_FIELDS}
+    rad_ptr = ev.dpottdt_rad.data_ptr() if with_rad else None
+    scal = _scalars_ptr(dev, dt, None, scalars)
+    with torch.cuda.device(dev):
+        err = _lib().cm_rk4_stage_f32(
+            *(getattr(ev, f).data_ptr() for f in ACC_FIELDS),
+            *(getattr(y0, f).data_ptr() for f in ACC_FIELDS),
+            forcing.hsurf.data_ptr(), rad_ptr, geo.data_ptr(),
+            grid.sigma_vb.data_ptr(), grid.dsigma.data_ptr(), _ptr(vmask),
+            *(out[f].data_ptr() for f in ACC_FIELDS),
+            *(acc[f].data_ptr() for f in ACC_FIELDS),
+            nz, ny, nx, sp.tx, sp.depth, sp.blocks, sp.smem_bytes,
+            scal, float(grid.dy), float(grid.ptop),
+            stage, int(with_rad), int(with_diff),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rk4_stage launch failed: CUDA error {err}")
+    return y0.replace(**out)
 
 
 def _plain(ev: State, base: State | None, grid: Grid, forcing: Forcing,
@@ -666,10 +798,13 @@ def _plain(ev: State, base: State | None, grid: Grid, forcing: Forcing,
     """The plain version for a CPU tensor, with ``dt`` from ``scalars``
     where given; with ``out``, its fields are written into those
     tensors."""
-    res = fused_substep_plain(ev, base, grid, forcing,
-                              dt if scalars is None else scalars.dt,
-                              with_rad=with_rad, with_diff=with_diff,
-                              phys=phys, vmask=vmask)
+    return _written(fused_substep_plain(
+        ev, base, grid, forcing, dt if scalars is None else scalars.dt,
+        with_rad=with_rad, with_diff=with_diff, phys=phys, vmask=vmask), out)
+
+
+def _written(res: State, out: dict | None) -> State:
+    """``res``, with its fields in ``out`` written into those tensors."""
     if out is None:
         return res
     for f, t in out.items():
@@ -745,6 +880,74 @@ def corrector(ev: State, base: State, grid: Grid, forcing: Forcing,
     return res
 
 
+def rk4_stage(ev: State, y0: State, acc: dict, grid: Grid,
+              forcing: Forcing, dt: float, *, stage: int, with_rad: bool,
+              with_diff: bool, vmask=None,
+              scalars: StepScalars | None = None, geo=None,
+              out: dict | None = None) -> State:
+    """RK4 stage ``stage`` (1 to 4) on a whole grid: the tendencies at the
+    stage state ``ev`` (``y0``, the t_n state, at stage 1), w dt k into the
+    accumulator ``acc`` (``rk4_accumulator``; set at stage 1, read from
+    stage 2, left unwritten at 4), and the next stage state advanced from
+    ``y0``, or at stage 4 the step's state, returned as ``y0`` with u, v,
+    pott, qv, qc and colp replaced (``rk4_stage_plain`` says how).
+    ``vmask``, ``scalars``, ``geo`` and ``out`` as for the predictor. Counts
+    ``rk4_stage.k<stage>_launches``."""
+    if stage not in (1, 2, 3, 4):
+        raise ValueError(f"stage {stage!r}: expected 1, 2, 3 or 4")
+    _validate(ev, y0, grid, forcing, with_rad, vmask=vmask, geo=geo,
+              out=out)
+    for f in ACC_FIELDS:
+        _check(f"acc.{f}", acc.get(f), getattr(ev, f).shape, ev.u.device,
+               ev.u.dtype)
+    if ev.u.device.type == "cpu":
+        return _written(rk4_stage_plain(
+            ev, y0, acc, grid, forcing, dt if scalars is None else scalars.dt,
+            stage=stage, with_rad=with_rad, with_diff=with_diff,
+            vmask=vmask), out)
+    res = _launch_stage(ev, y0, acc, grid, forcing, dt, stage, with_rad,
+                        with_diff, vmask, scalars, geo, out)
+    name = f"k{stage}_launches"
+    setattr(rk4_stage, name, getattr(rk4_stage, name) + 1)
+    return res
+
+
+def epilogue(state: State, grid: Grid, forcing: Forcing, dt: float, *,
+             phys: tuple, vmask=None, scalars: StepScalars | None = None,
+             out: dict | None = None) -> State:
+    """The physics epilogue alone (``epilogue_kernel``, the corrector's
+    second launch) on a post-dynamics ``state`` that carries the time-n
+    surface fields (``epilogue_plain`` says what it computes). ``out``
+    holds u, v, pott, qv, qc, tsurf, rain and soil_moist; colp is
+    ``state``'s. Counts ``epilogue.launches``."""
+    _validate(state, state, grid, forcing, False, phys, vmask)
+    if out is not None:
+        names = _FIELDS3 + _FIELDS2_OUT
+        if set(out) != set(names):
+            raise ValueError(f"out: expected the fields {names}, got "
+                             f"{tuple(out)}")
+        for f in names:
+            _check(f"out.{f}", out[f], getattr(state, f).shape,
+                   state.u.device, state.u.dtype)
+    dev = state.u.device
+    if dev.type == "cpu":
+        return _written(epilogue_plain(
+            state, grid, forcing, dt if scalars is None else scalars.dt,
+            phys=phys, vmask=vmask), out)
+    nz, ny, nx = state.u.shape
+    if out is None:
+        out = {f: torch.empty_like(getattr(state, f))
+               for f in _FIELDS3 + _FIELDS2_OUT}
+    dyn = {f: getattr(state, f) for f in _FIELDS3}
+    with torch.cuda.device(dev):
+        _epilogue_call(_lib(), dyn, state.colp, state, grid, forcing, phys,
+                       vmask, launch_plan(nz, ny, nx).epilogue,
+                       _scalars_ptr(dev, dt, phys, scalars), out,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    epilogue.launches += 1
+    return state.replace(**out)
+
+
 def reset_launch_counts():
     """Set every launch counter of the substep kernels to 0."""
     for fn in (predictor, corrector):
@@ -752,6 +955,9 @@ def reset_launch_counts():
                      "south_strip_launches", "north_strip_launches"):
             setattr(fn, name, 0)
     corrector.epilogue_launches = 0
+    for stage in (1, 2, 3, 4):
+        setattr(rk4_stage, f"k{stage}_launches", 0)
+    epilogue.launches = 0
 
 
 reset_launch_counts()

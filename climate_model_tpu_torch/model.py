@@ -5,13 +5,16 @@ Port of ``climate_model_tpu/model.py``. Two paths, as in the reference:
 * The **packed scan** (``make_packed_step_fn``), which ``make_chunk_runner``
   takes for every ``backend='pallas'`` config, as the reference's default
   does (``CLIMATE_TPU_PACKED_SCAN=1``); on a device mesh its sharded form,
-  ``dist/packed_halo.py::make_packed_sharded_runner``. A step is
+  ``dist/packed_halo.py::make_packed_sharded_runner``. A Matsuno step is
   radiation on its interval, the predictor kernel, then one corrector that
   also runs surface, turbulence and microphysics as its epilogue, with the
-  v wall passed as a row mask. The reference runs it on its packed
-  supertensor layout (``kernels/packing.py``); the port runs the same
-  program on its plain ``(nz, ny, nx)`` State layout, so there is nothing
-  to pack. The reference's ``physics/packed.py`` (``radiation_step_packed``,
+  v wall passed as a row mask. An RK4 step (one device) is radiation on
+  its interval, the four RK4 stage launches, then the same epilogue
+  launched on the last stage's output: the per-step path's surface,
+  turbulence and microphysics splits after ``step_rk4``. The reference
+  runs its step on its packed supertensor layout (``kernels/packing.py``);
+  the port runs the same program on its plain ``(nz, ny, nx)`` State
+  layout, so there is nothing to pack. The reference's ``physics/packed.py`` (``radiation_step_packed``,
   ``compute_radiation_packed``, ``packed_pressure``) is the same math as
   ``physics/radiation.py`` on the packed layout; on the plain layout its
   counterpart is the port's ``radiation_step``, which gates on the same
@@ -20,10 +23,11 @@ Port of ``climate_model_tpu/model.py``. Two paths, as in the reference:
   ``CLIMATE_TPU_PACKED_SCAN=0``): radiation, the dynamics step, then the
   surface, turbulence and microphysics splits in plain PyTorch. The
   dynamics step follows ``cfg.backend`` (``dycore/stepper.py::
-  dynamics_step_fn``): the substep kernels for ``'pallas'``, the plain
-  ``step_matsuno`` for ``'jnp'``, which is what ``make_chunk_runner`` runs
-  for a ``'jnp'`` config on any device. ``chip_smoke.py`` also drives it
-  with the kernels beside the packed scan.
+  dynamics_step_fn``): the substep or stage kernels for ``'pallas'``, the
+  plain step of ``cfg.numerics.time_stepping`` for ``'jnp'``, which is
+  what ``make_chunk_runner`` runs for a ``'jnp'`` config on any device.
+  ``chip_smoke.py`` also drives it with the kernels beside the packed
+  scan.
 
 On a CUDA device ``make_chunk_runner`` runs the packed scan, one card or
 sharded, as the **compiled chunk** (``graphs.py``): the port's counterpart
@@ -49,7 +53,9 @@ from .core.state import Forcing, State
 from .dist.mesh import in_process_group
 from .dycore.operators import diagnose_pressure
 from .dycore.stepper import check_pallas, dynamics_step_fn, run_scan
-from .kernels.fused_substep import corrector, predictor, wall_mask
+from .kernels.fused_substep import (ACC_FIELDS, corrector, epilogue,
+                                    predictor, rk4_accumulator, rk4_stage,
+                                    wall_mask)
 from .physics.microphysics import microphysics_step
 from .physics.radiation import radiation_step
 from .physics.surface import surface_step
@@ -105,11 +111,14 @@ def phys_epilogue_tuple(cfg: ModelConfig):
 
 
 def packed_dynamics_fn(cfg: ModelConfig):
-    """The kernels of a packed-scan step: the predictor, then the corrector
-    with the physics epilogue. Returns ``dyn(state, grid, forcing, vmask,
-    **launch)``, the corrector's output (time not advanced); ``launch``
-    passes ``scalars``, ``geo`` and ``out`` to the wrappers (a captured
-    step's, ``graphs.py``)."""
+    """The kernels of a packed-scan step: for Matsuno the predictor, then
+    the corrector with the physics epilogue; for RK4 the four stages, then
+    the epilogue (``_rk4_dynamics_fn``). Returns ``dyn(state, grid,
+    forcing, vmask, **launch)``, the step's state before ``t`` advances;
+    ``launch`` passes ``scalars``, ``geo`` and ``out`` to the wrappers, and
+    for RK4 ``work`` (``packed_work``): a captured step's (``graphs.py``)."""
+    if cfg.numerics.time_stepping == "rk4":
+        return _rk4_dynamics_fn(cfg)
     num, phys = cfg.numerics, cfg.physics
     phys_tuple = phys_epilogue_tuple(cfg)
     kw = dict(with_rad=phys.radiation,
@@ -125,10 +134,57 @@ def packed_dynamics_fn(cfg: ModelConfig):
     return dyn
 
 
+def packed_work(cfg: ModelConfig, state: State) -> dict:
+    """The buffers a packed-scan step of ``cfg`` needs beyond the state's,
+    as keyword arguments of its ``dyn``: none for Matsuno; for RK4
+    ``work``, two stage states (u, v, pott, qv, qc and colp), which the
+    stages write in turns, and the accumulator."""
+    if cfg.numerics.time_stepping != "rk4":
+        return {}
+    return dict(work=dict(stages=tuple(rk4_accumulator(state)
+                                       for _ in range(2)),
+                          acc=rk4_accumulator(state)))
+
+
+def _rk4_dynamics_fn(cfg: ModelConfig):
+    """The RK4 packed-scan step's kernels: stages 1 and 3 write the first
+    stage state of ``work``, 2 and 4 the second (with ``out``, stage 4
+    writes colp there), then the epilogue, from the last stage's state, the
+    rest of ``out``."""
+    num = cfg.numerics
+    phys_tuple = phys_epilogue_tuple(cfg)
+    kw = dict(with_rad=cfg.physics.radiation,
+              with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+
+    def dyn(state: State, grid: Grid, forcing: Forcing, vmask, *,
+            out=None, work=None, scalars=None, geo=None) -> State:
+        dt = grid.dt
+        work = packed_work(cfg, state)["work"] if work is None else work
+        s = state
+        for stage in (1, 2, 3, 4):
+            dest = work["stages"][(stage - 1) % 2]
+            if stage == 4 and out is not None:
+                dest = {f: out[f] if phys_tuple is None or f == "colp"
+                        else dest[f] for f in ACC_FIELDS}
+            s = rk4_stage(s, state, work["acc"], grid, forcing, dt,
+                          stage=stage, vmask=vmask, scalars=scalars,
+                          geo=geo, out=dest, **kw)
+        if phys_tuple is None:
+            return s
+        return epilogue(s, grid, forcing, dt, phys=phys_tuple, vmask=vmask,
+                        scalars=scalars,
+                        out=None if out is None else
+                        {f: t for f, t in out.items() if f != "colp"})
+
+    return dyn
+
+
 def make_packed_step_fn(cfg: ModelConfig):
-    """Full model step of the packed scan: radiation on its interval, the
-    predictor kernel, then the corrector kernel with the physics epilogue
-    (surface + turbulence + microphysics in the same call). The name is the
+    """Full model step of the packed scan: radiation on its interval, then
+    ``packed_dynamics_fn``'s kernels: for Matsuno the predictor, then the
+    corrector with the physics epilogue (surface + turbulence +
+    microphysics in the same call); for RK4 the four stages and the
+    epilogue. The name is the
     reference's; the port's "packed" step runs on the plain State layout.
     Returns ``step(state, grid, forcing, vmask)``, ``vmask`` the v-wall row
     mask (``kernels.fused_substep.wall_mask``). Without split physics the
@@ -164,17 +220,18 @@ def make_chunk_runner(cfg: ModelConfig, n_steps: int,
                       graphs: bool | None = None):
     """``run(state, grid, forcing) -> state`` advancing ``n_steps``.
 
-    * ``backend='pallas'`` on one device: the packed scan; it raises the
-      reference's errors for what the kernels do not carry. On a CUDA
-      device, and on a mesh too, it runs as the compiled chunk
-      (``graphs.py``: captured steps, kept across chunks) unless
+    * ``backend='pallas'`` on one device: the packed scan, Matsuno or
+      RK4; it raises for what the kernels do not carry
+      (``check_pallas``). On a CUDA device, and on a mesh too, it runs
+      as the compiled chunk (``graphs.py``: captured steps, kept across
+      chunks) unless
       ``graphs=False``, which runs the eager loop; ``graphs=True`` asks
       for the graphs on any device (a CPU device raises). A failed capture
       raises: nothing falls back to the eager loop by itself.
     * ``backend='pallas'`` on a mesh (``mesh_lat * mesh_lon > 1``): the
-      sharded packed scan (``dist/packed_halo.py``), whatever the sharding
-      mode, as the reference's CLI takes it (``cli.py:181-192``). Its
-      ``run`` takes and returns a ``dist.sharding.ShardedState``, or a
+      sharded packed scan (``dist/packed_halo.py``, Matsuno only; RK4 is
+      refused), whatever the sharding mode, as the reference's CLI takes
+      it (``cli.py:181-192``). Its ``run`` takes and returns a ``dist.sharding.ShardedState``, or a
       global ``State`` that it splits and gathers around the run.
     * any other backend (``'jnp'``): the per-step path with the plain
       dynamics, on whatever device the state is on. On a mesh, as the

@@ -8,6 +8,8 @@ over k). Against the oracle, which is written in another idiom, the bounds
 are the reference's own oracle tests' (tests/unit/test_dycore_vs_oracle.py).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -236,16 +238,27 @@ def test_convergence_order(conv_setup, stepper, levels, lo, hi):
 
 
 def test_pallas_steppers_raise():
-    """Euler and RK4 run only on the plain backend, as in the reference:
-    with ``backend='pallas'`` the port raises the reference's own error
-    (``climate_model_tpu/dycore/stepper.py:145``), and an unknown stepper
-    raises the reference's list of choices."""
+    """The kernel backend carries Matsuno and RK4: Euler runs only on the
+    plain backend, as in the reference (``climate_model_tpu/dycore/
+    stepper.py:145``), RK4 on the kernels on one device only (the stage
+    kernel has no shard-local or seam-strip variant) and anywhere on the
+    plain backend; an unknown stepper raises the reference's list of
+    choices."""
     cfg = small_cfg()
-    for ts in ("euler", "rk4"):
-        c = cfg.replace(numerics=cfg.numerics.__class__(time_stepping=ts))
-        tstep.dynamics_step_fn(c.replace(backend="jnp"))
-        with pytest.raises(ValueError, match="supports matsuno only"):
-            tstep.dynamics_step_fn(c.replace(backend="pallas"))
+    euler = cfg.replace(numerics=cfg.numerics.__class__(
+        time_stepping="euler"))
+    tstep.dynamics_step_fn(euler.replace(backend="jnp"))
+    with pytest.raises(ValueError, match="supports matsuno and rk4 only, "
+                       "not 'euler'"):
+        tstep.dynamics_step_fn(euler.replace(backend="pallas"))
+    rk4 = cfg.replace(numerics=cfg.numerics.__class__(time_stepping="rk4"))
+    tstep.dynamics_step_fn(rk4.replace(backend="jnp"))
+    tstep.dynamics_step_fn(rk4.replace(backend="pallas"))
+    mesh = rk4.replace(backend="pallas", sharding=dataclasses.replace(
+        rk4.sharding, mesh_lat=2, mesh_lon=4))
+    with pytest.raises(ValueError, match="rk4 on one device only"):
+        tstep.dynamics_step_fn(mesh)
+    tstep.dynamics_step_fn(mesh.replace(backend="jnp"))
     c = cfg.replace(numerics=cfg.numerics.__class__(time_stepping="leap"))
     with pytest.raises(ValueError, match=r"unknown time_stepping 'leap'; "
                        r"choose from \['euler', 'matsuno', 'rk4'\]"):
