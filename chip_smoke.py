@@ -34,8 +34,8 @@ and exits non-zero:
                per call beside it, against the bound of the card; the
                device time of each launch of a call apart (the substep,
                the epilogue), from torch.profiler; beside each, the
-               substep plan's staged_rows_per_row and
-               scanned_cols_per_col at its shape;
+               plans' staged_rows_per_row, scanned_cols_per_col and
+               profiled_cols_per_col at its shape;
 5. main     -- the run command of config #3 (``run --baseline 3 --days 0.1
                --out-every-hours 1``: 253 steps in three chunks, adaptive
                dt, hourly radiation), which takes the packed scan, with
@@ -219,9 +219,10 @@ and exits non-zero:
                the exchange clock's runs are eager. The default run
                prints a line saying that phase 16 needs ``--multicard``.
 
-``check_against`` holds the substep kernel against another checkout's (the
-parent commit's) bit for bit at every shape of AGAINST_CASES and times both
-in turns; ``tools/kernel_bitwise.py`` runs it. Phase 3 also holds the
+``check_against`` holds the substep and epilogue kernels against another
+checkout's (the parent commit's) bit for bit at every shape of
+AGAINST_CASES and times both in turns; ``tools/kernel_bitwise.py`` runs
+it. Phase 3 also holds the
 epilogue's momentum terms on a windy state
 (MOMENTUM_FAULTS), the epilogue on TALL_NZ levels, and the shard-local and
 seam-strip variants on blocks of the noisy #4 state (CHECK_BLOCKS); phase 4
@@ -1003,12 +1004,16 @@ def time_kernels(ci: CheckInputs, card: str) -> dict:
 
 
 def plan_counts(shape) -> dict:
-    """The substep plan's halo counts at a (nz, ny, nx) block: how many
-    times each needed (field, level) line is copied and each column
-    scanned (``kernels/fused_substep.py::launch_plan``)."""
-    sp = fs.launch_plan(*shape).substep
+    """The plans' halo counts at a (nz, ny, nx) block: how many times the
+    substep copies each needed (field, level) line and scans each column,
+    and how many times the epilogue computes each column's surface core
+    and height profile (``kernels/fused_substep.py::launch_plan``)."""
+    plan = fs.launch_plan(*shape)
+    sp = plan.substep
     return {"staged_rows_per_row": round(sp.staged_rows_per_row, 4),
-            "scanned_cols_per_col": round(sp.scanned_cols_per_col, 4)}
+            "scanned_cols_per_col": round(sp.scanned_cols_per_col, 4),
+            "profiled_cols_per_col": round(
+                plan.epilogue.profiled_cols_per_col, 4)}
 
 
 def kernel_timing(name, kern, plain, bound, card, n=50, shape=None) -> dict:
@@ -1029,7 +1034,7 @@ def kernel_timing(name, kern, plain, bound, card, n=50, shape=None) -> dict:
                       f"{k} {v:.4f}" for k, v in split.items()))
     if shape is not None:
         tm.update(plan_counts(shape))
-        per_launch += "; substep plan: " + ", ".join(
+        per_launch += "; plans: " + ", ".join(
             f"{k} {tm[k]}" for k in plan_counts(shape))
     print(f"  {name}: kernel {ms:.4f} ms on the device ({k1:.4f}, "
           f"{k2:.4f}; per launch, profiled: {per_launch}), "
@@ -1511,7 +1516,8 @@ def reference_kernels(root: str):
 def against_inputs(shape, dev):
     """Config #3's physics on a (nz, ny, nx) grid from its initial state,
     moisture near saturation, grid-scale noise, colp +-20 Pa and a
-    radiative heating of +-1e-4 K/s: (state, forcing, grid, kw)."""
+    radiative heating of +-1e-4 K/s: (state, forcing, grid, kw), kw with
+    the substep's switches and ``phys``, the epilogue's tuple."""
     nz, ny, nx = shape
     b3 = baseline_config(3)
     cfg = resolve_rad_interval(b3.replace(grid=dataclasses.replace(
@@ -1528,16 +1534,23 @@ def against_inputs(shape, dev):
     num = cfg.numerics
     return state, forcing, grid, dict(
         with_rad=cfg.physics.radiation,
-        with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist))
+        with_diff=bool(num.diff_uv or num.diff_pott or num.diff_moist),
+        phys=phys_epilogue_tuple(cfg))
 
 
 def against_calls(mod, state, forcing, grid, kw):
-    """(variant, call) of ``mod``'s substep launches on one input: the
+    """(variant, call) of ``mod``'s kernel launches on one input: the
     predictor and the corrector, v wall by index and by mask, and the
-    corrector without the radiative source and the diffusion."""
+    corrector without the radiative source and the diffusion; the
+    corrector with the physics epilogue (``phys``), v wall by index and by
+    mask; and the epilogue alone on the plain corrector's post-dynamics
+    state."""
     g, f, dt = grid, forcing, grid.dt
+    kw = dict(kw)
+    phys = kw.pop("phys")
     vm = fs.wall_mask(grid.ny, torch.float32, state.u.device)
     pred = fs.fused_substep_plain(state, None, g, f, dt, **kw)
+    post = fs.fused_substep_plain(pred, state, g, f, dt, vmask=vm, **kw)
     return (
         ("predictor", lambda: mod.predictor(state, g, f, dt, **kw)),
         ("predictor_masked",
@@ -1547,23 +1560,52 @@ def against_calls(mod, state, forcing, grid, kw):
          lambda: mod.corrector(pred, state, g, f, dt, vmask=vm, **kw)),
         ("corrector_bare",
          lambda: mod.corrector(pred, state, g, f, dt, vmask=vm,
-                               with_rad=False, with_diff=False)))
+                               with_rad=False, with_diff=False)),
+        ("corrector_phys",
+         lambda: mod.corrector(pred, state, g, f, dt, phys=phys, **kw)),
+        ("corrector_phys_masked",
+         lambda: mod.corrector(pred, state, g, f, dt, phys=phys, vmask=vm,
+                               **kw)),
+        ("epilogue",
+         lambda: mod.epilogue(post, g, f, dt, phys=phys, vmask=vm)))
+
+
+# The fields ``check_against`` compares: every field a launch writes.
+AGAINST_FIELDS = ("u", "v", "pott", "qv", "qc", "colp", "tsurf", "rain",
+                  "soil_moist")
+# The launches ``check_against`` times in turns: (variant, launch).
+AGAINST_TIMED = (("predictor_masked", "substep"),
+                 ("corrector_masked", "substep"),
+                 ("corrector_phys_masked", "epilogue"))
+
+
+def profiled_ms(fn, tries=3) -> dict:
+    """``launch_ms(fn)``, profiled again where the profiler recorded no
+    device time (it misses a whole profile now and then)."""
+    for _ in range(tries):
+        split = launch_ms(fn)
+        if split is not None:
+            return split
+    raise RuntimeError(f"the profiler recorded no device time in {tries} "
+                       "profiles")
 
 
 def check_against(ref, dev, card: str, cases=AGAINST_CASES, timed=True
                   ) -> dict:
     """Every variant of ``against_calls`` at every case, this checkout's
-    kernel against ``ref``'s (``reference_kernels``): equal bit for bit in
-    every field it writes; with ``timed``, the masked predictor and
-    corrector's device ms a launch (``launch_ms``) in turns (reference,
-    this, this, reference) beside the plan's counts. Raises after printing
-    every case if any differs."""
+    kernels against ``ref``'s (``reference_kernels``): equal bit for bit in
+    every field they write; with ``timed``, the device ms of each launch of
+    ``AGAINST_TIMED`` (``launch_ms``: the masked predictor's and
+    corrector's substep, the epilogue of the masked corrector with
+    ``phys``) in turns (reference, this, this, reference) beside the plans'
+    counts. Raises after printing every case if any differs."""
     bad, out = [], {}
     for name, shape in cases:
         state, forcing, grid, kw = against_inputs(shape, dev)
         mine = dict(against_calls(fs, state, forcing, grid, kw))
         theirs = dict(against_calls(ref, state, forcing, grid, kw))
-        same = {v: bitwise_equal(mine[v](), theirs[v]()) for v in mine}
+        same = {v: bitwise_equal(mine[v](), theirs[v](), AGAINST_FIELDS)
+                for v in mine}
         bad += [f"{name} {shape}: {v} differs from the reference kernel"
                 for v, ok in same.items() if not ok]
         line = (f"  {name} {shape}: bit for bit "
@@ -1571,13 +1613,14 @@ def check_against(ref, dev, card: str, cases=AGAINST_CASES, timed=True
                             for v, ok in same.items()))
         row = {"same": same, **plan_counts(shape)}
         if timed:
-            for v in ("predictor_masked", "corrector_masked"):
-                t = [launch_ms(fn)["substep"] for fn in
+            for v, launch in AGAINST_TIMED:
+                t = [profiled_ms(fn)[launch] for fn in
                      (theirs[v], mine[v], mine[v], theirs[v])]
-                row[v] = {"reference_ms": 0.5 * (t[0] + t[3]),
-                          "ms": 0.5 * (t[1] + t[2]), "turns": t}
-                line += (f"; {v} {row[v]['ms']:.4f} ms a launch against "
-                         f"{row[v]['reference_ms']:.4f} ("
+                key = f"{v}.{launch}"
+                row[key] = {"reference_ms": 0.5 * (t[0] + t[3]),
+                            "ms": 0.5 * (t[1] + t[2]), "turns": t}
+                line += (f"; {key} {row[key]['ms']:.4f} ms a launch against "
+                         f"{row[key]['reference_ms']:.4f} ("
                          + " / ".join(f"{x:.4f}" for x in t) + ")")
         print(line + "; plan " + ", ".join(
             f"{k} {row[k]}" for k in plan_counts(shape)) + f" [{card}]",

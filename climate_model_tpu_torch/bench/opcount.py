@@ -20,7 +20,7 @@ It is a model of the work, not a measurement of the kernel: the CUDA
 kernel keeps its intermediates in registers and shared memory and does
 not do the plain version's moves. ``n_tiles`` is the launch plan's block
 count (``kernels/fused_substep.py::launch_plan``: the substep's persistent
-grid, and the epilogue's tiles with ``phys``), and ``fp32_floor_ms``
+grid, and the epilogue's with ``phys``), and ``fp32_floor_ms``
 prices the arithmetic at the fp32 peak of an H100 SXM
 (``bench/roofline.py``), one operation an element.
 
@@ -199,7 +199,7 @@ def audit_substep(baseline: int = 3, which: str = "corrector",
     plan = launch_plan(cfg.grid.nz, cfg.grid.ny, cfg.grid.nx)
     n_tiles = plan.substep.blocks
     if phys is not None:
-        n_tiles += plan.epilogue.grid[0] * plan.epilogue.grid[1]
+        n_tiles += plan.epilogue.blocks
     total = sum(counter.arith.values())
     return Audit(region_elems=dict(counter.arith),
                  region_moves=dict(counter.moves),

@@ -1,9 +1,4 @@
-// Helpers of the tiled kernels (fused_substep.cu, physics_epilogue.cu).
-//
-// A tile's lines: load_lines copies (field, level, row) lines of up to 64
-// consecutive longitudes from device memory into shared memory, a warp per
-// line and lanes along longitude, so each copy instruction reads
-// consecutive floats, asynchronously, so many are in flight.
+// Helpers of the kernels (fused_substep.cu, physics_epilogue.cu).
 //
 // A column of nz levels held by one warp: level k = m * 32 + lane lies in
 // register m (m < L, L = ceil(nz / 32)) of lane k % 32. The helpers move
@@ -25,54 +20,6 @@ __device__ __forceinline__ int wrap(int i, int nx) {
   if (i >= 0 && i < nx) return i;
   i %= nx;
   return i < 0 ? i + nx : i;
-}
-
-__device__ __forceinline__ int clamp_row(int j, int ny) {
-  return j < 0 ? 0 : (j >= ny ? ny - 1 : j);
-}
-
-// An asynchronous 4-byte copy from device to shared memory (cp.async: no
-// register holds the value, so a thread can have many in flight);
-// wait_copies waits for every copy this thread started.
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// The lines (q, k, r) for q < nq, k < nk, r < nr, each of w <= 64
-// longitudes from i_first (wrapped) on: line(q, k, r, row, off) names the
-// line's row in device memory (indexed by longitude) and the offset in sm
-// of its first element, whose columns are stride apart. A warp takes every
-// kWarps-th line, lanes along longitude, and copies it with copy_async;
-// its (q, k, r) advance by mixed-radix carries, so no integer division runs
-// per line. The caller waits (wait_copies, then a barrier).
-template <int kWarps, class Line>
-__device__ __forceinline__ void load_lines(float* sm, int nq, int nk, int nr,
-                                           int w, int i_first, int nx,
-                                           int stride, Line line) {
-  const int warp = threadIdx.x / 32, lane = lane_id();
-  const int c0 = wrap(i_first + lane, nx), c1 = wrap(i_first + lane + 32, nx);
-  // (q, k, r) of this warp's first line, and the step of kWarps lines
-  int r = warp % nr, k = (warp / nr) % nk, q = warp / (nr * nk);
-  const int dr = kWarps % nr, dk = (kWarps / nr) % nk;
-  const int dq = kWarps / (nr * nk);
-  while (q < nq) {
-    const float* row;
-    int off;
-    line(q, k, r, row, off);
-    if (lane < w) copy_async(sm + off + lane * stride, row + c0);
-    if (lane + 32 < w) copy_async(sm + off + (lane + 32) * stride, row + c1);
-    r += dr;
-    k += dk;
-    q += dq;
-    if (r >= nr) { r -= nr; ++k; }
-    if (k >= nk) { k -= nk; ++q; }
-  }
 }
 
 // Set a kernel's shared memory to `bytes` a block, with the SM's memory

@@ -153,10 +153,9 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
 #include "column.cuh"
 #include "constants.cuh"
+#include "march.cuh"
 
 // The block's dynamic shared memory (Ring's layout); every access indexes
 // it directly, so each is a shared-memory load or store.
@@ -210,13 +209,6 @@ __host__ __device__ constexpr float stage_c(int m) {
 }
 __host__ __device__ constexpr float stage_w(int m) {
   return m == 1 || m == 4 ? 1.f / 6.f : 1.f / 3.f;
-}
-
-// the least n' >= n with n' = 4 mod 8: a line's pitch, a multiple of 4
-// floats (16-byte copies) whose multiples by 32 consecutive levels fall in
-// 8 banks, the fewest conflicts such a pitch allows
-__host__ __device__ constexpr int pitch(int n) {
-  return n + ((4 - n) % 8 + 8) % 8;
 }
 
 // Shared-memory layout, in floats; kernels/fused_substep.py::
@@ -290,63 +282,8 @@ struct Ring {
   }
 };
 
-// ---------------------------------------------------------------------------
-// Strips and runs. The grid's nx longitudes are cut into ceil(nx / tx)
-// strips of equal width to within q (the largest of 4, 2, 1 dividing nx),
-// each starting at a multiple of q. A (strip, row) unit weighs the lanes
-// its row's update passes span (pass_lanes: the strip's columns rounded up
-// to a power of two, what a row of the strip costs), and belongs to the
-// block whose share of the weight, b / blocks to (b + 1) / blocks of the
-// whole, holds its midpoint, so runs differ by less than a unit's weight;
-// a grid of as many blocks as units gives each block one
-// (kernels/fused_substep.py::run_start is the same rule).
-// ---------------------------------------------------------------------------
-__host__ __device__ inline int quantum(int nx) {
-  return nx % 4 == 0 ? 4 : nx % 2 == 0 ? 2 : 1;
-}
-
-__device__ __forceinline__ int strip_start(const Args& a, int strips, int s) {
-  const int q = quantum(a.nx);
-  return q * (s * (a.nx / q) / strips);             // < 2^31: s * nx / q
-}
-
-// the lanes an update pass of a strip of ncol columns spans
-__host__ __device__ inline int pass_lanes(int ncol) {
-  int l = 1;
-  while (l < ncol) l <<= 1;
-  return l;
-}
-
-__device__ int run_start(const Args& a, int b) {
-  const int ny = a.ny, strips = (a.nx + a.tx - 1) / a.tx, units = strips * ny;
-  if (a.blocks >= units) return min(b, units);        // a unit each
-  const int q = quantum(a.nx), chunks = a.nx / q, g = a.blocks;
-  const int w_lo = pass_lanes(q * (chunks / strips));
-  const int w_hi = pass_lanes(q * ((chunks + strips - 1) / strips));
-  if (w_lo == w_hi) {
-    // every unit weighs the same: the least unit whose midpoint reaches
-    // b / g of them, ceil((2 b units - g) / (2 g))
-    const int num = 2 * b * units - g;
-    return num <= 0 ? 0 : (num + 2 * g - 1) / (2 * g);
-  }
-  long long total = 0;
-  for (int s = 0; s < strips; ++s)
-    total += pass_lanes(strip_start(a, strips, s + 1)
-                        - strip_start(a, strips, s));
-  const long long share = b * total * ny;      // the target: share / g
-  long long before = 0;                 // the weight of the strips before s
-  for (int s = 0;; ++s) {
-    const long long w = pass_lanes(strip_start(a, strips, s + 1)
-                                   - strip_start(a, strips, s));
-    if ((before + w * ny) * g > share || s == strips - 1) {
-      // the first unit of strip s whose midpoint reaches the target
-      const long long num = 2 * share - g * (2 * before + w);
-      const long long j = num <= 0 ? 0 : (num + 2 * g * w - 1) / (2 * g * w);
-      return j >= ny ? (s + 1) * ny : s * ny + (int)j;
-    }
-    before += w * ny;
-  }
-}
+// Strips and runs: march.cuh (strip_start, pass_lanes, run_start), with
+// tx, the strip width, from the plan.
 
 // A strip: its first longitude and columns, how its lines are copied (nv
 // copies of vec floats, then ns single floats, then the edge columns) and
@@ -362,8 +299,8 @@ struct Strip {
 __device__ __forceinline__ Strip make_strip(const Args& a, int s) {
   const int strips = (a.nx + a.tx - 1) / a.tx;
   Strip st;
-  st.i0 = strip_start(a, strips, s);
-  st.ncol = strip_start(a, strips, s + 1) - st.i0;
+  st.i0 = strip_start(a.nx, strips, s);
+  st.ncol = strip_start(a.nx, strips, s + 1) - st.i0;
   st.nv = st.ncol / a.vec;
   st.ns = st.ncol - st.nv * a.vec;
   st.items = st.nv + st.ns + 2;
@@ -384,15 +321,7 @@ __device__ __forceinline__ unsigned smem_addr(int off) {
 }
 
 __device__ __forceinline__ void copy(int dst, const float* src, int bytes) {
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_addr(dst)), "l"(src));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                     smem_addr(dst)), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     smem_addr(dst)), "l"(src));
+  cp_async(smem_addr(dst), src, bytes);
 }
 
 // wait for every copy this thread has issued
@@ -1030,31 +959,7 @@ struct Counters {
   int updates[4];               // update passes finished, by row mod 4
 };
 
-// Lane 0 reads the counter with acquire semantics until it reaches `want`;
-// the warp's barrier then orders every lane's reads after it.
-__device__ __forceinline__ void wait_for(const int* c, int want) {
-  if (lane_id() == 0) {
-    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(c));
-    int v;
-    for (;;) {
-      asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n"
-                   : "=r"(v) : "r"(addr) : "memory");
-      if (v >= want) break;
-      __nanosleep(20);
-    }
-  }
-  __syncwarp();
-}
-
-// The warp's barrier orders every lane's writes before lane 0's release.
-__device__ __forceinline__ void finished(int* c) {
-  __syncwarp();
-  if (lane_id() == 0) {
-    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(c));
-    asm volatile("red.release.cta.shared.add.s32 [%0], 1;\n"
-                 :: "r"(addr) : "memory");
-  }
-}
+// Counters of finished tasks: wait_for and finished (march.cuh).
 
 // The tasks of segment jA .. jB-1 and how many of each a row has; kept in
 // shared memory, so that no warp holds it in registers.
@@ -1091,10 +996,7 @@ __device__ __forceinline__ void copy_task(const Args& a, const Ring& t,
   for (int jj = r - p.depth - 1; jj <= r - p.depth + 1; ++jj)
     wait_updates(p, c, jj);
   copy_lines<STAGE>(a, t, st, r, f);
-  const unsigned bar = static_cast<unsigned>(
-      __cvta_generic_to_shared(&c.landed[t.slot(r)]));
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
-               :: "r"(bar) : "memory");
+  arrive_on_copies(&c.landed[t.slot(r)]);
 }
 
 // The copies of staged row r (its fields, COLP and geometry) have landed:
@@ -1103,15 +1005,7 @@ __device__ __forceinline__ void copy_task(const Args& a, const Ring& t,
 __device__ __forceinline__ void wait_row(const Ring& t, const Plan& p,
                                          Counters& c, int r) {
   if (r < p.r_lo || r > p.last) return;
-  const unsigned bar = static_cast<unsigned>(
-      __cvta_generic_to_shared(&c.landed[t.slot(r)]));
-  const unsigned parity = ((r - p.r_lo) / p.depth) & 1;
-  unsigned done = 0;
-  while (!done)
-    asm volatile("{\n .reg .pred p;\n"
-                 " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  barrier_wait(&c.landed[t.slot(r)], ((r - p.r_lo) / p.depth) & 1);
 }
 
 // The terms, or the sums, of row R are finished.
@@ -1191,12 +1085,8 @@ __device__ void segment(const Args& a, const Ring& t, int s, int jA, int jB,
                + (p.r_hi - p.r_mid) * (kNFields + 1);
     c.ticket = 0;
     c.pre = 0;
-    for (int q = 0; q < kMaxDepth; ++q) {
-      const unsigned bar = static_cast<unsigned>(
-          __cvta_generic_to_shared(&c.landed[q]));
-      asm volatile("mbarrier.init.shared.b64 [%0], %1;\n"
-                   :: "r"(bar), "r"((kNFields + 1) * 32) : "memory");
-    }
+    for (int q = 0; q < kMaxDepth; ++q)
+      barrier_init(&c.landed[q], (kNFields + 1) * 32);
     for (int q = 0; q < 3; ++q) c.terms[q] = c.sums[q] = 0;
     for (int q = 0; q < 4; ++q) c.updates[q] = 0;
   }
@@ -1266,13 +1156,9 @@ __device__ __forceinline__ void block_runs(const Args& args, Strip& strip,
   }
   __syncthreads();
 
-  const int u1 = run_start(a, blockIdx.x + 1);
-  for (int u = run_start(a, blockIdx.x); u < u1;) {
-    const int s = u / a.ny, jA = u - s * a.ny;
-    const int jB = min(a.ny, jA + (u1 - u));
+  for_each_segment(a.ny, a.nx, a.tx, a.blocks, [&](int s, int jA, int jB) {
     segment<SAME_BASE, STAGE>(a, t, s, jA, jB, strip, plan, counters);
-    u += jB - jA;
-  }
+  });
 }
 
 // A Matsuno substep: the predictor (SAME_BASE) or the corrector.
@@ -1314,18 +1200,6 @@ template <int STAGE>
 int launch_stage(const Args& a, int smem, cudaStream_t s) {
   static int opted = 48 * 1024;
   return launch_kernel(rk4_stage_kernel<STAGE>, opted, a, smem, s);
-}
-
-// the widest copy (4, 2 or 1 floats) that the rows of every staged field
-// allow: a multiple of it in nx and in each field's address
-int copy_width(int nx, const float* const* fields, int n) {
-  for (int vec = quantum(nx); vec > 1; vec /= 2) {
-    bool ok = true;
-    for (int q = 0; q < n; ++q)
-      ok = ok && reinterpret_cast<uintptr_t>(fields[q]) % (4 * vec) == 0;
-    if (ok) return vec;
-  }
-  return 1;
 }
 
 }  // namespace

@@ -42,57 +42,105 @@
 // zeroed on row 0 otherwise, after the drag and after the diffusion, where
 // the TPU kernel calls apply_wall.
 //
-// What bounds it on the card: bytes. It must read the five post-dynamics
-// 3-D fields and about ten 2-D fields and write five 3-D and three 2-D
-// fields: at config #3 (360x180x32 fp32, 8.3 MB per 3-D field) about 84 MB,
-// >= 25 us at 3.35 TB/s. The design:
-//   * A block (threads_for<L>() threads: 16 warps at up to 32 levels, two
-//     blocks an SM; else 8) owns a tile of tj latitude rows x tx longitudes
-//     (kernels/fused_substep.py::launch_plan sizes it and its dynamic
-//     shared memory). It copies the tile's u, v, qv and qc, and pott of the
-//     tile with one column west and one row south, into shared memory with
-//     cp.async: a warp per (field, level, row) line, lanes along longitude,
-//     so each copy reads consecutive floats, kept as columns (level
-//     fastest, odd column stride: no bank conflicts either way). The bottom
-//     level of u and v comes in with one column and one row around, the
-//     2-D fields for the tile (and colp, tsurf and hsurf for its west
-//     column and south row), sigma_vb and dsigma likewise.
-//   * Neighbour columns once. The drag at the west (south) face needs the
-//     stress of column (j, i-1) ((j-1, i)), and the diffusion of u (v) the
-//     height profile of that column after its surface heating. So every
-//     column of the tile and of its west column and south row first gets its
-//     surface core (rho, wind, stresses, bottom heating; a thread per
-//     column) and then its height profile (dz and rho at centres and
-//     interior borders; a warp per column with the levels on the lanes)
-//     into shared memory. Only the halo columns are computed twice, by two
-//     tiles, identically.
-//   * Then one warp per column of the tile runs the physics with the column
-//     in registers (ceil(nz/32) levels a lane; at up to 32 levels ptxas
-//     reports no stack frame): each diffusion's border flux takes the level
-//     below from the next lane by a shuffle and the flux above from the
-//     previous lane, the convective K the level below likewise, the faces'
-//     profiles are the means of two columns' profiles read from shared
-//     memory, and the rain sum is a warp reduction. The results go back to
-//     shared memory and out with coalesced lines.
-// Measured on an H100 (PERF.md), the launch is not bound by bytes but by
-// the latency of the per-column work, at 32 warps an SM.
+// What bounds it on the card: bytes in principle. It must read the five
+// post-dynamics 3-D fields and about ten 2-D fields and write five 3-D and
+// three 2-D fields: at config #3 (360x180x32 fp32, 8.3 MB per 3-D field)
+// about 84 MB, >= 25 us at 3.35 TB/s. In practice the latency of each
+// column's chain of shuffles and special functions (PERF.md). So the kernel
+// marches along latitude, as the substep does (fused_substep.cu's header),
+// to keep every warp in a column's chain while the copies and stores of
+// other rows run beside it:
+//   * A persistent grid (kernels/fused_substep.py::launch_plan): one block
+//     an SM (threads_for<L>(): 32 warps where a column fits one register a
+//     lane, at 64 registers a thread; else 8), as many blocks as SMs, or as
+//     many as units on a small block. Strips of at most tx longitudes and
+//     balanced runs of (strip, row) units by the substep's rules (march.cuh,
+//     run_start); a block walks its run south to north, and where it starts
+//     or crosses into the next strip it warms up: it stages the row below
+//     its first and computes that row's surface cores and profiles.
+//   * A ring of `depth` staged rows in shared memory (5 or 6, from the
+//     plan): a row's pott with the west column and its u, v, qv and qc, as
+//     (field, level) lines, longitude fastest, as the substep stages them
+//     (march.cuh), so that their copies and stores move 16 bytes a lane
+//     where the rows allow it; a column's levels lie a pitch apart (4 mod 8
+//     floats: a 4-way bank conflict on the few reads and writes of a whole
+//     column). The copies are cp.async and land on the slot's mbarrier; the
+//     row below a segment stages only pott. The 2-D fields (colp, tsurf,
+//     hsurf, the bottom u and v around a column, the forcing) are read from
+//     device memory where they are used: coalesced by the surface cores'
+//     lanes, one float a column elsewhere. (Staged by 4-byte copies, they
+//     cost more than all the 3-D lines.)
+//   * A ring of kProfRows (4) rows of surface cores (rho, wind, stresses,
+//     bottom heating, a lane a column) and height profiles (dz and rho at
+//     centres and interior borders, a warp a column with the levels on the
+//     lanes, each column's levels at an odd pitch), with the layer Exner
+//     factors the profile computes, of the strip's columns and the one
+//     west, computed kAhead (1) row ahead of the physics. Row j's physics
+//     reads rows j and j-1 of it, so each column's core, profile and Exner
+//     factors are computed once, but the west column and a segment's first
+//     south row (the plan's profiled_cols_per_col).
+//   * The work is a stream of tasks that warps take from a counter in
+//     shared memory: a staged row's copies (five tasks: pott, u, v, qv,
+//     qc), a row's surface cores (ceil((ncol + 1) / 32) tasks, a lane a
+//     column), its profiles (kProfCols columns a task), its physics (the
+//     plan's phys_cols columns a task, in turn: a column in registers,
+//     ceil(nz/32) levels a lane; each diffusion's border flux takes the
+//     level below from the next lane by a shuffle and the flux above from
+//     the previous lane, the convective K the level below likewise, the
+//     faces' profiles are the means of two columns' profiles, the rain sum
+//     a warp reduction; results back into the slot, the 2-D outputs
+//     straight out) and its stores (five tasks: a field's (level, column)
+//     lines, lanes along longitude). For row J the order is the surface
+//     cores of row J+1, half of row J's physics, the profiles of row J+1,
+//     the rest of the physics, the stores of row J-1 and the copies of row
+//     J + depth - 2. A task first waits for the tasks it reads from or
+//     whose slots it overwrites, all earlier in the order, by counters of
+//     finished tasks (and the copies' mbarriers): no barrier separates the
+//     rows, and row J's column chains run beside row J+1's profiles and
+//     row J-1's stores. The rings are deep enough that what a task waits
+//     for was taken a row or more before it: the profiles' slot was last
+//     read by the physics of rows J-3 and J-2, the copies' by the stores of
+//     row J-2, and the surface cores read a row copied a row before.
 // No thread reads what another block writes, so no ordering between blocks
-// is needed, and a column's arithmetic does not depend on where a tile
-// boundary falls.
+// is needed, and a column's arithmetic does not depend on where a strip or
+// run boundary falls: every output equals that of the tiled kernel this one
+// replaced, bit for bit.
 
 #include <cuda_runtime.h>
 
 #include "column.cuh"
 #include "constants.cuh"
+#include "march.cuh"
+
+// The block's dynamic shared memory (Ring's layout).
+extern __shared__ __align__(16) float epi_smem[];
+// dt and frac, read once a block from the device operand (Epi::scalars)
+__shared__ float epi_scal[2];
 
 namespace {
 
 using namespace cm;
 
-// threads a block: 16 warps where a column fits one register a lane (64
-// registers a thread, two blocks an SM), else 8
+// threads a block: 32 warps where a column fits one register a lane (64
+// registers a thread), else 8
 template <int L>
-__host__ __device__ constexpr int threads_for() { return L == 1 ? 512 : 256; }
+__host__ __device__ constexpr int threads_for() { return L == 1 ? 1024 : 256; }
+
+// Rows ahead of the physics whose surface cores and profiles are computed,
+// rows of the profile ring, staged rows of the ring at least and at most.
+// Row J's tasks compute the profiles of row J + kAhead, whose slot the
+// physics of rows J - 3 and J - 2 read last (kProfRows = kAhead + 3), and
+// copy row J + depth - 2, whose slot the stores of row J - 2 read last; so
+// the profiles read rows up to J + kAhead + 1 staged a row earlier
+// (depth >= kAhead + 4).
+constexpr int kAhead = 1;
+constexpr int kProfRows = kAhead + 3;
+constexpr int kMinDepth = kAhead + 4;
+constexpr int kMaxDepth = 8;
+constexpr int kProfCols = 3;      // columns a profile task
+constexpr int kCopyTasks = 5;     // a staged row's: pott, u, v, qv, qc
+constexpr int kStoreTasks = 5;    // a row's: pott, u, v, qv, qc
+enum Task { kCopy = 0, kSurf, kProf, kPhys, kStore };
 
 struct Epi {
   // post-dynamics fields (the substep's output) and COLP_new
@@ -102,15 +150,17 @@ struct Epi {
   const float *land, *evap_eff, *hsurf, *vmask, *sigma_vb, *dsigma;
   float *u_out, *v_out, *pott_out, *qv_out, *qc_out;
   float *tsurf_out, *rain_out, *soil_out;
-  int nz, ny, nx, tx, tj;
+  int nz, ny, nx, tx, depth, blocks;
+  int phys_cols;                    // columns a physics task
+  int vec;                          // floats a copy or store moves
   const float* scalars;             // (dt, frac) on the card
-  float dt, ptop, frac;             // dt, frac: from scalars
+  float ptop;
   int w_srf, w_trb, w_mic, w_soil, w_conv;
   float drag, soil_cap, ocean_cap, qc_thr, k_scalar, k_mom, sm_cap, conv_k,
       conv_rh;
 };
 
-// The surface core of a column, kept for its neighbours (shared memory).
+// The surface core of a column, kept for its neighbours.
 enum SurfSlot {
   kRho = 0, kWind, kShflx, kPSfc, kDpSfc, kTaux, kTauy, kDpottB, kNSurf
 };
@@ -118,38 +168,58 @@ enum SurfSlot {
 // density rc at the nz centres, centre-to-centre distance dzvb and density
 // rvb at the nz-1 interior borders (index kb: between levels kb and kb+1).
 enum ProfSlot { kDzc = 0, kRc, kDzvb, kRvb, kNProf };
-// Own fields of the tile in shared memory (pott lives with the halo).
-enum OwnSlot { kOwnU = 0, kOwnV, kOwnQv, kOwnQc, kNOwn };
-// 2-D fields of the tile with its west column and south row, and of the
-// tile alone.
-enum Ext2 { kColp = 0, kTsurf, kHsurf, kNExt2 };
-enum Own2 { kLand = 0, kEvapEff, kSwflx, kLwflx, kRain, kSoil, kNOwn2 };
+// The 3-D fields of a staged row (pott with the west column).
+enum Field3 { kPott = 0, kU, kV, kQv, kQc, kNField3 };
 
-// Shared-memory layout of a tile, in floats; kernels/fused_substep.py::
-// epilogue_smem_floats is the same formula.
-struct Tile {
-  int nzp;     // column stride (odd)
-  int ex, ey;  // the tile with one column west and one row south
-  int bx, by;  // bottom u and v: the tile with one column and row around
-  int pott, own, prof, surf, ub, vb, ext2, xs, own2, sig, dsig, total;
+// Shared-memory layout, in floats; kernels/fused_substep.py::
+// epilogue_smem_floats is the same formula. A staged row's 3-D fields are
+// (field, level) lines at pitch P (march.cuh), longitude i0 + x at offset
+// 4 + x (pott's west column at 3). Column c of a row's profiles is
+// longitude i0 - 1 + c (c = 0 the west column); a profile (and the layer
+// Exner factors pv beside it) keeps a column's levels at an odd pitch nzp.
+struct Ring {
+  int nz, P, nzp; // levels; pitch of a staged line; of a profile's column
+  int tx, ex;     // strip columns at most; with the west one
+  int row;                                  // a staged slot's floats
+  int prof, surf, xs, pv, pslot;                // in a profile slot; its floats
+  int fields, profs, sig, dsig, total;
+  int depth;
+  unsigned md;    // ceil(2^32 / depth)
 
-  __host__ __device__ Tile(int nz, int tx, int tj) {
+  __host__ __device__ Ring(int nz_, int tx_, int depth_) {
+    nz = nz_;
+    depth = depth_;
+    md = 0xffffffffu / depth + 1;
+    P = pitch(tx_ + 4);
     nzp = nz | 1;
-    ex = tx + 1; ey = tj + 1;
-    bx = tx + 2; by = tj + 2;
-    const int e = ex * ey;
-    pott = 0;
-    own = pott + e * nzp;
-    prof = own + kNOwn * tx * tj * nzp;
-    surf = prof + kNProf * e * nzp;
-    ub = surf + kNSurf * e;
-    vb = ub + bx * by;
-    ext2 = vb + bx * by;
-    xs = ext2 + kNExt2 * e;
-    own2 = xs + e;
-    sig = own2 + kNOwn2 * tx * tj;
+    tx = tx_;
+    ex = tx + 1;
+    row = kNField3 * nz * P;
+    prof = 0;
+    surf = prof + kNProf * ex * nzp;
+    xs = surf + kNSurf * ex;
+    pv = xs + ex;
+    pslot = pv + ex * nzp;
+    fields = 0;
+    profs = fields + depth * row;         // kProfRows slots
+    sig = profs + kProfRows * pslot;
     dsig = sig + nz + 1;
     total = dsig + nz;
+  }
+
+  // row r's slot in the staged rows (r % depth), by a multiply: r < 2^16
+  __device__ __forceinline__ int slot(int r) const {
+    return r - depth * (int)__umulhi((unsigned)r, md);
+  }
+  __device__ __forceinline__ int field_row(int r) const {
+    return fields + slot(r) * row;
+  }
+  __device__ __forceinline__ int prof_row(int r) const {
+    return profs + (r % kProfRows) * pslot;
+  }
+  // field f's level-0 line in the staged slot sr, at longitude i0
+  __device__ __forceinline__ int line(int sr, int f) const {
+    return sr + f * nz * P + 4;
   }
 };
 
@@ -166,75 +236,87 @@ __device__ __forceinline__ float qsat_water(float tair, float pair) {
 }
 
 // ---------------------------------------------------------------------------
-// The surface core of one column of the tile or its halo (surface.py::
+// The surface core of column c of row j (longitude i0 - 1 + c; surface.py::
 // surface_fluxes, the part a column and its neighbours share), a thread per
-// column: the surface border's Exner factor, then, with the surface on,
-// rho, wind, the sensible flux, the surface pressure and layer mass, the
-// stresses and the bottom layer's heating, into shared memory.
+// column, from the row's staged slot sr and the 2-D fields in device
+// memory into its profile slot pr: the surface border's Exner factor,
+// then, with the surface on, rho, wind, the sensible flux, the surface
+// pressure and layer mass, the stresses and the bottom layer's heating.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void surface_core(const Epi& e, const Tile& t,
-                                             float* sm, int j, int er,
-                                             int ec) {
-  const int nz = e.nz, kb = nz - 1;
-  const int c = er * t.ex + ec;
-  const int es = t.ex * t.ey;
+__device__ __forceinline__ void surface_core(const Epi& e, const Ring& t,
+                                             int sr, int pr, int j, int i0,
+                                             int c) {
+  float* sm = epi_smem;
+  const int nz = e.nz, nx = e.nx, kb = nz - 1;
   const float* sig = sm + t.sig;
-  const float cn = sm[t.ext2 + kColp * es + c];
+  const size_t at = (size_t)j * nx + wrap(i0 - 1 + c, nx);
+  const float cn = __ldg(e.colp + at);
   const float x_sfc = surface_exner(sig, e.ptop, cn, nz);
-  sm[t.xs + c] = x_sfc;
+  sm[pr + t.xs + c] = x_sfc;
   if (!e.w_srf) return;
+  const float dt = epi_scal[0];
   // the bottom level's pressures and Exner factors, as Pressure has them
   const float lo_b = e.ptop + sig[kb] * cn;
   const float hi_b = e.ptop + sig[nz] * cn;
   const float x_lo = powf(div_rn(lo_b, kPRef, kRecipPRef), kKappa);
   const float pvtf_b = (hi_b * x_sfc - lo_b * x_lo)
                        / (kOnePlusKappa * (hi_b - lo_b));
-  const float t_air = sm[t.pott + c * t.nzp + kb] * pvtf_b;
+  const float t_air = sm[t.line(sr, kPott) + kb * t.P + c - 1] * pvtf_b;
   const float p_air = 0.5f * (lo_b + hi_b);
   const float rho = p_air / (kRd * t_air);
-  const float* ub = sm + t.ub + er * t.bx + ec;
-  const float* vb = sm + t.vb + er * t.bx + ec;
-  const float u_c = 0.5f * (ub[0] + ub[1]);
-  const float vn = j + 1 < e.ny ? vb[t.bx] : 0.f;
-  const float v_c = 0.5f * (vb[0] + vn);
+  const size_t bottom = (size_t)kb * e.ny * nx;
+  const float u_c = 0.5f * (__ldg(e.u + bottom + at)
+                            + __ldg(e.u + bottom + (size_t)j * nx
+                                    + wrap(i0 + c, nx)));
+  const float vn = j + 1 < e.ny ? __ldg(e.v + bottom + at + nx) : 0.f;
+  const float v_c = 0.5f * (__ldg(e.v + bottom + at) + vn);
   const float wind = sqrtf(u_c * u_c + v_c * v_c + 1.f);
-  const float tsurf = sm[t.ext2 + kTsurf * es + c];
+  const float tsurf = __ldg(e.tsurf + at);
   const float shflx = rho * kCp * e.drag * wind * (tsurf - t_air);
   const float dp_sfc = cn * sm[t.dsig + kb];
   // bottom-layer heating of the sensible flux (surface.py::surface_step)
   const float m_sfc = dp_sfc / kG;
-  float* sf = sm + t.surf + c;
-  sf[kRho * es] = rho;
-  sf[kWind * es] = wind;
-  sf[kShflx * es] = shflx;
-  sf[kPSfc * es] = hi_b;
-  sf[kDpSfc * es] = dp_sfc;
-  sf[kTaux * es] = -rho * e.drag * wind * u_c;
-  sf[kTauy * es] = -rho * e.drag * wind * v_c;
-  sf[kDpottB * es] = e.dt * shflx / (kCp * m_sfc) / pvtf_b;
+  float* sf = sm + pr + t.surf + c;
+  sf[kRho * t.ex] = rho;
+  sf[kWind * t.ex] = wind;
+  sf[kShflx * t.ex] = shflx;
+  sf[kPSfc * t.ex] = hi_b;
+  sf[kDpSfc * t.ex] = dp_sfc;
+  sf[kTaux * t.ex] = -rho * e.drag * wind * u_c;
+  sf[kTauy * t.ex] = -rho * e.drag * wind * v_c;
+  sf[kDpottB * t.ex] = dt * shflx / (kCp * m_sfc) / pvtf_b;
 }
 
 // ---------------------------------------------------------------------------
-// The height profile of one column of the tile or its halo, a warp per
-// column with the levels on the lanes.
+// The height profile of column c of row j (longitude i0 - 1 + c; staged
+// slot sr, profile slot pr), a warp with the levels on the lanes, and its
+// layer Exner factors (with the turbulence off, those alone).
 // ---------------------------------------------------------------------------
 template <int L>
-__device__ __forceinline__ void column_profile(const Epi& e, const Tile& t,
-                                               float* sm, int c) {
+__device__ __forceinline__ void column_profile(const Epi& e, const Ring& t,
+                                               int sr, int pr, int j, int i0,
+                                               int c) {
+  // the profile of a column
+  float* sm = epi_smem;
   const int nz = e.nz, kb = nz - 1;
   const int lane = lane_id();
-  const int es = t.ex * t.ey;
-  const float cn = sm[t.ext2 + kColp * es + c];
-  const float* ptc = sm + t.pott + c * t.nzp;
+  const size_t at = (size_t)j * e.nx + wrap(i0 - 1 + c, e.nx);
+  const float cn = __ldg(e.colp + at);
+  const float* ptc = sm + t.line(sr, kPott) + c - 1;
   float pt[L];
 #pragma unroll
   for (int m = 0; m < L; ++m) {
     const int k = m * 32 + lane;
-    pt[m] = k < nz ? ptc[k] : 0.f;
+    pt[m] = k < nz ? ptc[k * t.P] : 0.f;
   }
   Pressure<L> p;
-  p.compute(sm + t.sig, e.ptop, cn, nz, sm[t.xs + c]);
-  const float dpott_b = e.w_srf ? sm[t.surf + kDpottB * es + c] : 0.f;
+  p.compute(sm + t.sig, e.ptop, cn, nz, sm[pr + t.xs + c]);
+  // the layer Exner factors, for the column's physics (Layers)
+  float* pv = sm + pr + t.pv + c * t.nzp;
+#pragma unroll
+  for (int m = 0; m < L; ++m)
+    if (m * 32 + lane < nz) pv[m * 32 + lane] = p.pvtf[m];
+  const float dpott_b = e.w_srf ? sm[pr + t.surf + kDpottB * t.ex + c] : 0.f;
   if (!e.w_trb) return;
 
   // the profile (turbulence.py), from the column after its surface heating;
@@ -249,7 +331,7 @@ __device__ __forceinline__ void column_profile(const Epi& e, const Tile& t,
     phivb_lo[m] = k < nz ? cppt[m] * (p.x_hi[m] - p.x_lo[m]) : 0.f;
   }
   suffix_sum(phivb_lo);
-  const float phivb_sfc = kG * sm[t.ext2 + kHsurf * es + c];
+  const float phivb_sfc = kG * __ldg(e.hsurf + at);
   float phivb_hi[L];
 #pragma unroll
   for (int m = 0; m < L; ++m) phivb_lo[m] = phivb_sfc + phivb_lo[m];
@@ -266,24 +348,45 @@ __device__ __forceinline__ void column_profile(const Epi& e, const Tile& t,
   float zc_below[L], tair_below[L];
   level_below(zc, zc_below);
   level_below(tair, tair_below);
-  float* pr = sm + t.prof + c * t.nzp;
-  const int plane = t.ex * t.ey * t.nzp;
+  float* pf = sm + pr + t.prof + c * t.nzp;
+  const int plane = t.ex * t.nzp;
 #pragma unroll
   for (int m = 0; m < L; ++m) {
     const int k = m * 32 + lane;
     if (k < nz) {
       const float dzc = div_rn(phivb_lo[m], kG, kRecipG)
                         - div_rn(phivb_hi[m], kG, kRecipG);
-      pr[kDzc * plane + k] = dzc;
-      pr[kRc * plane + k] = (p.hi[m] - p.lo[m]) / (kG * dzc);
+      pf[kDzc * plane + k] = dzc;
+      pf[kRc * plane + k] = (p.hi[m] - p.lo[m]) / (kG * dzc);
       if (k < kb) {
-        pr[kDzvb * plane + k] = zc[m] - zc_below[m];
-        pr[kRvb * plane + k] =
+        pf[kDzvb * plane + k] = zc[m] - zc_below[m];
+        pf[kRvb * plane + k] =
             p.hi[m] / (kRd * (0.5f * (tair[m] + tair_below[m])));
       }
     }
   }
 }
+
+// A column's border pressures and layer Exner factors as Pressure<L> has
+// them at its levels (padding lanes hold other finite values), the factors
+// read from pv, where the column's profile task stored them: the physics
+// does not raise the borders to kappa again.
+template <int L>
+struct Layers {
+  float lo[L], hi[L], pvtf[L];
+
+  __device__ __forceinline__ Layers(const float* sigma_vb, float ptop,
+                                    float cn, int nz, const float* pv) {
+    const int lane = lane_id();
+#pragma unroll
+    for (int m = 0; m < L; ++m) {
+      const int k = m * 32 + lane, kk = k < nz ? k : nz - 1;
+      lo[m] = k < nz ? ptop + sigma_vb[k] * cn : kPRef;
+      hi[m] = ptop + sigma_vb[kk + 1] * cn;
+      pvtf[m] = pv[kk];
+    }
+  }
+};
 
 // The divisors of a K-diffusion step on a profile: the layer mass rc * dzc
 // and the border distance dzvb, with their reciprocals (div_rn), shared by
@@ -336,18 +439,17 @@ __device__ __forceinline__ void diffuse(float (&x)[L], const float (&kk)[L],
   }
 }
 
-// The profile of slot c (or, with c2 >= 0, the face profile: the mean of
-// slot c2's and slot c's, in that order) into registers.
+// The profile at a (the column's first level in a profile slot) or, with
+// b, the face profile: the mean of b's and a's, in that order, into
+// registers.
 template <int L>
-__device__ __forceinline__ void load_profile(const Tile& t, const float* sm,
-                                             int c, int c2, int nz,
+__device__ __forceinline__ void load_profile(const Ring& t, const float* a,
+                                             const float* b, int nz,
                                              float (&dzc)[L], float (&rc)[L],
                                              float (&dzvb)[L],
                                              float (&rvb)[L]) {
   const int lane = lane_id();
-  const int plane = t.ex * t.ey * t.nzp;
-  const float* a = sm + t.prof + c * t.nzp;
-  const float* b = sm + t.prof + (c2 >= 0 ? c2 : c) * t.nzp;
+  const int plane = t.ex * t.nzp;
 #pragma unroll
   for (int m = 0; m < L; ++m) {
     const int k = m * 32 + lane;
@@ -357,7 +459,7 @@ __device__ __forceinline__ void load_profile(const Tile& t, const float* sm,
     rc[m] = a[kRc * plane + kk];
     dzvb[m] = a[kDzvb * plane + kv];
     rvb[m] = a[kRvb * plane + kv];
-    if (c2 >= 0) {
+    if (b) {
       dzc[m] = 0.5f * (b[kDzc * plane + kk] + dzc[m]);
       rc[m] = 0.5f * (b[kRc * plane + kk] + rc[m]);
       dzvb[m] = 0.5f * (b[kDzvb * plane + kv] + dzvb[m]);
@@ -367,44 +469,44 @@ __device__ __forceinline__ void load_profile(const Tile& t, const float* sm,
 }
 
 // ---------------------------------------------------------------------------
-// The physics of one column (jr, x) of the tile, in registers.
+// The physics of column (j, i0 + x), in registers: its staged slot sr, the
+// profile slots of its row (pr) and of the row south (ps).
 // ---------------------------------------------------------------------------
 template <int L>
-__device__ __forceinline__ void column_physics(const Epi& e, const Tile& t,
-                                               float* sm, int j0, int i0,
-                                               int jr, int x) {
+__device__ __forceinline__ void column_physics(const Epi& e, const Ring& t,
+                                               int sr, int pr, int ps, int j,
+                                               int i0, int x) {
+  // the physics of a column
+  float* sm = epi_smem;
   const int nz = e.nz, kb = nz - 1, nx = e.nx;
   const int lane = lane_id();
-  const int j = j0 + jr, i = i0 + x;
+  const float dt = epi_scal[0];
+  const int i = i0 + x;
   const int id2 = j * nx + i;
-  const int c = (jr + 1) * t.ex + x + 1;           // this column's slot
-  const int cw = c - 1;                             // the west column's
-  const int cs = j == 0 ? c : c - t.ex;             // the south (clamped)
-  const int o = jr * e.tx + x;                      // own-field column
-  float* ptc = sm + t.pott + c * t.nzp;
-  const int own_plane = e.tx * e.tj * t.nzp;
-  float* ou = sm + t.own + kOwnU * own_plane + o * t.nzp;
-  float* ov = sm + t.own + kOwnV * own_plane + o * t.nzp;
-  float* oqv = sm + t.own + kOwnQv * own_plane + o * t.nzp;
-  float* oqc = sm + t.own + kOwnQc * own_plane + o * t.nzp;
+  const int c = x + 1;                              // this column's
+  const int cw = x;                                 // the west column's
+  const int psc = j == 0 ? pr : ps;                 // the south (clamped)
+  // the column's levels in the staged lines, P apart
+  float* ptc = sm + t.line(sr, kPott) + x;
+  float* ou = sm + t.line(sr, kU) + x;
+  float* ov = sm + t.line(sr, kV) + x;
+  float* oqv = sm + t.line(sr, kQv) + x;
+  float* oqc = sm + t.line(sr, kQc) + x;
   float pt[L], qv[L], qc[L], u[L], v[L];
 #pragma unroll
   for (int m = 0; m < L; ++m) {
     const int k = m * 32 + lane;
-    const int kk = k < nz ? k : 0;
+    const int kk = (k < nz ? k : 0) * t.P;
     pt[m] = ptc[kk];
     u[m] = ou[kk];
     v[m] = ov[kk];
     qv[m] = oqv[kk];
     qc[m] = oqc[kk];
   }
-  const int es = t.ex * t.ey;
-  const float* own2 = sm + t.own2 + o;
-  const int own2_plane = e.tx * e.tj;
-  const float cn = sm[t.ext2 + kColp * es + c];
-  const float land = own2[kLand * own2_plane];
-  float tsurf = sm[t.ext2 + kTsurf * es + c];
-  float rain = own2[kRain * own2_plane], sm_ = own2[kSoil * own2_plane];
+  const float cn = __ldg(e.colp + id2);
+  const float land = __ldg(e.land + id2);
+  float tsurf = __ldg(e.tsurf + id2);
+  float rain = __ldg(e.rain + id2), sm_ = __ldg(e.soil + id2);
   // the v wall (apply_wall of the TPU kernel); "+ 0" as in fused_substep.cu
   const float vm = e.vmask ? e.vmask[j] : 0.f;
   auto wall = [&]() {
@@ -415,45 +517,47 @@ __device__ __forceinline__ void column_physics(const Epi& e, const Tile& t,
 
   // ---- surface ----
   if (e.w_srf) {
-    auto surf = [&](int slot, int col) { return sm[t.surf + slot * es + col]; };
-    const float qsat_s = qsat_water(tsurf, surf(kPSfc, c));
-    float eff = own2[kEvapEff * own2_plane];
+    auto surf = [&](int slot, int at, int col) {
+      return sm[at + t.surf + slot * t.ex + col];
+    };
+    const float qsat_s = qsat_water(tsurf, surf(kPSfc, pr, c));
+    float eff = __ldg(e.evap_eff + id2);
     if (e.w_soil) {
       float frac = sm_ / e.sm_cap;
       frac = frac < 0.f ? 0.f : (frac > 1.f ? 1.f : frac);
       eff = land > 0.5f ? frac : 1.f;
     }
-    const float evap = surf(kRho, c) * e.drag * surf(kWind, c) * eff
+    const float evap = surf(kRho, pr, c) * e.drag * surf(kWind, pr, c) * eff
                        * relu(qsat_s - at_level(qv, kb));
     const float lhflx = kLv * evap;
     const float heat_cap = land > 0.5f ? e.soil_cap : e.ocean_cap;
-    const float net = own2[kSwflx * own2_plane] + own2[kLwflx * own2_plane]
-                      - surf(kShflx, c) - lhflx;
-    tsurf = tsurf + e.dt * net / heat_cap;
+    const float net = __ldg(e.swflx + id2) + __ldg(e.lwflx + id2)
+                      - surf(kShflx, pr, c) - lhflx;
+    tsurf = tsurf + dt * net / heat_cap;
 
-    const float m_sfc = surf(kDpSfc, c) / kG;
-    add_at_level(pt, kb, surf(kDpottB, c));
-    add_at_level(qv, kb, e.dt * evap / m_sfc);
-    const float m_u = 0.5f * (surf(kDpSfc, cw) + surf(kDpSfc, c)) / kG;
-    const float m_v = 0.5f * (surf(kDpSfc, cs) + surf(kDpSfc, c)) / kG;
+    const float m_sfc = surf(kDpSfc, pr, c) / kG;
+    add_at_level(pt, kb, surf(kDpottB, pr, c));
+    add_at_level(qv, kb, dt * evap / m_sfc);
+    const float m_u = 0.5f * (surf(kDpSfc, pr, cw) + surf(kDpSfc, pr, c)) / kG;
+    const float m_v = 0.5f * (surf(kDpSfc, psc, c) + surf(kDpSfc, pr, c)) / kG;
     add_at_level(u, kb,
-                 e.dt * 0.5f * (surf(kTaux, cw) + surf(kTaux, c)) / m_u);
+                 dt * 0.5f * (surf(kTaux, pr, cw) + surf(kTaux, pr, c)) / m_u);
     add_at_level(v, kb,
-                 e.dt * 0.5f * (surf(kTauy, cs) + surf(kTauy, c)) / m_v);
+                 dt * 0.5f * (surf(kTauy, psc, c) + surf(kTauy, pr, c)) / m_v);
     wall();
     if (e.w_soil && land > 0.5f) {
-      const float dried = sm_ - e.dt * evap / kRhoWater;
+      const float dried = sm_ - dt * evap / kRhoWater;
       sm_ = dried < 0.f ? 0.f : (dried > e.sm_cap ? e.sm_cap : dried);
     }
   }
 
-  Pressure<L> p;
-  p.compute(sm + t.sig, e.ptop, cn, nz, sm[t.xs + c]);
+  const Layers<L> p(sm + t.sig, e.ptop, cn, nz, sm + pr + t.pv + c * t.nzp);
 
   // ---- turbulence ----
   if (e.w_trb) {
     float dzc[L], rc[L], dzvb[L], rvb[L], kk[L];
-    load_profile(t, sm, c, -1, nz, dzc, rc, dzvb, rvb);
+    const float* pf = sm + pr + t.prof + c * t.nzp;
+    load_profile(t, pf, (const float*)nullptr, nz, dzc, rc, dzvb, rvb);
 #pragma unroll
     for (int m = 0; m < L; ++m) kk[m] = e.k_scalar;
     if (e.w_conv) {
@@ -478,9 +582,9 @@ __device__ __forceinline__ void column_physics(const Epi& e, const Tile& t,
     }
     {
       const Divisors<L> d(dzc, rc, dzvb, rvb);
-      diffuse(pt, kk, d, nz, e.dt);
-      diffuse(qv, kk, d, nz, e.dt);
-      diffuse(qc, kk, d, nz, e.dt);
+      diffuse(pt, kk, d, nz, dt);
+      diffuse(qv, kk, d, nz, dt);
+      diffuse(qc, kk, d, nz, dt);
     }
 #pragma unroll
     for (int m = 0; m < L; ++m) {
@@ -489,16 +593,18 @@ __device__ __forceinline__ void column_physics(const Epi& e, const Tile& t,
       kk[m] = e.k_mom;
     }
     // u with the profile averaged over the west column and this one
-    load_profile(t, sm, c, cw, nz, dzc, rc, dzvb, rvb);
-    diffuse(u, kk, Divisors<L>(dzc, rc, dzvb, rvb), nz, e.dt);
+    load_profile(t, pf, pf - t.nzp, nz, dzc, rc, dzvb, rvb);
+    diffuse(u, kk, Divisors<L>(dzc, rc, dzvb, rvb), nz, dt);
     // v with the south column (clamped at the wall)
-    load_profile(t, sm, c, cs, nz, dzc, rc, dzvb, rvb);
-    diffuse(v, kk, Divisors<L>(dzc, rc, dzvb, rvb), nz, e.dt);
+    load_profile(t, pf, sm + psc + t.prof + c * t.nzp, nz, dzc, rc, dzvb,
+                 rvb);
+    diffuse(v, kk, Divisors<L>(dzc, rc, dzvb, rvb), nz, dt);
     wall();
   }
 
   // ---- microphysics ----
   if (e.w_mic) {
+    const float frac_ac = epi_scal[1];
     float rain_k[L];
 #pragma unroll
     for (int m = 0; m < L; ++m) {
@@ -516,7 +622,7 @@ __device__ __forceinline__ void column_physics(const Epi& e, const Tile& t,
       qv[m] = qv[m] - dqc;
       qc[m] = qc[m] + dqc;
       pt[m] = pt[m] + kLvOverCp * dqc / p.pvtf[m];
-      const float to_rain = relu(qc[m] - e.qc_thr) * e.frac;
+      const float to_rain = relu(qc[m] - e.qc_thr) * frac_ac;
       qc[m] = relu(qc[m] - to_rain);
       qv[m] = relu(qv[m]);
       rain_k[m] = to_rain * (cn * sm[t.dsig + k]);
@@ -533,11 +639,11 @@ __device__ __forceinline__ void column_physics(const Epi& e, const Tile& t,
   for (int m = 0; m < L; ++m) {
     const int k = m * 32 + lane;
     if (k < nz) {
-      ptc[k] = pt[m];
-      ou[k] = u[m];
-      ov[k] = v[m];
-      oqv[k] = qv[m];
-      oqc[k] = qc[m];
+      ptc[k * t.P] = pt[m];
+      ou[k * t.P] = u[m];
+      ov[k * t.P] = v[m];
+      oqv[k * t.P] = qv[m];
+      oqc[k * t.P] = qc[m];
     }
   }
   if (lane == 0) {
@@ -547,135 +653,367 @@ __device__ __forceinline__ void column_physics(const Epi& e, const Tile& t,
   }
 }
 
-// A 3-D field's (level, row) lines of the tile from shared memory (columns
-// stride nzp apart, row r's first at r * w) back to device memory, a warp
-// per line, lanes along longitude: rows j0 + r < j0 + nrow, columns i0 + c
-// < i0 + ncol; (k, r) advance by carries, as in load_lines.
-template <int kWarps>
-__device__ __forceinline__ void store_lines(const float* sm, int nzp, int w,
-                                            float* dst, const Epi& e, int j0,
-                                            int i0, int nrow, int ncol) {
-  const int warp = threadIdx.x / 32, lane = lane_id();
-  int r = warp % nrow, k = warp / nrow;
-  const int dr = kWarps % nrow, dk = kWarps / nrow;
-  while (k < e.nz) {
-    float* row = dst + ((size_t)k * e.ny + j0 + r) * e.nx + i0;
-    for (int c = lane; c < ncol; c += 32) row[c] = sm[(r * w + c) * nzp + k];
-    r += dr;
-    k += dk;
-    if (r >= nrow) { r -= nrow; ++k; }
+// ---------------------------------------------------------------------------
+// Copies and stores, a warp, lanes along the floats of a line in turn (a
+// line shorter than the warp shares a pass with the next), so consecutive
+// lanes touch consecutive longitudes.
+// ---------------------------------------------------------------------------
+
+// A line's items: nv copies of vec floats, then ns single floats, then (with
+// west) longitude i0 - 1; item `it`'s first column x (x = -1 the west one)
+// and its floats.
+__device__ __forceinline__ void line_item(int it, int nv, int ns, int vec,
+                                          int& x, int& n) {
+  n = it < nv ? vec : 1;
+  x = it < nv ? it * vec : it < nv + ns ? nv * vec + it - nv : -1;
+}
+
+// A 3-D field's (level) lines of the strip's ncol columns from src (level
+// 0's row at longitude i0, levels plane apart; the west column at offset
+// iw from it) into the staged lines from dst (march.cuh's layout): lpp
+// lines at a time, a lane an item, the levels in turn.
+__device__ __forceinline__ void copy_field(const float* src, int dst, int P,
+                                           size_t plane, int nz, int ncol,
+                                           int vec, bool west, int iw) {
+  const int nv = ncol / vec, ns = ncol - nv * vec;
+  const int items = nv + ns + (west ? 1 : 0);
+  const int lpp = max(1, 32 / items), sub = lane_id() / items;
+  if (sub >= lpp) return;
+  for (int it = lane_id() - sub * items; it < items; it += 32) {
+    int x, n;
+    line_item(it, nv, ns, vec, x, n);
+    const float* from = src + (x < 0 ? iw : x) + sub * plane;
+    unsigned to = shared_addr(epi_smem + dst + x + sub * P);
+    const size_t step = lpp * plane;
+    for (int k = sub; k < nz; k += lpp, from += step, to += 4 * lpp * P)
+      cp_async(to, from, 4 * n);
   }
 }
 
-template <int L>
-__global__ void __launch_bounds__(threads_for<L>(), L == 1 ? 2 : 1)
-epilogue_kernel(Epi args) {
-  constexpr int kWarps = threads_for<L>() / 32;
-  extern __shared__ float sm[];
-  // dt and frac, read once a block from the device operand while the tile
-  // stages; the staging's barrier publishes them
-  __shared__ float scal_block[2];
-  if (threadIdx.x < 2) scal_block[threadIdx.x] = __ldg(args.scalars
-                                                       + threadIdx.x);
-  Epi e = args;
-  const int nz = e.nz, ny = e.ny, nx = e.nx, kb = nz - 1;
-  const Tile t(nz, e.tx, e.tj);
-  const int i0 = blockIdx.x * e.tx, j0 = blockIdx.y * e.tj;
-  const int ncol = min(e.tx, nx - i0), nrow = min(e.tj, ny - j0);
-  const int warp = threadIdx.x / 32;
-  const int es = t.ex * t.ey, own_plane = e.tx * e.tj * t.nzp;
-
-  // 1. load: pott with the west column and south row, the bottom level of
-  // u and v with one column and row around, colp, tsurf and hsurf likewise,
-  // the tile's u, v, qv, qc and other 2-D fields, sigma_vb and dsigma
-  auto row3 = [&](const float* f, int k, int j) {
-    return f + ((size_t)k * ny + clamp_row(j, ny)) * nx;
-  };
-  load_lines<kWarps>(sm, 1, nz, t.ey, t.ex, i0 - 1, nx, t.nzp,
-                     [&](int, int k, int r, const float*& row, int& off) {
-                       row = row3(e.pott, k, j0 - 1 + r);
-                       off = t.pott + r * t.ex * t.nzp + k;
-                     });
-  load_lines<kWarps>(sm, 2, 1, t.by, t.bx, i0 - 1, nx, 1,
-                     [&](int q, int, int r, const float*& row, int& off) {
-                       row = row3(q ? e.v : e.u, kb, j0 - 1 + r);
-                       off = (q ? t.vb : t.ub) + r * t.bx;
-                     });
-  load_lines<kWarps>(sm, kNExt2, 1, t.ey, t.ex, i0 - 1, nx, 1,
-                     [&](int q, int, int r, const float*& row, int& off) {
-                       const float* f = q == kColp ? e.colp
-                                      : q == kTsurf ? e.tsurf : e.hsurf;
-                       row = row3(f, 0, j0 - 1 + r);
-                       off = t.ext2 + q * es + r * t.ex;
-                     });
-  for (int q = threadIdx.x; q <= nz; q += threads_for<L>()) {
-    sm[t.sig + q] = e.sigma_vb[q];
-    if (q < nz) sm[t.dsig + q] = e.dsigma[q];
-  }
-  load_lines<kWarps>(sm, kNOwn, nz, e.tj, e.tx, i0, nx, t.nzp,
-                     [&](int q, int k, int r, const float*& row, int& off) {
-                       const float* f = q == kOwnU ? e.u : q == kOwnV ? e.v
-                                      : q == kOwnQv ? e.qv : e.qc;
-                       row = row3(f, k, j0 + r);
-                       off = t.own + q * own_plane + r * e.tx * t.nzp + k;
-                     });
-  load_lines<kWarps>(sm, kNOwn2, 1, e.tj, e.tx, i0, nx, 1,
-                     [&](int q, int, int r, const float*& row, int& off) {
-                       const float* f = q == kLand ? e.land
-                                      : q == kEvapEff ? e.evap_eff
-                                      : q == kSwflx ? e.swflx
-                                      : q == kLwflx ? e.lwflx
-                                      : q == kRain ? e.rain : e.soil;
-                       row = row3(f, 0, j0 + r);
-                       off = t.own2 + q * e.tx * e.tj + r * e.tx;
-                     });
-  wait_copies();
-  __syncthreads();
-  e.dt = scal_block[0];
-  e.frac = scal_block[1];
-
-  // 2. the surface core, then the profile, of the tile, its west column and
-  // south row (the columns the physics reads: see active)
-  auto active = [&](int er, int ec) {
-    return !(er > nrow || ec > ncol || (er == 0 && (ec == 0 || j0 == 0)));
-  };
-  for (int c = threadIdx.x; c < es; c += threads_for<L>()) {
-    const int er = c / t.ex, ec = c % t.ex;
-    if (active(er, ec)) surface_core(e, t, sm, j0 - 1 + er, er, ec);
-  }
-  __syncthreads();
-  if (e.w_trb) {
-    for (int c = warp; c < es; c += kWarps) {
-      const int er = c / t.ex, ec = c % t.ex;
-      if (active(er, ec)) column_profile<L>(e, t, sm, c);
+// A 3-D field's lines of the strip's ncol columns back to device memory:
+// src the staged line of level 0, dst level 0's row at longitude i0; lpp
+// lines at a time, as copy_field.
+__device__ __forceinline__ void store_field(const float* src, int P,
+                                            float* dst, size_t plane, int nz,
+                                            int ncol, int vec) {
+  const int nv = ncol / vec, ns = ncol - nv * vec, items = nv + ns;
+  const int lpp = max(1, 32 / items), sub = lane_id() / items;
+  if (sub >= lpp) return;
+  for (int it = lane_id() - sub * items; it < items; it += 32) {
+    int x, n;
+    line_item(it, nv, ns, vec, x, n);
+    const float* from = src + x + sub * P;
+    float* to = dst + x + sub * plane;
+    const size_t step = lpp * plane;
+    for (int k = sub; k < nz; k += lpp, from += lpp * P, to += step) {
+      if (n == 4)
+        *reinterpret_cast<float4*>(to) =
+            *reinterpret_cast<const float4*>(from);
+      else if (n == 2)
+        *reinterpret_cast<float2*>(to) =
+            *reinterpret_cast<const float2*>(from);
+      else
+        *to = *from;
     }
-    __syncthreads();
   }
+}
 
-  // 3. the physics, one warp per column of the tile
-  for (int o = warp; o < e.tx * e.tj; o += kWarps) {
-    const int jr = o / e.tx, x = o % e.tx;
-    if (jr < nrow && x < ncol) column_physics<L>(e, t, sm, j0, i0, jr, x);
+// ---------------------------------------------------------------------------
+// A block's run: segments of rows of one strip, each warmed up, then walked
+// row by row through the tasks of the header.
+// ---------------------------------------------------------------------------
+struct Counters {
+  // by staged slot: an mbarrier that the copies of the slot's row arrive
+  // on as they land (each lane of each of its copy tasks once)
+  unsigned long long landed[kMaxDepth];
+  int ticket;                   // tasks taken
+  int surf[kProfRows];          // surface tasks finished, by profile slot
+  int prof[kProfRows];          // profile tasks finished, by profile slot
+  int phys[kProfRows];          // physics tasks finished, by profile slot
+  int stores[kMaxDepth];        // store tasks finished, by staged slot
+};
+
+// The tasks of segment jA .. jB-1 of the strip at i0; kept in shared
+// memory, so that no warp holds it in registers.
+struct Plan {
+  int i0, ncol;                 // the strip
+  int jA, jB, last;             // rows; the last row staged
+  int r_lo, r_mid, r_hi;        // rows staged by the warm-up; its surface
+                                // cores read up to r_mid
+  int nrows0;                   // rows of the warm-up's surface cores and
+                                // profiles, from j_first
+  int j_first;                  // the first row profiled
+  int nsurf, nprof, nphys;      // surface, profile and physics tasks a row
+  int depth;
+  int ncopy0, nfirst;           // the warm-up's tasks
+};
+
+__device__ __forceinline__ int row_tasks(const Plan& p, int J) {
+  if (J == p.jB) return kStoreTasks;                // the last row's stores
+  return (J + kAhead < p.jB ? p.nsurf + p.nprof : 0) + p.nphys
+         + (J > p.jA ? kStoreTasks : 0)
+         + (J + p.depth - 2 <= p.last ? kCopyTasks : 0);
+}
+
+// The copies of staged row r have landed: the slot's mbarrier has completed
+// the phase of the slot's ((r - r_lo) / depth)-th row of the segment.
+__device__ __forceinline__ void wait_row(const Ring& t, const Plan& p,
+                                         Counters& c, int r) {
+  if (r < p.r_lo || r > p.last) return;
+  barrier_wait(&c.landed[t.slot(r)], ((r - p.r_lo) / p.depth) & 1);
+}
+
+// The surface tasks, the profile tasks, the physics or the stores of row r
+// are finished.
+__device__ __forceinline__ void wait_surf(const Plan& p, Counters& c,
+                                          int r) {
+  if (r >= p.j_first)
+    wait_for(&c.surf[r % kProfRows],
+             p.nsurf * ((r - p.j_first) / kProfRows + 1));
+}
+
+__device__ __forceinline__ void wait_prof(const Plan& p, Counters& c,
+                                          int r) {
+  if (r >= p.j_first)
+    wait_for(&c.prof[r % kProfRows],
+             p.nprof * ((r - p.j_first) / kProfRows + 1));
+}
+
+__device__ __forceinline__ void wait_phys(const Plan& p, Counters& c,
+                                          int r) {
+  if (r >= p.jA)
+    wait_for(&c.phys[r % kProfRows],
+             p.nphys * ((r - p.jA) / kProfRows + 1));
+}
+
+__device__ __forceinline__ void wait_stores(const Ring& t, const Plan& p,
+                                            Counters& c, int r) {
+  if (r >= p.jA)
+    wait_for(&c.stores[t.slot(r)], kStoreTasks * ((r - p.jA) / p.depth + 1));
+}
+
+// The copies of field f of staged row r (pott, u, v, qv or qc): the row
+// below a segment stages pott alone.
+__device__ __forceinline__ void copy_row(const Epi& e, const Ring& t,
+                                         const Plan& p, int r, int f) {
+  // the copies of a staged row
+  const int nz = e.nz, ny = e.ny, nx = e.nx, i0 = p.i0, ncol = p.ncol;
+  const int sr = t.field_row(r);
+  const bool below = r == p.jA - 1;
+  const size_t plane = (size_t)ny * nx;
+  {
+    // pott of the row below the segment; every field of the segment's rows
+    if (below && f != kPott) return;
+    const float* src = (f == kPott ? e.pott : f == kU ? e.u : f == kV ? e.v
+                        : f == kQv ? e.qv : e.qc) + (size_t)r * nx + i0;
+    copy_field(src, t.line(sr, f), t.P, plane, nz, ncol, e.vec, f == kPott,
+               wrap(i0 - 1, nx) - i0);
+    return;
+  }
+}
+
+// Copy task f of staged row r, once the row its slot held is read: the
+// stores of row r - depth, or the profiles of the warm-up's row below the
+// segment. Each lane arrives on the slot's mbarrier when its copies land;
+// the warp does not wait for them.
+__device__ void copy_task(const Epi& e, const Ring& t, const Plan& p,
+                          Counters& c, int r, int f) {
+  const int prev = r - p.depth;
+  if (prev >= p.jA) wait_stores(t, p, c, prev);
+  else if (prev == p.jA - 1 && prev >= 0) wait_prof(p, c, prev);
+  copy_row(e, t, p, r, f);
+  arrive_on_copies(&c.landed[t.slot(r)]);
+}
+
+// The surface cores of columns part, part + nsurf, ... of row r, a lane a
+// column.
+__device__ __forceinline__ void surface_cores(const Epi& e, const Ring& t,
+                                              const Plan& p, int r,
+                                              int part) {
+  // the surface cores of a row
+  const int col = part + p.nsurf * lane_id();
+  if (col <= p.ncol)
+    surface_core(e, t, t.field_row(r), t.prof_row(r), r, p.i0, col);
+}
+
+// Surface task `part` of row r, once the profile slot's last row
+// (r - kProfRows) is read by the physics of that row and the next, and then
+// rows r and r+1 are staged. In that order: the physics' rows are done
+// only after the rows that their slots held before r and r+1 have landed,
+// so that the parity an mbarrier wait reads names the phase of r or r+1.
+__device__ void surf_task(const Epi& e, const Ring& t, const Plan& p,
+                          Counters& c, int r, int part) {
+  wait_phys(p, c, r - kProfRows);
+  wait_phys(p, c, r - kProfRows + 1);
+  wait_row(t, p, c, r);
+  surface_cores(e, t, p, r, part);
+  finished(&c.surf[r % kProfRows]);
+}
+
+// Profile task q of row r (columns kProfCols q ..), once its surface cores
+// are finished.
+template <int L>
+__device__ void prof_task(const Epi& e, const Ring& t, const Plan& p,
+                          Counters& c, int r, int q) {
+  wait_surf(p, c, r);
+  const int end = min((q + 1) * kProfCols, p.ncol + 1);
+  for (int col = q * kProfCols; col < end; ++col)
+    column_profile<L>(e, t, t.field_row(r), t.prof_row(r), r, p.i0, col);
+  finished(&c.prof[r % kProfRows]);
+}
+
+// Physics task q of row J (columns phys_cols q ..), once the profiles of
+// rows J and J-1 are finished (with them the surface cores and the staged
+// rows they read).
+template <int L>
+__device__ void phys_task(const Epi& e, const Ring& t, const Plan& p,
+                          Counters& c, int J, int q) {
+  wait_row(t, p, c, J);
+  wait_prof(p, c, J);
+  if (J > 0) wait_prof(p, c, J - 1);
+  const int end = min((q + 1) * e.phys_cols, p.ncol);
+  for (int x = q * e.phys_cols; x < end; ++x)
+    column_physics<L>(e, t, t.field_row(J), t.prof_row(J),
+                      J > 0 ? t.prof_row(J - 1) : 0, J, p.i0, x);
+  finished(&c.phys[J % kProfRows]);
+}
+
+// The stores of field f (pott, u, v, qv, qc) of row J.
+__device__ __forceinline__ void store_row(const Epi& e, const Ring& t,
+                                          const Plan& p, int J, int f) {
+  // the stores of a row
+  float* dst = f == kPott ? e.pott_out : f == kU ? e.u_out : f == kV ? e.v_out
+             : f == kQv ? e.qv_out : e.qc_out;
+  store_field(epi_smem + t.line(t.field_row(J), f), t.P,
+              dst + (size_t)J * e.nx + p.i0, (size_t)e.ny * e.nx, e.nz,
+              p.ncol, e.vec);
+}
+
+// Store task f of row J, once its physics is finished.
+__device__ void store_task(const Epi& e, const Ring& t, const Plan& p,
+                           Counters& c, int J, int f) {
+  wait_phys(p, c, J);
+  store_row(e, t, p, J, f);
+  finished(&c.stores[t.slot(J)]);
+}
+
+// Rows jA .. jB-1 of strip s. The order of the tasks: the warm-up (the
+// copies of rows jA-1 .. jA+1, the surface cores and then the profiles of
+// rows jA-1 and jA, the rest of the warm-up's copies, up to row
+// jA + depth - 2); then each row's (row_tasks; the header's order); then the
+// last row's stores.
+template <int L>
+__device__ void segment(const Epi& e, const Ring& t, int s, int jA, int jB,
+                        Plan& p, Counters& c) {
+  if (threadIdx.x == 0) {
+    const int strips = (e.nx + e.tx - 1) / e.tx;
+    p.i0 = strip_start(e.nx, strips, s);
+    p.ncol = strip_start(e.nx, strips, s + 1) - p.i0;
+    p.jA = jA;
+    p.jB = jB;
+    p.depth = e.depth;
+    p.last = jB - 1;
+    p.r_lo = max(jA - 1, 0);
+    p.r_mid = min(jA + kAhead, p.last);
+    p.r_hi = min(jA + e.depth - 3, p.last);
+    p.j_first = jA > 0 ? jA - 1 : jA;
+    p.nsurf = (p.ncol + 32) / 32;
+    p.nprof = (p.ncol + kProfCols) / kProfCols;
+    p.nphys = (p.ncol + e.phys_cols - 1) / e.phys_cols;
+    p.ncopy0 = (p.r_mid - p.r_lo + 1) * kCopyTasks;
+    p.nrows0 = min(jA + kAhead - 1, jB - 1) - p.j_first + 1;
+    p.nfirst = p.ncopy0 + p.nrows0 * (p.nsurf + p.nprof)
+               + (p.r_hi - p.r_mid) * kCopyTasks;
+    c.ticket = 0;
+    for (int q = 0; q < kMaxDepth; ++q) {
+      barrier_init(&c.landed[q], kCopyTasks * 32);
+      c.stores[q] = 0;
+    }
+    for (int q = 0; q < kProfRows; ++q) c.surf[q] = c.prof[q] = c.phys[q] = 0;
   }
   __syncthreads();
 
-  // 4. store the tile's five fields
-  store_lines<kWarps>(sm + t.pott + (t.ex + 1) * t.nzp, t.nzp, t.ex,
-                      e.pott_out, e, j0, i0, nrow, ncol);
-#pragma unroll
-  for (int q = 0; q < kNOwn; ++q)
-    store_lines<kWarps>(sm + t.own + q * own_plane, t.nzp, e.tx,
-                        q == kOwnU ? e.u_out : q == kOwnV ? e.v_out
-                        : q == kOwnQv ? e.qv_out : e.qc_out,
-                        e, j0, i0, nrow, ncol);
+  // a warp's place in the order: row J's tasks start at ticket `start`
+  int J = jA, start = p.nfirst;
+  for (;;) {
+    int q = 0;
+    if (lane_id() == 0) q = atomicAdd(&c.ticket, 1);
+    q = __shfl_sync(kFull, q, 0);
+    // the task: its kind, its row and its index among the row's of its kind
+    int kind, r, idx;
+    if (q < p.nfirst) {                       // the warm-up
+      if (q < p.ncopy0) {
+        kind = kCopy, r = p.r_lo + q / kCopyTasks, idx = q % kCopyTasks;
+      } else if ((q -= p.ncopy0) < p.nrows0 * p.nsurf) {
+        kind = kSurf, r = p.j_first + q / p.nsurf, idx = q % p.nsurf;
+      } else if ((q -= p.nrows0 * p.nsurf) < p.nrows0 * p.nprof) {
+        kind = kProf, r = p.j_first + q / p.nprof, idx = q % p.nprof;
+      } else {
+        q -= p.nrows0 * p.nprof;
+        kind = kCopy, r = p.r_mid + 1 + q / kCopyTasks, idx = q % kCopyTasks;
+      }
+    } else {
+      while (J <= jB && q >= start + row_tasks(p, J)) {
+        start += row_tasks(p, J);
+        ++J;
+      }
+      if (J > jB) break;
+      q -= start;
+      const int nsurf = J + kAhead < jB ? p.nsurf : 0;
+      const int nprof = J + kAhead < jB ? p.nprof : 0;
+      const int nstore = J > jA ? kStoreTasks : 0;
+      const int half = p.nphys / 2;
+      if (J == jB)
+        kind = kStore, r = jB - 1, idx = q;
+      else if (q < nsurf)
+        kind = kSurf, r = J + kAhead, idx = q;
+      else if ((q -= nsurf) < half)
+        kind = kPhys, r = J, idx = q;
+      else if ((q -= half) < nprof)
+        kind = kProf, r = J + kAhead, idx = q;
+      else if ((q -= nprof) < p.nphys - half)
+        kind = kPhys, r = J, idx = half + q;
+      else if ((q -= p.nphys - half) < nstore)
+        kind = kStore, r = J - 1, idx = q;
+      else
+        kind = kCopy, r = J + p.depth - 2, idx = q - nstore;
+    }
+    switch (kind) {
+      case kCopy: copy_task(e, t, p, c, r, idx); break;
+      case kSurf: surf_task(e, t, p, c, r, idx); break;
+      case kProf: prof_task<L>(e, t, p, c, r, idx); break;
+      case kPhys: phys_task<L>(e, t, p, c, r, idx); break;
+      default: store_task(e, t, p, c, r, idx);
+    }
+  }
+  __syncthreads();
 }
 
 template <int L>
-int launch(const Epi& e, dim3 grid, int smem, cudaStream_t s) {
+__global__ void __launch_bounds__(threads_for<L>(), 1)
+epilogue_kernel(Epi args) {
+  __shared__ Plan plan;
+  __shared__ Counters counters;
+  const Epi& e = args;
+  const Ring t(e.nz, e.tx, e.depth);
+  // dt and frac, read once a block; the first barrier publishes them
+  if (threadIdx.x < 2) epi_scal[threadIdx.x] = __ldg(e.scalars + threadIdx.x);
+  for (int q = threadIdx.x; q <= e.nz; q += threads_for<L>()) {
+    epi_smem[t.sig + q] = e.sigma_vb[q];
+    if (q < e.nz) epi_smem[t.dsig + q] = e.dsigma[q];
+  }
+  __syncthreads();
+  for_each_segment(e.ny, e.nx, e.tx, e.blocks, [&](int s, int jA, int jB) {
+    segment<L>(e, t, s, jA, jB, plan, counters);
+  });
+}
+
+template <int L>
+int launch(const Epi& e, int smem, cudaStream_t s) {
   static int opted = 48 * 1024;                   // the default limit
   const int err = allow_smem(epilogue_kernel<L>, smem, opted);
   if (err) return err;
-  epilogue_kernel<L><<<grid, threads_for<L>(), smem, s>>>(e);
+  epilogue_kernel<L><<<e.blocks, threads_for<L>(), smem, s>>>(e);
   return (int)cudaGetLastError();
 }
 
@@ -684,8 +1022,10 @@ int launch(const Epi& e, dim3 grid, int smem, cudaStream_t s) {
 // Plain C interface, loaded with ctypes (kernels/fused_substep.py), called
 // after cm_fused_substep_f32 on the same stream. vmask may be null (the
 // index rule); scalars points to the float[2] (dt, frac) on the card. tx,
-// tj and smem_bytes are the tile plan (launch_plan); a plan whose shared
-// memory falls short of the tile's layout, 2 > nz > 128, a tx over 32 or a
+// depth, blocks and smem_bytes are the plan (launch_plan: the strip width,
+// the ring depth, the persistent grid and the shared memory). A plan whose
+// shared memory falls short of the ring's layout, 2 > nz > 128, a tx other
+// than 4, 8, 16 or 32, a depth outside 5..6, no block, an empty grid or a
 // null scalars is refused. Returns cudaGetLastError() after the launch; 0
 // is success.
 extern "C" int cm_physics_epilogue_f32(
@@ -697,29 +1037,32 @@ extern "C" int cm_physics_epilogue_f32(
     const float* vmask, const float* sigma_vb, const float* dsigma,
     float* u_out, float* v_out, float* pott_out, float* qv_out,
     float* qc_out, float* tsurf_out, float* rain_out, float* soil_out,
-    int nz, int ny, int nx, int tx, int tj, int smem_bytes,
-    const float* scalars, float ptop,
+    int nz, int ny, int nx, int tx, int depth, int blocks, int phys_cols,
+    int smem_bytes, const float* scalars, float ptop,
     int w_srf, int w_trb, int w_mic, int w_soil, int w_conv,
     float drag, float soil_cap, float ocean_cap, float qc_thr,
     float k_scalar, float k_mom, float sm_cap, float conv_k, float conv_rh,
     void* stream) {
-  if (nz < 2 || nz > 128 || tx < 1 || tx > 32 || tj < 1
-      || scalars == nullptr
-      || smem_bytes < (int)sizeof(float) * Tile(nz, tx, tj).total)
+  if (nz < 2 || nz > 128 || !(tx == 4 || tx == 8 || tx == 16 || tx == 32)
+      || depth < kMinDepth || depth > kMaxDepth || blocks < 1 || ny < 1
+      || nx < 1 || phys_cols < 1 || phys_cols > 32 || scalars == nullptr
+      || smem_bytes < (int)sizeof(float) * Ring(nz, tx, depth).total)
     return (int)cudaErrorInvalidValue;
+  const float* fields[] = {u, v, pott, qv, qc, u_out, v_out, pott_out,
+                           qv_out, qc_out};
   Epi e{u, v, pott, qv, qc, colp, tsurf, rain, soil, swflx, lwflx,
         land, evap_eff, hsurf, vmask, sigma_vb, dsigma,
         u_out, v_out, pott_out, qv_out, qc_out, tsurf_out, rain_out, soil_out,
-        nz, ny, nx, tx, tj, scalars, 0.f, ptop, 0.f,
+        nz, ny, nx, tx, depth, blocks, phys_cols, copy_width(nx, fields, 10),
+        scalars, ptop,
         w_srf, w_trb, w_mic, w_soil, w_conv, drag, soil_cap, ocean_cap,
         qc_thr, k_scalar, k_mom, sm_cap, conv_k, conv_rh};
-  const dim3 grid((nx + tx - 1) / tx, (ny + tj - 1) / tj);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((nz + 31) / 32) {
-    case 1: return launch<1>(e, grid, smem_bytes, s);
-    case 2: return launch<2>(e, grid, smem_bytes, s);
-    case 3: return launch<3>(e, grid, smem_bytes, s);
-    case 4: return launch<4>(e, grid, smem_bytes, s);
+    case 1: return launch<1>(e, smem_bytes, s);
+    case 2: return launch<2>(e, smem_bytes, s);
+    case 3: return launch<3>(e, smem_bytes, s);
+    case 4: return launch<4>(e, smem_bytes, s);
   }
   return (int)cudaErrorInvalidValue;
 }

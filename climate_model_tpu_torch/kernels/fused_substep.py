@@ -15,10 +15,11 @@ and on the seam strips of the halo-overlap schedule (the header of
 stays in its ghost columns). The kernel sources are
 ``csrc/fused_substep.cu`` (the substep, one launch) and
 ``csrc/physics_epilogue.cu`` (the epilogue, a second launch), with the
-warp-per-column helpers of ``csrc/column.cuh``; their headers say how the
-substep's persistent grid marches along latitude through its ring of
-staged rows, how the epilogue's tiles work, and what bounds each on the
-card. ``launch_plan`` sizes both and their shared memory.
+warp-per-column helpers of ``csrc/column.cuh`` and the strips, runs and
+counters of ``csrc/march.cuh``; their headers say how both kernels' persistent
+grids march along latitude through their rings of staged rows and what
+bounds each on the card. ``launch_plan`` sizes both and their shared
+memory.
 
 * ``predictor`` / ``corrector`` are the wrappers. On a CUDA tensor they
   launch the kernels (fp32, 2 to ``MAX_NZ`` levels) or raise; on a CPU
@@ -101,7 +102,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "cm_fused_substep_f32": [_P] * 24 + [_I] * 7 + [_P] + [_F] * 2 + [_I] * 3
                             + [_P],
-    "cm_physics_epilogue_f32": [_P] * 25 + [_I] * 6 + [_P] + [_F] + [_I] * 5
+    "cm_physics_epilogue_f32": [_P] * 25 + [_I] * 8 + [_P] + [_F] + [_I] * 5
                                + [_F] * 9 + [_P],
     "cm_rk4_stage_f32": [_P] * 30 + [_I] * 7 + [_P] + [_F] * 2 + [_I] * 3
                         + [_P],
@@ -112,13 +113,16 @@ _ARGTYPES = {
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232_448         # shared memory a block may use (H100: 227 KB)
-SMEM_TWO_BLOCKS = 115_712    # ... with two blocks on an SM (228 KB, 1 KB each)
 SMS = 132                    # streaming multiprocessors of the H100
-BLOCKS_PER_SM = 1            # the substep's: 512 threads, up to 128 registers
+BLOCKS_PER_SM = 1            # both kernels': one persistent block an SM
 MAX_NZ = 128                 # 4 levels a lane of a warp (csrc/column.cuh)
-TILE_WIDTHS = (32, 16, 8)    # longitudes an epilogue tile, widest first
-STRIP_WIDTHS = (32, 16, 8, 4)  # longitudes a substep strip, widest first
+STRIP_WIDTHS = (32, 16, 8, 4)  # longitudes a strip, widest first
 RING_DEPTHS = (6, 5)         # staged rows of the substep's ring, deepest first
+EPILOGUE_DEPTHS = (6, 5)     # ... of the epilogue's (its kMinDepth is 5)
+EPILOGUE_PROFILE_ROWS = 4    # rows of the epilogue's profile ring (kProfRows)
+EPILOGUE_STATIC_SMEM = 1024  # the epilogue's static shared memory, at most
+LONG_RUN_ROWS = 4            # rows a run from which an epilogue physics task
+LONG_RUN_PHYS_COLS = 2       # ... takes this many columns (else one)
 
 
 def _pitch(n: int) -> int:
@@ -143,25 +147,18 @@ def substep_smem_floats(nz: int, tx: int, depth: int,
             + 2 * (nz + 1) * ex + 2 * nz + 1)
 
 
-def epilogue_smem_floats(nz: int, tx: int, tj: int) -> int:
-    """Shared memory of an epilogue tile, in floats (``Tile`` of
-    ``csrc/physics_epilogue.cu``): pott, the 4 profile arrays, the 8
-    surface scalars, 3 2-D fields and the surface Exner factor of the tile
-    with one column west and one row south; the tile's u, v, qv, qc and 6
-    2-D fields; the bottom u and v with one column and row around; sigma_vb
-    and dsigma."""
-    nzp = nz | 1
-    e = (tx + 1) * (tj + 1)
-    return (e * nzp + 4 * tx * tj * nzp + 4 * e * nzp + 8 * e
-            + 2 * (tx + 2) * (tj + 2) + 4 * e + 6 * tx * tj + 2 * nz + 1)
-
-
-@dataclasses.dataclass(frozen=True)
-class TilePlan:
-    tx: int                  # longitudes a tile
-    tj: int                  # latitude rows a tile
-    grid: tuple              # blocks along (lon, lat)
-    smem_bytes: int          # dynamic shared memory a block
+def epilogue_smem_floats(nz: int, tx: int, depth: int) -> int:
+    """Shared memory of the epilogue's rings for strips of tx longitudes and
+    ``depth`` staged rows, in floats (``Ring`` of
+    ``csrc/physics_epilogue.cu``): a staged row's pott, u, v, qv and qc, a
+    (field, level) line of tx + 4 longitudes each at a pitch of 4 mod 8;
+    ``EPILOGUE_PROFILE_ROWS`` rows of the 4 profile arrays and the layer
+    Exner factors (each column's levels at an odd pitch), the 8 surface
+    scalars and the surface Exner factor of the strip's columns and the
+    west one; sigma_vb and dsigma."""
+    nzp, ex = nz | 1, tx + 1
+    return (depth * 5 * nz * _pitch(tx + 4)
+            + EPILOGUE_PROFILE_ROWS * (5 * ex * nzp + 9 * ex) + 2 * nz + 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,9 +177,23 @@ class SubstepPlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class EpiloguePlan:
+    """The epilogue's persistent grid, by the substep's rules
+    (``SubstepPlan``): strips of at most ``tx`` longitudes, balanced runs,
+    a ring of ``depth`` staged rows."""
+    tx: int                  # longitudes a strip at most
+    depth: int               # staged rows in the ring
+    blocks: int              # blocks of the grid (one an SM at most)
+    phys_cols: int           # columns a physics task
+    smem_bytes: int          # dynamic shared memory a block
+    staged_rows_per_row: float     # 3-D floats copied / needed
+    profiled_cols_per_col: float   # surface cores and profiles / columns
+
+
+@dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     substep: SubstepPlan
-    epilogue: TilePlan
+    epilogue: EpiloguePlan
 
 
 def strip_starts(nx: int, tx: int) -> list:
@@ -256,18 +267,27 @@ def _substep_counts(ny: int, nx: int, tx: int, blocks: int) -> tuple:
     return staged / (ny * nx), scanned / (ny * nx)
 
 
-def _substep_plan(nz: int, ny: int, nx: int,
-                  stage: bool = False) -> SubstepPlan:
-    """The widest strip whose ring fits a block, then the deepest ring of
-    ``RING_DEPTHS`` that fits it; as many blocks as SMs (or units)."""
-    fits = [(tx, d) for tx in STRIP_WIDTHS for d in RING_DEPTHS
-            if 4 * substep_smem_floats(nz, tx, d, stage) <= SMEM_LIMIT]
+def _march(floats, nz: int, ny: int, nx: int,
+           depths: tuple = RING_DEPTHS, reserve: int = 0) -> tuple:
+    """(tx, depth, blocks) of a marching kernel whose ring takes
+    ``floats(nz, tx, depth)`` floats: the widest strip whose ring fits a
+    block beside ``reserve`` bytes, then the deepest ring of ``depths`` that
+    fits it; as many blocks as SMs (or units)."""
+    fits = [(tx, d) for tx in STRIP_WIDTHS for d in depths
+            if 4 * floats(nz, tx, d) + reserve <= SMEM_LIMIT]
     if not fits:
-        raise ValueError(f"no substep strip of {nz} levels fits "
-                         f"{SMEM_LIMIT} bytes of shared memory")
+        raise ValueError(f"no strip of {nz} levels fits {SMEM_LIMIT} bytes "
+                         "of shared memory")
     tx = fits[0][0]
     depth = next(d for w, d in fits if w == tx)
-    blocks = min(SMS * BLOCKS_PER_SM, -(-nx // tx) * ny)
+    return tx, depth, min(SMS * BLOCKS_PER_SM, -(-nx // tx) * ny)
+
+
+def _substep_plan(nz: int, ny: int, nx: int,
+                  stage: bool = False) -> SubstepPlan:
+    """The substep's strips, ring and grid (``_march``)."""
+    tx, depth, blocks = _march(
+        lambda n, w, d: substep_smem_floats(n, w, d, stage), nz, ny, nx)
     staged, scanned = _substep_counts(ny, nx, tx, blocks)
     return SubstepPlan(tx=tx, depth=depth, blocks=blocks,
                        smem_bytes=4 * substep_smem_floats(nz, tx, depth,
@@ -276,27 +296,43 @@ def _substep_plan(nz: int, ny: int, nx: int,
                        scanned_cols_per_col=scanned)
 
 
-def _tile(floats, nz: int, ny: int, nx: int, rows: tuple,
-          budget: int) -> TilePlan:
-    """The widest tile of one row whose shared memory fits a block; then
-    the most rows of ``rows`` whose shared memory is at most ``budget``
-    bytes while the grid keeps two blocks for each SM."""
-    tx = next((w for w in TILE_WIDTHS if 4 * floats(nz, w, 1) <= SMEM_LIMIT),
-              None)
-    if tx is None:
-        raise ValueError(f"no tile of {nz} levels fits {SMEM_LIMIT} bytes "
-                         "of shared memory")
-    gx = -(-nx // tx)
-    tj = next((n for n in rows if 4 * floats(nz, tx, n) <= budget
-               and gx * -(-ny // n) >= 2 * SMS), 1)
-    return TilePlan(tx=tx, tj=tj, grid=(gx, -(-ny // tj)),
-                    smem_bytes=4 * floats(nz, tx, tj))
+def _epilogue_counts(ny: int, nx: int, tx: int, blocks: int) -> tuple:
+    """(staged_rows_per_row, profiled_cols_per_col) of the epilogue's plan:
+    a segment of rows j0 .. j1-1 copies its rows' pott with the west column
+    and their u, v, qv and qc, and pott of the row below (where there is
+    one); it computes the surface cores and profiles of rows j0-1 (where
+    there is one) .. j1-1 of its columns and one west."""
+    starts = strip_starts(nx, tx)
+    staged = profiled = 0
+    for segs in substep_segments(ny, nx, tx, blocks):
+        for s, j0, j1 in segs:
+            ncol = starts[s + 1] - starts[s]
+            staged += (j1 - j0) * (5 * ncol + 1) + (j0 > 0) * (ncol + 1)
+            profiled += (j1 - j0 + (j0 > 0)) * (ncol + 1)
+    return staged / (5 * ny * nx), profiled / (ny * nx)
+
+
+def _epilogue_plan(nz: int, ny: int, nx: int) -> EpiloguePlan:
+    """The epilogue's strips, ring and grid (``_march``); a physics task
+    takes ``LONG_RUN_PHYS_COLS`` columns where the runs average
+    ``LONG_RUN_ROWS`` rows or more, else one (a short run has too few rows
+    to keep every warp busy with fewer tasks)."""
+    tx, depth, blocks = _march(epilogue_smem_floats, nz, ny, nx,
+                               EPILOGUE_DEPTHS, EPILOGUE_STATIC_SMEM)
+    staged, profiled = _epilogue_counts(ny, nx, tx, blocks)
+    units = (len(strip_starts(nx, tx)) - 1) * ny
+    long_runs = units >= LONG_RUN_ROWS * blocks
+    return EpiloguePlan(tx=tx, depth=depth, blocks=blocks,
+                        phys_cols=LONG_RUN_PHYS_COLS if long_runs else 1,
+                        smem_bytes=4 * epilogue_smem_floats(nz, tx, depth),
+                        staged_rows_per_row=staged,
+                        profiled_cols_per_col=profiled)
 
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(nz: int, ny: int, nx: int) -> LaunchPlan:
-    """The substep's strips, ring and grid, and the epilogue's tiles and
-    grid, with their dynamic shared memory, on a (nz, ny, nx) block,
+    """The strips, ring and grid of the substep and of the epilogue, with
+    their dynamic shared memory, on a (nz, ny, nx) block,
     computed once per shape. Raises ValueError on a shape the kernels do
     not take: fewer than 2 or more than ``MAX_NZ`` levels, or an empty
     grid."""
@@ -304,11 +340,8 @@ def launch_plan(nz: int, ny: int, nx: int) -> LaunchPlan:
         raise ValueError(f"the kernels take 2 to {MAX_NZ} levels, not {nz}")
     if ny < 1 or nx < 1:
         raise ValueError(f"empty grid {ny}x{nx}")
-    return LaunchPlan(
-        substep=_substep_plan(nz, ny, nx),
-        # the epilogue runs two blocks an SM at up to 32 levels
-        epilogue=_tile(epilogue_smem_floats, nz, ny, nx, (2,),
-                       SMEM_TWO_BLOCKS))
+    return LaunchPlan(substep=_substep_plan(nz, ny, nx),
+                      epilogue=_epilogue_plan(nz, ny, nx))
 
 
 @functools.lru_cache(maxsize=None)
@@ -739,7 +772,7 @@ def _launch(ev: State, base: State | None, grid: Grid, forcing: Forcing,
 
 
 def _epilogue_call(lib, dyn: dict, colp, b: State, grid: Grid,
-                   forcing: Forcing, phys: tuple, vmask, ep: TilePlan,
+                   forcing: Forcing, phys: tuple, vmask, ep: EpiloguePlan,
                    scal: int, out: dict, stream):
     """One launch of ``epilogue_kernel`` on the post-dynamics fields ``dyn``
     and ``colp``, with the time-n surface fields of ``b``, into ``out``."""
@@ -753,7 +786,7 @@ def _epilogue_call(lib, dyn: dict, colp, b: State, grid: Grid,
         grid.dsigma.data_ptr(),
         *(out[f].data_ptr() for f in _FIELDS3),
         *(out[f].data_ptr() for f in _FIELDS2_OUT),
-        nz, ny, nx, ep.tx, ep.tj, ep.smem_bytes,
+        nz, ny, nx, ep.tx, ep.depth, ep.blocks, ep.phys_cols, ep.smem_bytes,
         scal, float(grid.ptop),
         *(int(bool(p[f])) for f in _EPI_SWITCHES),
         *(float(p[f]) for f in _EPI_PARAMS), stream)

@@ -1,12 +1,11 @@
 """The launch plan of the substep and physics-epilogue kernels
 (``kernels/fused_substep.py::launch_plan``): for every level count the
-kernels take and every block the port launches, the substep's persistent
+kernels take and every block the port launches, each kernel's persistent
 grid updates every column of the block in exactly one run, its runs are
-balanced, its ring fits one block of the card and its halo counts stay
-small; the epilogue's tiles cover every column once; and shapes the kernels
-do not take are refused. The kernels compute their layouts and runs from
-the same formulas; the card checks them (``chip_smoke.py``, and the ``gpu``
-test below).
+balanced, its rings fit one block of the card and its halo counts stay
+small; and shapes the kernels do not take are refused. The kernels compute
+their layouts and runs from the same formulas; the card checks them
+(``chip_smoke.py``, and the ``gpu`` test below).
 """
 
 import numpy as np
@@ -35,7 +34,8 @@ MESH_BLOCKS = ((183, 366), (9, 366), (363, 726), (9, 726), (360, 186),
 
 
 def substep_hits(ny, nx, sp):
-    """How many runs of the substep plan update each (row, column)."""
+    """How many runs of a marching plan (the substep's or the epilogue's)
+    update each (row, column)."""
     starts = fs.strip_starts(nx, sp.tx)
     hits = np.zeros((ny, nx), dtype=np.int64)
     for segs in fs.substep_segments(ny, nx, sp.tx, sp.blocks):
@@ -45,14 +45,15 @@ def substep_hits(ny, nx, sp):
 
 
 def run_weights(ny, nx, sp):
-    """The weight of each block's run: its units' pass lanes."""
+    """The weight of each block's run of a marching plan: its units' pass
+    lanes."""
     starts = fs.strip_starts(nx, sp.tx)
     return [sum((j1 - j0) * fs.pass_lanes(starts[s + 1] - starts[s])
                 for s, j0, j1 in segs)
             for segs in fs.substep_segments(ny, nx, sp.tx, sp.blocks)]
 
 
-@pytest.mark.parametrize("ny,nx", BLOCKS, ids=lambda v: str(v))
+@pytest.mark.parametrize("ny,nx", BLOCKS + MESH_BLOCKS, ids=lambda v: str(v))
 @pytest.mark.parametrize("nz", LEVELS)
 def test_plan_covers_every_column_once(nz, ny, nx):
     plan = fs.launch_plan(nz, ny, nx)
@@ -68,62 +69,71 @@ def test_plan_covers_every_column_once(nz, ny, nx):
     assert sp.depth in fs.RING_DEPTHS
     assert sp.smem_bytes == 4 * fs.substep_smem_floats(nz, sp.tx, sp.depth)
     assert sp.smem_bytes <= fs.SMEM_LIMIT == 232_448, sp
-    # the epilogue: tiles of tx x tj, each column in one tile
-    tile = plan.epilogue
-    assert tile.tx in fs.TILE_WIDTHS and 32 % tile.tx == 0
-    assert tile.tj >= 1
-    gx, gy = tile.grid
-    hits = np.zeros((ny, nx), dtype=np.int64)
-    for by in range(gy):
-        for bx in range(gx):
-            j0, i0 = by * tile.tj, bx * tile.tx
-            # a block's own columns: its tile, cut at the block's edge
-            hits[j0:min(j0 + tile.tj, ny), i0:min(i0 + tile.tx, nx)] += 1
-    assert (hits == 1).all(), tile
-    # no block of the grid is empty
-    assert (gx - 1) * tile.tx < nx and (gy - 1) * tile.tj < ny
-    assert tile.smem_bytes == 4 * fs.epilogue_smem_floats(nz, tile.tx,
-                                                          tile.tj)
-    assert tile.smem_bytes <= fs.SMEM_LIMIT, tile
+    # the epilogue: the substep's rules with its own strip width and ring,
+    # each column of the block in one run, no block without one
+    ep = plan.epilogue
+    assert ep.tx in fs.STRIP_WIDTHS and ep.depth in fs.EPILOGUE_DEPTHS
+    assert (substep_hits(ny, nx, ep) == 1).all(), ep
+    assert all(fs.substep_segments(ny, nx, ep.tx, ep.blocks))
+    assert 1 <= ep.blocks <= fs.SMS * fs.BLOCKS_PER_SM
+    assert ep.smem_bytes == 4 * fs.epilogue_smem_floats(nz, ep.tx, ep.depth)
+    room = fs.SMEM_LIMIT - fs.EPILOGUE_STATIC_SMEM
+    assert ep.smem_bytes <= room < fs.SMEM_LIMIT == 232_448, ep
+    # the widest strip whose rings fit, then the deepest ring
+    wider = [w for w in fs.STRIP_WIDTHS if w > ep.tx]
+    assert all(4 * fs.epilogue_smem_floats(nz, w, d) > room
+               for w in wider for d in fs.EPILOGUE_DEPTHS)
+    assert ep.depth == max(d for d in fs.EPILOGUE_DEPTHS if 4 *
+                           fs.epilogue_smem_floats(nz, ep.tx, d) <= room)
+    # a physics task takes more columns where the runs are long
+    units = (len(fs.strip_starts(nx, ep.tx)) - 1) * ny
+    long_runs = units >= fs.LONG_RUN_ROWS * ep.blocks
+    assert ep.phys_cols == (fs.LONG_RUN_PHYS_COLS if long_runs else 1)
 
 
 @pytest.mark.parametrize("ny,nx", BLOCKS + MESH_BLOCKS, ids=lambda v: str(v))
 def test_plan_runs_are_balanced(ny, nx):
-    """The persistent grid is no larger than the card's SMs times blocks an
-    SM (nor than its units); the runs' weights differ from the mean by less
+    """Each persistent grid (the substep's at 32 levels, the epilogue's at
+    every level count) is no larger than the card's SMs times blocks an SM
+    (nor than its units); the runs' weights differ from the mean by less
     than one strip-row, a unit weighing its strip's pass lanes; a grid with
     as many blocks as units gives each block one."""
-    sp = fs.launch_plan(32, ny, nx).substep
-    starts = fs.strip_starts(nx, sp.tx)
-    units = (len(starts) - 1) * ny
-    assert 1 <= sp.blocks <= min(fs.SMS * fs.BLOCKS_PER_SM, units)
-    w = run_weights(ny, nx, sp)
-    unit = max(fs.pass_lanes(e - s) for s, e in zip(starts, starts[1:]))
-    mean = sum(w) / sp.blocks
-    assert max(abs(x - mean) for x in w) < unit, (min(w), max(w), mean)
-    if sp.blocks == units:
-        assert all(sum(j1 - j0 for _, j0, j1 in segs) == 1 for segs in
-                   fs.substep_segments(ny, nx, sp.tx, sp.blocks))
+    plans = [fs.launch_plan(32, ny, nx).substep] + [
+        fs.launch_plan(nz, ny, nx).epilogue for nz in LEVELS]
+    for sp in plans:
+        starts = fs.strip_starts(nx, sp.tx)
+        units = (len(starts) - 1) * ny
+        assert 1 <= sp.blocks <= min(fs.SMS * fs.BLOCKS_PER_SM, units)
+        w = run_weights(ny, nx, sp)
+        unit = max(fs.pass_lanes(e - s) for s, e in zip(starts, starts[1:]))
+        mean = sum(w) / sp.blocks
+        assert max(abs(x - mean) for x in w) < unit, (min(w), max(w), mean)
+        if sp.blocks == units:
+            assert all(sum(j1 - j0 for _, j0, j1 in segs) == 1 for segs in
+                       fs.substep_segments(ny, nx, sp.tx, sp.blocks))
 
 
 def test_plan_at_the_main_shapes():
     """Config #3, #4's shard block and #5 and its 4x8 middle block take
     strips of 32 longitudes at most and a ring of 6 rows, one block for
-    each SM; each halo count lies under the tiled plan it replaced
-    (5/3 x 34/32 lines, 4/3 x 33/32 scans at #3); the epilogue's tiles leave
-    room for two blocks on an SM; a 9-row seam strip takes a unit, one row
-    of one strip, a block, and its epilogue one row a tile."""
+    each SM, in both kernels, the epilogue's long runs two columns a
+    physics task; each halo count lies under the tiled plan it replaced
+    (substep: 5/3 x 34/32 lines, 4/3 x 33/32 scans at #3; epilogue: 3/2 x
+    33/32 profiles, its tiles of 2 rows); a 9-row seam strip takes a unit,
+    one row of one strip, a block in both, and a column a physics task."""
     for ny, nx in ((180, 360), (183, 186), (720, 1440), (186, 186)):
         plan = fs.launch_plan(32, ny, nx)
-        sp = plan.substep
+        sp, ep = plan.substep, plan.epilogue
         assert (sp.tx, sp.depth, sp.blocks) == (32, 6, fs.SMS)
         assert sp.staged_rows_per_row < 5 / 3 * 34 / 32
         assert sp.scanned_cols_per_col < 4 / 3 * 33 / 32
-        assert plan.epilogue.tx == 32 and plan.epilogue.tj > 1
-        assert plan.epilogue.smem_bytes <= fs.SMEM_TWO_BLOCKS
+        assert (ep.tx, ep.depth, ep.blocks) == (32, 6, fs.SMS)
+        assert ep.phys_cols == fs.LONG_RUN_PHYS_COLS == 2
+        assert ep.profiled_cols_per_col < 1.2 < 3 / 2 * 33 / 32
+        assert ep.staged_rows_per_row < 1.05
     strip = fs.launch_plan(32, 9, 186)
-    assert strip.substep.blocks == 6 * 9
-    assert strip.epilogue.tj == 1
+    assert strip.substep.blocks == strip.epilogue.blocks == 6 * 9
+    assert strip.epilogue.phys_cols == 1
 
 
 def test_plan_at_baseline5_is_baseline3s():
@@ -131,7 +141,9 @@ def test_plan_at_baseline5_is_baseline3s():
     memory and as many blocks; its 1440 longitudes fill 45 strips of 32
     exactly (#3's 360 take 12 of 28 and 32), so each of #5's runs is about
     245 rows against #3's 16, and its halo counts are lower. Both counts
-    stay under 1.25 and 1.15 at both shapes. Its largest index, of a 3-D
+    stay under 1.25 and 1.15 at both shapes. The epilogue's plan follows
+    the same rules: #3's again at #5, its surface cores and profiles
+    computed 1.06 times a column at most. Its largest index, of a 3-D
     field of 32x720x1440 = 33,177,600 cells, fits the kernels' 32-bit
     ``int`` point index (``csrc/fused_substep.cu``, ``point_update``)."""
     p3, p5 = fs.launch_plan(32, 180, 360), fs.launch_plan(32, 720, 1440)
@@ -148,9 +160,12 @@ def test_plan_at_baseline5_is_baseline3s():
         assert sp.scanned_cols_per_col <= 1.15
     assert s5.staged_rows_per_row < s3.staged_rows_per_row
     assert s5.scanned_cols_per_col < s3.scanned_cols_per_col
-    assert (p5.epilogue.tx, p5.epilogue.tj, p5.epilogue.smem_bytes) == (
-        p3.epilogue.tx, p3.epilogue.tj, p3.epilogue.smem_bytes)
-    assert p5.epilogue.grid == (45, 360)
+    e3, e5 = p3.epilogue, p5.epilogue
+    assert (e5.tx, e5.depth, e5.smem_bytes, e5.blocks) == (
+        e3.tx, e3.depth, e3.smem_bytes, e3.blocks)
+    assert fs.substep_segments(720, 1440, e5.tx, e5.blocks) == \
+        fs.substep_segments(720, 1440, s5.tx, s5.blocks)
+    assert e5.profiled_cols_per_col <= 1.06 < e3.profiled_cols_per_col
     assert 32 * 720 * 1440 == 33_177_600 < 2**31 - 1
 
 
@@ -163,6 +178,29 @@ def test_plan_halo_counts(ny, nx, staged, scanned):
     sp = fs.launch_plan(32, ny, nx).substep
     assert sp.staged_rows_per_row == pytest.approx(staged, abs=1e-4)
     assert sp.scanned_cols_per_col == pytest.approx(scanned, abs=1e-4)
+
+
+@pytest.mark.parametrize("ny,nx,profiled", [
+    (180, 360, 1.0907), (720, 1440, 1.0354), (9, 186, 1.9498)])
+def test_plan_epilogue_profile_counts(ny, nx, profiled):
+    """The epilogue's ``profiled_cols_per_col`` at #3, #5 and #4's 9-row
+    seam strip, against a count of the tasks its segments take: a segment
+    of rows j0 .. j1-1 computes the surface cores and height profiles of
+    rows j0-1 (where there is one) .. j1-1 of its columns and one west.
+    The tiled kernel it replaced computed 1.55 at #3 and #5 (99 columns of
+    a tile of 32 x 2) and 2.06 on the strip (66 of 32 x 1)."""
+    ep = fs.launch_plan(32, ny, nx).epilogue
+    assert ep.profiled_cols_per_col == pytest.approx(profiled, abs=1e-4)
+    starts = fs.strip_starts(nx, ep.tx)
+    # longitude i at index i + 1: a segment's columns i0 - 1 .. i1 - 1
+    cores = np.zeros((ny, nx + 1), dtype=np.int64)
+    for segs in fs.substep_segments(ny, nx, ep.tx, ep.blocks):
+        for s, j0, j1 in segs:
+            cores[max(j0 - 1, 0):j1, starts[s]:starts[s + 1] + 1] += 1
+    assert (cores[:, 1:] >= 1).all()
+    assert cores.sum() / (ny * nx) == pytest.approx(
+        ep.profiled_cols_per_col, abs=1e-12)
+    assert ep.profiled_cols_per_col < (1.55 if ny > 9 else 2.06)
 
 
 @pytest.mark.parametrize("nz,ny,nx", [(1, 180, 360), (fs.MAX_NZ + 1, 9, 186),

@@ -1,5 +1,6 @@
-"""The substep kernel of this checkout against another checkout's, bit for
-bit, on every block the port launches it on, and timed in turns.
+"""The substep and physics-epilogue kernels of this checkout against
+another checkout's, bit for bit, on every block the port launches them on,
+and timed in turns.
 
 Run from the root of a checkout on a machine with one NVIDIA card, with
 the other checkout's ``climate_model_tpu_torch/`` unpacked into a
@@ -10,11 +11,13 @@ directory that ``.gitignore`` lists (the parent commit's, say):
 
 Builds both kernel libraries (each from its own ``csrc/`` into its own
 build directory) and runs ``chip_smoke.py::check_against`` over
-``AGAINST_CASES``: every substep variant on the same inputs, equal bit for
-bit in every field it writes, and the masked predictor's and corrector's
-device ms a launch in turns (other, this, this, other) beside this plan's
-counts. Prints one line a case and one ``AGAINST`` JSON line; exits
-non-zero if any field differs.
+``AGAINST_CASES``: every substep variant, the corrector with the physics
+epilogue and the epilogue alone on the same inputs, equal bit for bit in
+every field they write, and the device ms a launch of ``AGAINST_TIMED``
+(the masked predictor's and corrector's substep, the epilogue) in turns
+(other, this, this, other) beside this checkout's plan counts. Prints one
+line a case and one ``AGAINST`` JSON line; exits non-zero if any field
+differs.
 """
 import json
 import os
