@@ -234,6 +234,7 @@ imports no JAX, and neither does this script.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -253,7 +254,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from climate_model_tpu_torch import cli, model
+from climate_model_tpu_torch import cli, model, trace
 from climate_model_tpu_torch.bench.micro import device_ms, launch_ms, sync
 from climate_model_tpu_torch.bench.roofline import (
     EPILOGUE_FLOPS_PER_POINT, bound_ms, substep_bound_ms)
@@ -469,8 +470,8 @@ B5_UNSHARDED_ARGV = B5_ARGV + ["--mesh-lat", "1", "--mesh-lon", "1"]
 
 # the counters of the plain physics splits (every other counter of
 # read_counts is a kernel's)
-PLAIN_COUNTERS = ("radiation_refreshes", "surface_split", "turbulence_split",
-                  "microphysics_split")
+PLAIN_COUNTERS = ("radiation_refreshes", "surface_calls", "turbulence_calls",
+                  "microphysics_calls")
 # Phase 10 (io): config #3 with its files, continuous and split at half the
 # horizon (step 127 of 253, between the radiation refreshes at steps 105
 # and 210, so the resumed run needs the saved caches), and #4's blocking
@@ -722,28 +723,17 @@ def bitwise_equal(a, b, fields=("u", "v", "pott", "qv", "qc", "colp")
 
 
 def reset_counts():
-    """Every launch counter of the kernels and call counter of the plain
-    physics set to 0."""
-    fs.reset_launch_counts()
-    radiation.radiation_step.refreshes = 0
-    surface.surface_step.calls = 0
-    turbulence.turbulence_step.calls = 0
-    microphysics.microphysics_step.calls = 0
+    """Every counter of the port (``trace.py``) set to 0."""
+    trace.reset_counts()
 
 
-def read_counts() -> dict:
-    return {"predictor": fs.predictor.launches,
-            "predictor_masked": fs.predictor.masked_launches,
-            "corrector": fs.corrector.launches,
-            "corrector_masked": fs.corrector.masked_launches,
-            "corrector_epilogue": fs.corrector.epilogue_launches,
-            **{f"{fn.__name__}_{part}": getattr(fn, f"{part}_launches")
-               for fn in (fs.predictor, fs.corrector)
-               for part in SHARD_PARTS},
-            "radiation_refreshes": radiation.radiation_step.refreshes,
-            "surface_split": surface.surface_step.calls,
-            "turbulence_split": turbulence.turbulence_step.calls,
-            "microphysics_split": microphysics.microphysics_step.calls}
+def read_counts() -> collections.Counter:
+    """The port's counters, each named as in ``trace.py`` with ``_`` for
+    ``.`` (``predictor_masked``, ``corrector_shard``, ``rk4_stage_k1``,
+    ``radiation_refreshes``, ``surface_calls``: the names of the kernel
+    variants in this script's tables); a name never counted reads 0."""
+    return collections.Counter({k.replace(".", "_"): v
+                                for k, v in trace.counts().items()})
 
 
 def moist_state(state, grid, cfg, seed=SEED):
@@ -1085,7 +1075,7 @@ def main_path(dev, card: str):
     if res.aborted:
         raise AssertionError("the run aborted on a non-finite state")
     every = run_cfg.physics.rad_every_steps
-    want = dict.fromkeys(counts, 0)
+    want = collections.Counter()
     want.update(predictor_masked=res.steps, corrector_epilogue=res.steps,
                 radiation_refreshes=sum(1 for k in range(res.steps)
                                         if k % every == 0))
@@ -1147,9 +1137,9 @@ def per_step_path(run_cfg, n, dev, card: str):
     a, ms_a1 = wall(per_step)
     counts = read_counts()
     every = run_cfg.physics.rad_every_steps
-    want = dict.fromkeys(counts, 0)
-    want.update(predictor=n, corrector=n, surface_split=n,
-                turbulence_split=n, microphysics_split=n,
+    want = collections.Counter()
+    want.update(predictor=n, corrector=n, surface_calls=n,
+                turbulence_calls=n, microphysics_calls=n,
                 radiation_refreshes=sum(1 for k in range(n)
                                         if k % every == 0))
     if counts != want:
@@ -1738,7 +1728,7 @@ def want_counts(cfg, n: int, keys, start: int = 0) -> dict:
     shards = sh.mesh_lat * sh.mesh_lon
     every = cfg.physics.rad_every_steps
     refreshes = sum(1 for k in range(start, start + n) if k % every == 0)
-    want = dict.fromkeys(keys, 0)
+    want = collections.Counter(dict.fromkeys(keys, 0))
     if shards == 1:
         want.update(predictor_masked=n, corrector_epilogue=n,
                     radiation_refreshes=refreshes)
@@ -2104,8 +2094,7 @@ def bench_counts(argv, want: dict, bad: list) -> dict:
     reset_counts()
     rec = cli_json(argv)
     counts = read_counts()
-    full = dict.fromkeys(counts, 0)
-    full.update(want)
+    full = collections.Counter(want)
     if counts != full:
         bad.append(f"{argv}: counts {counts}, expected {full}")
     print(f"  counts {({k: v for k, v in counts.items() if v})}",
@@ -2400,7 +2389,8 @@ def gate_config(baseline: int, rad_every):
 
 def gate_faults(cfg) -> dict:
     """The planted faults of the kernel path: replacements of names that
-    ``model.make_packed_step_fn``'s step calls."""
+    the eager packed scan (``model.run_packed`` on ``model.PackedStep``)
+    calls."""
     refresh = radiation.radiation_step
     no_turb = phys_with(cfg, turbulence=False)
     return {GATE_FAULTS[0]: dict(radiation_step=lambda s, g, f, c: (
@@ -2450,7 +2440,7 @@ def gate_path(dev, card: str):
                     "radiation_refreshes"] != refreshes):
                 bad.append(f"{label}, plain path: counts {counts}")
             if name == "kernel":
-                want = dict.fromkeys(counts, 0)
+                want = collections.Counter()
                 want.update(predictor_masked=n, corrector_epilogue=n,
                             radiation_refreshes=refreshes)
                 if counts != want:
@@ -2487,7 +2477,7 @@ def baseline5_path(dev, card: str) -> dict:
     with peak_memory(dev) as peak:
         cfg, res, counts, steady = run_argv(B5_DAY_ARGV, dev)
     every = cfg.physics.rad_every_steps
-    want = dict.fromkeys(counts, 0)
+    want = collections.Counter()
     want.update(predictor_masked=res.steps, corrector_epilogue=res.steps,
                 radiation_refreshes=sum(1 for k in range(res.steps)
                                         if k % every == 0))
@@ -2773,7 +2763,7 @@ def counted(label: str, cfg, steps: int, fn, card: str, bad: list):
           f"{launched or 0}, plain physics "
           f"{({k: counts[k] for k in PLAIN_COUNTERS if counts[k]}) or 0} "
           f"[{card}]", flush=True)
-    want = dict.fromkeys(counts, 0)
+    want = collections.Counter()
     if cfg.backend == "pallas":
         want.update(predictor_masked=steps, corrector_epilogue=steps,
                     radiation_refreshes=refreshes)
@@ -2980,7 +2970,7 @@ def continents_run(dev, card: str, bad: list) -> dict:
     all its records. Returns its counts."""
     cfg, res, counts, steady = run_argv(CONT_ARGV, dev)
     every = cfg.physics.rad_every_steps
-    want = dict.fromkeys(counts, 0)
+    want = collections.Counter()
     want.update(predictor_masked=res.steps, corrector_epilogue=res.steps,
                 radiation_refreshes=sum(1 for k in range(res.steps)
                                         if k % every == 0))
@@ -3387,10 +3377,7 @@ RK4_PHASE_MSG = ("each RK4 stage kind agrees with its plain version at #3 "
 
 
 def rk4_counts() -> dict:
-    return {**{f"rk4_k{m}": getattr(fs.rk4_stage, f"k{m}_launches")
-               for m in (1, 2, 3, 4)},
-            "epilogue": fs.epilogue.launches,
-            **{k: v for k, v in read_counts().items() if v}}
+    return {k: v for k, v in read_counts().items() if v}
 
 
 def acc_view(acc: dict):
@@ -3568,7 +3555,7 @@ def rk4_compiled(dev, card: str, bad: list) -> dict:
               + f" [{card}]", flush=True)
     ref, ref_counts = runs["eager"][0][0], runs["eager"][0][1]
     n = ref.steps
-    want = {**{f"rk4_k{m}": n for m in (1, 2, 3, 4)}, "epilogue": n,
+    want = {**{f"rk4_stage_k{m}": n for m in (1, 2, 3, 4)}, "epilogue": n,
             "radiation_refreshes": ref_counts.get("radiation_refreshes", 0)}
     if ref_counts != want or len(set(ref.dts)) < 2:
         bad.append(f"#3 rk4: counts {ref_counts}, dts {ref.dts}: expected "
@@ -3791,10 +3778,9 @@ def read_set(path: str, cfg, want, dev) -> tuple:
 
 def sum_counts(ranks: list, name: str) -> dict:
     """The counts of the case ``name`` summed over the ranks' records."""
-    out = {}
+    out = collections.Counter()
     for r in ranks:
-        for k, v in r[name]["counts"].items():
-            out[k] = out.get(k, 0) + v
+        out.update(r[name]["counts"])
     return out
 
 
@@ -4532,7 +4518,7 @@ def main(argv=None) -> int:
     for m in (1, 2, 3, 4):
         kernels.append(kernel_entry(
             f"rk4_stage{m}", "fused_substep.cu", rk4_run,
-            rk4["counts"][f"rk4_k{m}"], rk4["errs"][f"rk4_stage{m}"],
+            rk4["counts"][f"rk4_stage_k{m}"], rk4["errs"][f"rk4_stage{m}"],
             RK4_TOL, rk4["timing"][f"rk4_stage{m}"], replaces=RK4_REPLACES))
     kernels.append(kernel_entry(
         "rk4_epilogue", "physics_epilogue.cu", rk4_run,

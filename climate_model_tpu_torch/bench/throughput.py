@@ -35,6 +35,7 @@ import torch
 from ..core.config import baseline_config
 from ..core.init import initialize
 from ..model import make_chunk_runner, phys_epilogue_tuple, takes_graphs
+from ..trace import counts
 from .micro import sync
 from .roofline import (card_name, device_fp32_peak, speed_of_light_gps,
                        step_kernel_flops_per_point)
@@ -43,8 +44,6 @@ from .roofline import (card_name, device_fp32_peak, speed_of_light_gps,
 def run_benchmark(baseline: int = 3, steps: int = 50, dtype: str = "float32",
                   repeats: int = 3, backend: str = None,
                   device="cuda") -> dict:
-    from ..physics.radiation import radiation_step
-
     cfg = baseline_config(baseline).replace(dtype=dtype)
     if backend:
         cfg = cfg.replace(backend=backend)
@@ -57,7 +56,7 @@ def run_benchmark(baseline: int = 3, steps: int = 50, dtype: str = "float32",
     sync(dev)
     best, best_refreshes, best_host = float("inf"), None, None
     for _ in range(repeats):
-        r0 = radiation_step.refreshes
+        r0 = counts()["radiation.refreshes"]
         sync(dev)
         t0 = time.perf_counter()
         state = runner(state, grid, forcing)
@@ -65,7 +64,8 @@ def run_benchmark(baseline: int = 3, steps: int = 50, dtype: str = "float32",
         sync(dev)
         wall = time.perf_counter() - t0
         if wall < best:
-            best, best_refreshes = wall, radiation_step.refreshes - r0
+            best = wall
+            best_refreshes = counts()["radiation.refreshes"] - r0
             best_host = host
     if not bool(torch.isfinite(state.u).all()):
         raise FloatingPointError("non-finite u after the timed chunks")

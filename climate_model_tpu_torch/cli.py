@@ -180,7 +180,7 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
     from .io.checkpoint import load_checkpoint_ex, save_checkpoint
     from .io.metrics import MetricsLogger, diagnostics
     from .io.netcdf import NCWriter
-    from .model import make_chunk_runner, takes_packed_scan
+    from .model import make_chunk_runner, takes_graphs, takes_packed_scan
     from .trace import span
 
     sh = cfg.sharding
@@ -239,8 +239,7 @@ def run(cfg: ModelConfig, device="cuda", out_dir: str = None,
     dev = state.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     path = describe_path(cfg, mesh)
-    if takes_packed_scan(cfg) and graphs is not False \
-            and (graphs or dev.type == "cuda"):
+    if takes_graphs(cfg, dev, graphs):
         from .graphs import describe
         path += f"; {describe(mesh)}"
     if p0:

@@ -40,7 +40,7 @@ from ..dycore import boundaries as bc
 from ..dycore.stepper import dynamics_step_fn, run_scan
 from . import sharding
 from .comm import Aborted, make_edges
-from .mesh import Mesh, make_mesh, validate_divisibility
+from .mesh import Mesh, validate_divisibility
 from .sharding import Halo, ShardedState
 
 NO_HALO = Halo(0, 0, 0)
@@ -104,23 +104,6 @@ def _check(cfg: ModelConfig, ss: ShardedState):
                          f"blocks (Halo(0, 0, 0)), got {ss.halo}")
 
 
-def _global_io(cfg: ModelConfig, run_blocks):
-    """``run(state, grid, forcing)`` over ``run_blocks(ss, dt)``: ``state``
-    a ``ShardedState`` (ghost-free blocks, which carry their geometry and
-    forcing; ``grid`` supplies only ``dt``), returned as one; or a global
-    ``State``, split over the mesh of ``make_mesh(cfg)`` on its device and
-    gathered back."""
-    def run(state, grid: Grid, forcing: Forcing = None):
-        if isinstance(state, ShardedState):
-            return run_blocks(state, grid.dt)
-        mesh = make_mesh(cfg, device=state.device)
-        validate_divisibility(cfg, mesh)
-        ss = sharding.shard(mesh, state, grid, forcing, NO_HALO)
-        return sharding.gather(run_blocks(ss, grid.dt))
-
-    return run
-
-
 def make_sharded_step_fn(cfg: ModelConfig, n_steps: int = 1):
     """``run(state, grid, forcing)`` advancing ``n_steps`` of the plain
     per-step model on the mesh of ``cfg``, each shard inside
@@ -153,7 +136,7 @@ def make_sharded_step_fn(cfg: ModelConfig, n_steps: int = 1):
         make_sharded_step_fn.shifts += edges.shifts[jobs[0][0]]
         return ss.replace(states=tuple(outs))
 
-    return _global_io(cfg, run_blocks)
+    return sharding.global_io(cfg, run_blocks, NO_HALO)
 
 
 make_sharded_step_fn.shifts = 0
@@ -178,7 +161,7 @@ def make_auto_runner(cfg: ModelConfig, n_steps: int = 1):
         out = run_scan(step, state, grid.replace(dt=dt), forcing, n_steps)
         return sharding.from_dtensors(ss, out)
 
-    return _global_io(cfg, run_blocks)
+    return sharding.global_io(cfg, run_blocks, NO_HALO)
 
 
 def takes_blocks(cfg: ModelConfig, mesh: Mesh) -> bool:

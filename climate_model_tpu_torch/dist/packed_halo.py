@@ -43,10 +43,10 @@ from ..core.config import ModelConfig, check_rad_resolved
 from ..core.grid import Grid
 from ..core.state import Forcing, State
 from ..dycore.stepper import check_pallas
-from ..kernels.fused_substep import corrector, predictor
-from ..physics.radiation import radiation_step
+from ..kernels.fused_substep import corrector, geo_table, predictor
+from ..model import phys_epilogue_tuple, run_packed
 from . import sharding
-from .mesh import make_mesh, validate_divisibility
+from .mesh import validate_divisibility
 from .sharding import STATE_FIELDS, ShardedState
 
 DYN_FIELDS = ("u", "v", "pott", "qv", "qc", "colp")     # substep outputs
@@ -114,21 +114,22 @@ class SeamStrip:
 
 class ShardStep:
     """One step of the sharded packed scan on the blocks of a
-    ``ShardedState`` ``ss``, without the time bookkeeping: ``step(states,
-    radiation)`` takes the blocks' time-n ``State``s (their ghosts are
+    ``ShardedState`` ``ss``, the mesh's implementation of the packed-scan
+    step (``model.py``; ``model.PackedStep`` is the one-device one), without
+    the time bookkeeping: ``step(states, radiation, *, scalars=None,
+    outs=None)`` takes the blocks' time-n ``State``s (their ghosts are
     refreshed in place) and returns the corrector's outputs. ``radiation(i,
-    state)`` is shard ``i``'s radiation on its interval.
+    state)`` is shard ``i``'s radiation on its interval. It needs no
+    buffers beyond the blocks'.
 
-    The eager runner makes one a chunk. A captured step (``graphs.py``)
-    makes one at capture with ``static=True``, which computes each block's
-    and strip's geometry table once, and calls it with ``scalars`` (the
-    ``(dt, frac)`` operand) and ``outs`` (per shard, the tensors that the
-    corrector writes)."""
+    The eager loop (``model.run_packed``) makes one a chunk. A captured
+    step (``graphs.py``) makes one at capture with ``static=True``, which
+    computes each block's and strip's geometry table once, and calls it
+    with ``scalars`` (the ``(dt, frac)`` operand) and ``outs`` (per shard,
+    the tensors that the corrector writes)."""
 
     def __init__(self, cfg: ModelConfig, ss: ShardedState, dt: float,
                  static: bool = False):
-        from ..kernels.fused_substep import geo_table
-        from ..model import phys_epilogue_tuple
         num, phys = cfg.numerics, cfg.physics
         self.cfg, self.dt, self.exchange = cfg, dt, ss.exchange
         self.phys = phys_epilogue_tuple(cfg)
@@ -159,7 +160,7 @@ class ShardStep:
                 for st in strips_i:
                     st.geo = geo_table(st.grid)
 
-    def __call__(self, states: list, radiation, scalars=None,
+    def __call__(self, states: list, radiation, *, scalars=None,
                  outs: list | None = None) -> list:
         dt, ex, phys_tuple = self.dt, self.exchange, self.phys
         per_shard = list(zip(self.grids, self.forcings, self.shard_kw))
@@ -236,7 +237,8 @@ def check_blocks(cfg: ModelConfig, ss: ShardedState):
 
 
 def make_packed_sharded_runner(cfg: ModelConfig, n_steps: int = 1):
-    """``run(state, grid, forcing)`` advancing ``n_steps`` on the mesh of
+    """``run(state, grid, forcing)`` advancing ``n_steps`` of the eager
+    loop (``model.run_packed``) on a ``ShardStep`` over the mesh of
     ``cfg``. ``state`` is a ``ShardedState`` (``dist.sharding.shard``; its
     blocks carry the geometry and forcing cut for them, and ``grid``
     supplies only ``dt``), and ``run`` returns one; or a global ``State``,
@@ -247,32 +249,10 @@ def make_packed_sharded_runner(cfg: ModelConfig, n_steps: int = 1):
 
     def run_blocks(ss: ShardedState, dt: float) -> ShardedState:
         check_blocks(cfg, ss)
-        step = ShardStep(cfg, ss, dt)
-
-        def radiation(i, s):
-            return radiation_step(s, step.grids[i], ss.forcings[i], cfg)
-
         # the blocks are refreshed in place: start from copies
         states = [s.replace(**{f: getattr(s, f).clone()
                                for f in STATE_FIELDS}) for s in ss.states]
-        for _ in range(n_steps):
-            out = step(states, radiation)
-            states = [o.replace(t=o.t + dt, step=o.step + 1) for o in out]
-        return ss.replace(states=tuple(states))
+        return ss.replace(states=tuple(run_packed(
+            cfg, ShardStep(cfg, ss, dt), states, dt, n_steps)))
 
-    return global_io(cfg, run_blocks)
-
-
-def global_io(cfg: ModelConfig, run_blocks):
-    """``run(state, grid, forcing)`` over ``run_blocks(ss, dt)``: ``state``
-    a ``ShardedState``, or a global ``State`` split over the mesh of
-    ``make_mesh(cfg)`` on its device and gathered back."""
-
-    def run(state, grid: Grid, forcing: Forcing = None):
-        if isinstance(state, ShardedState):
-            return run_blocks(state, grid.dt)
-        mesh = make_mesh(cfg, device=state.device)
-        ss = sharding.shard(mesh, state, grid, forcing)
-        return sharding.gather(run_blocks(ss, grid.dt))
-
-    return run
+    return sharding.global_io(cfg, run_blocks, sharding.Halo())

@@ -32,9 +32,10 @@ import dataclasses
 import torch
 import torch.distributed as tdist
 
+from ..core.config import ModelConfig
 from ..core.grid import Grid
 from ..core.state import Forcing, State
-from .mesh import Mesh
+from .mesh import Mesh, make_mesh, validate_divisibility
 
 HALO = 3        # ghost rows on a block's south side
 HALO_N = 3      # ghost rows on its north side
@@ -212,6 +213,24 @@ def gather(ss: ShardedState) -> State:
              for s, lay in zip(ss.states, ss.layouts)])
         fields[f] = assemble(parts, lays_all)
     return first.replace(**fields)
+
+
+def global_io(cfg: ModelConfig, run_blocks, halo: Halo):
+    """``run(state, grid, forcing)`` over ``run_blocks(ss, dt)``: ``state``
+    a ``ShardedState`` (its blocks carry their geometry and forcing;
+    ``grid`` supplies only ``dt``), returned as one; or a global ``State``,
+    split over the mesh of ``make_mesh(cfg)`` on its device into blocks
+    with ghosts ``halo`` and gathered back."""
+
+    def run(state, grid: Grid, forcing: Forcing = None):
+        if isinstance(state, ShardedState):
+            return run_blocks(state, grid.dt)
+        mesh = make_mesh(cfg, device=state.device)
+        validate_divisibility(cfg, mesh)
+        return gather(run_blocks(shard(mesh, state, grid, forcing, halo),
+                                 grid.dt))
+
+    return run
 
 
 # ---------------------------------------------------------------------------

@@ -14,13 +14,16 @@ sharded programs jitted too (``dist/packed_halo.py:295``). Here:
   the result out, so the caller's state stays valid.
 * **Graphs.** One ``torch.cuda.CUDAGraph`` per (buffer parity, radiation
   refresh or not), warmed up on a side stream and captured there, from one
-  private memory pool. A Matsuno step is radiation on its interval, the
-  predictor, the corrector with the epilogue, then ``t += dt`` from the
-  device scalar; an RK4 step (one device) the four stages and the
-  epilogue in its place, with buffers of its own allocated once
-  (``model.packed_work``: two stage states, written in turns, and the
-  accumulator), beside the two sets that hold the t_n state and the
-  result.
+  private memory pool. A graph holds one call of the packed-scan step
+  (``model.py``: ``PackedStep`` on one device, ``dist/packed_halo.py::
+  ShardStep`` on a mesh, both built with ``static=True``), then ``t +=
+  dt`` on every block from the device scalar. A Matsuno step is radiation
+  on its interval, the predictor and the corrector with the epilogue; an
+  RK4 step (one device) the four stages and the epilogue in its place,
+  with buffers of its own that the step holds (``model.packed_work``: two
+  stage states, written in turns, and the accumulator), beside the two
+  sets that hold the t_n state and the result. One class, ``_Captured``,
+  runs either step.
 * **Replay.** By the host step counter, so the radiation cadence stays
   ``step % rad_every_steps``; a chunk is a count of replays. A new ``dt``
   is a write into the scalar buffer (``kernels/fused_substep.py::
@@ -32,16 +35,17 @@ sharded programs jitted too (``dist/packed_halo.py:295``). Here:
 * **Host work at capture.** Validation, ``launch_plan``, the geometry
   tables and the output allocations happen once, at capture; a replay is
   one ``cudaGraphLaunch``.
-* **Counters.** A replay runs no Python: the wrappers' launch counters and
-  ``radiation_step.refreshes`` move on each replay by what its capture
-  counted, so every count that a run checks stays true.
+* **Counters** (``trace.py``). A replay runs no Python: each capture
+  keeps what it counted, the difference of two ``counts()``, and every
+  replay adds it (``add_counts``), so every count that a run checks stays
+  true.
 * **Spans** (``trace.py``): ``cm.capture`` around a runner's warm-up and
   captures, ``cm.step.radiation`` around each replay of a step that
   refreshes the radiation. None is opened inside a captured step.
 
-On a mesh in one process (``dist/packed_halo.py``), one graph holds every
-shard's step: the launches, the ``LocalExchange`` slice copies and the
-seam strips' cuts and splices, in the eager order. Across ranks the
+On a mesh in one process, one graph holds every shard's step: the
+launches, the ``LocalExchange`` slice copies and the seam strips' cuts and
+splices, in the eager order. Across ranks the
 ``DistExchange`` packs into and unpacks from buffers allocated once
 (``use_static_buffers``) and its ``batch_isend_irecv`` posts are captured
 in the step's graph under NCCL, in the eager posting order; the warm-up
@@ -63,36 +67,17 @@ import torch
 from .core.config import ModelConfig, check_rad_resolved
 from .core.grid import Grid
 from .core.state import Forcing, State
-from .dist.packed_halo import (PROG_FIELDS, RAD_FIELDS, ShardStep,
-                               check_blocks, global_io)
-from .dist.sharding import ShardedState
+from .dist.packed_halo import PROG_FIELDS, RAD_FIELDS, ShardStep, check_blocks
+from .dist.sharding import Halo, ShardedState, global_io
 from .dycore.stepper import check_pallas
-from .kernels.fused_substep import (StepScalars, autoconv_tau, corrector,
-                                    epilogue, geo_table, predictor,
-                                    rk4_stage, wall_mask)
-from .physics.radiation import radiation_refresh, radiation_step, refresh_due
-from .trace import span
+from .kernels.fused_substep import StepScalars, autoconv_tau
+from .model import PackedStep, phys_epilogue_tuple
+from .physics.radiation import radiation_refresh, refresh_due
+from .trace import add_counts, counts, reset_counts, span
 
-# the counters a captured step moves: (owner, attribute)
-COUNTERS = tuple((fn, name) for fn in (predictor, corrector)
-                 for name in ("launches", "masked_launches", "shard_launches",
-                              "south_strip_launches",
-                              "north_strip_launches")) \
-    + ((corrector, "epilogue_launches"),) \
-    + tuple((rk4_stage, f"k{m}_launches") for m in (1, 2, 3, 4)) \
-    + ((epilogue, "launches"), (radiation_step, "refreshes"))
 CACHE_SIZE = 4          # runners kept, least recently used first out
 
 captures = 0            # graphs captured by this process
-
-
-def read_counters() -> tuple:
-    return tuple(getattr(o, n) for o, n in COUNTERS)
-
-
-def _write_counters(values):
-    for (o, n), v in zip(COUNTERS, values):
-        setattr(o, n, v)
 
 
 class CudaCapture:
@@ -133,52 +118,6 @@ class CudaCapture:
                    if tuple(s["segment_pool_id"]) == tuple(self.pool))
 
 
-class _Captured:
-    """The graphs of one runner, a (parity, refresh) key each, and what
-    each capture counted."""
-
-    def __init__(self, capture, refresh_kinds: tuple):
-        self.capture = capture
-        self.keys = [(p, r) for p in (0, 1) for r in refresh_kinds]
-        self.graphs, self.deltas = {}, {}
-        self.capture_s = 0.0
-        self.pool_bytes = None
-
-    def _build(self, step):
-        """Warm every variant of ``step(parity, refresh)``, then capture
-        each (the span ``cm.capture``); the counters are left as they
-        were."""
-        global captures
-        with span("capture"):
-            before = read_counters()
-            for key in self.keys:
-                self.capture.warm(lambda k=key: step(*k))
-            t0 = time.perf_counter()
-            for key in self.keys:
-                _write_counters(before)
-                self.graphs[key] = self.capture(lambda k=key: step(*k))
-                self.deltas[key] = tuple(
-                    a - b for a, b in zip(read_counters(), before))
-                captures += 1
-            _write_counters(before)
-            self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = self.capture.pool_bytes()
-
-    def replay(self, key):
-        """Replay the step ``key``; one that refreshes the radiation under
-        the span ``cm.step.radiation``, a plain one under none."""
-        before = read_counters()
-        if key[1]:
-            with span("step.radiation"):
-                self.graphs[key].replay()
-        else:
-            self.graphs[key].replay()
-        # a replay runs no Python; a stand-in that reruns the step counts
-        # nothing either
-        _write_counters(tuple(b + d for b, d in zip(before,
-                                                   self.deltas[key])))
-
-
 def _refresh_kinds(cfg: ModelConfig) -> tuple:
     if not cfg.physics.radiation:
         return (False,)
@@ -199,116 +138,101 @@ def _buffers(state: State) -> tuple:
     return sets, rad, torch.empty_like(state.t)
 
 
-def _load(state: State, fields: dict, rad: dict, t: torch.Tensor):
-    for f, x in list(fields.items()) + list(rad.items()):
-        x.copy_(getattr(state, f))
-    t.copy_(state.t)
+class _Captured:
+    """The captured steps of one runner: ``step_fn = make_step()``, a
+    packed-scan step built with ``static=True`` on the blocks ``states``
+    (one on one device), as one graph a (parity, refresh) key, and what
+    each capture counted. Per block two buffer sets
+    (``sets[parity][block]``), the radiation caches and ``t``; one
+    ``StepScalars`` for every block. The step is built after the buffers,
+    so that its own (RK4's stage states) lie after them on the device."""
 
-
-def _result(fields: dict, rad: dict, t: torch.Tensor, step: int) -> State:
-    return State(**{f: x.clone() for f, x in fields.items()},
-                 **{f: x.clone() for f, x in rad.items()},
-                 t=t.clone(), step=step)
-
-
-def _refreshed(new: State, rad: dict):
-    """The radiation caches of ``new`` written into the static ``rad``."""
-    for f in RAD_FIELDS:
-        rad[f].copy_(getattr(new, f))
-
-
-class PackedGraphs(_Captured):
-    """The captured steps of the packed scan on one device."""
-
-    def __init__(self, cfg: ModelConfig, state: State, grid: Grid,
-                 forcing: Forcing, capture):
-        from .model import (packed_dynamics_fn, packed_work,
-                            phys_epilogue_tuple)
-        super().__init__(capture, _refresh_kinds(cfg))
-        self.cfg, self.grid, self.forcing = cfg, grid, forcing
-        self.dyn = packed_dynamics_fn(cfg)
-        self.sets, self.rad, self.t = _buffers(state)
-        self.scalars = StepScalars(state.device,
-                                   autoconv_tau(phys_epilogue_tuple(cfg)))
-        self.scalars.set(grid.dt)
-        self.launch = dict(scalars=self.scalars, geo=geo_table(grid),
-                           **packed_work(cfg, state))
-        self.vmask = wall_mask(state.v.shape[-2], state.dtype, state.device)
-        _load(state, self.sets[0], self.rad, self.t)
-        self._build(self.step)
-
-    def _state(self, parity: int) -> State:
-        return State(**self.sets[parity], **self.rad, t=self.t, step=0)
-
-    def step(self, parity: int, refresh: bool):
-        """One step from set ``parity`` into the other (what is captured)."""
-        st = self._state(parity)
-        if refresh:
-            _refreshed(radiation_refresh(st, self.grid, self.forcing,
-                                         self.cfg), self.rad)
-        self.dyn(st, self.grid, self.forcing, self.vmask,
-                 out=self.sets[1 - parity], **self.launch)
-        self.scalars.advance(self.t)
-
-    def run(self, state: State, dt: float, n: int) -> State:
-        self.scalars.set(dt)
-        _load(state, self.sets[0], self.rad, self.t)
-        for i in range(n):
-            self.replay((i % 2, _refresh(self.cfg, state.step + i)))
-        return _result(self.sets[n % 2], self.rad, self.t, state.step + n)
-
-
-class ShardedGraphs(_Captured):
-    """The captured steps of the sharded packed scan: every shard of this
-    process in one graph a key, exchanges included."""
-
-    def __init__(self, cfg: ModelConfig, ss: ShardedState, dt: float,
-                 capture):
-        from .model import phys_epilogue_tuple
-        super().__init__(capture, _refresh_kinds(cfg))
-        check_blocks(cfg, ss)
-        self.cfg, self.forcings = cfg, ss.forcings
-        ss.exchange.use_static_buffers()
-        self.shard_step = ShardStep(cfg, ss, dt, static=True)
-        bufs = [_buffers(s) for s in ss.states]
+    def __init__(self, cfg: ModelConfig, make_step, states: list,
+                 dt: float, capture):
+        self.cfg, self.capture = cfg, capture
+        self.keys = [(p, r) for p in (0, 1) for r in _refresh_kinds(cfg)]
+        self.graphs, self.deltas = {}, {}
+        self.capture_s = 0.0
+        self.pool_bytes = None
+        bufs = [_buffers(s) for s in states]
         self.sets = [[b[0][p] for b in bufs] for p in (0, 1)]
         self.rad = [b[1] for b in bufs]
         self.t = [b[2] for b in bufs]
-        self.scalars = StepScalars(ss.states[0].device,
+        self.scalars = StepScalars(states[0].device,
                                    autoconv_tau(phys_epilogue_tuple(cfg)))
         self.scalars.set(dt)
-        self._load(ss.states)
-        self._build(self.step)
+        self.step_fn = make_step()
+        self._load(states)
+        self._build()
 
-    def _load(self, states):
+    def _load(self, states: list):
         for s, fields, rad, t in zip(states, self.sets[0], self.rad, self.t):
-            _load(s, fields, rad, t)
+            for f, x in list(fields.items()) + list(rad.items()):
+                x.copy_(getattr(s, f))
+            t.copy_(s.t)
 
     def step(self, parity: int, refresh: bool):
+        """One step from set ``parity`` into the other (what is captured)."""
         states = [State(**fields, **rad, t=t, step=0) for fields, rad, t
                   in zip(self.sets[parity], self.rad, self.t)]
-        grids = self.shard_step.grids
+        fn = self.step_fn
 
-        def radiation(i, s):
+        def radiation(i: int, s: State) -> State:
             if refresh:
-                _refreshed(radiation_refresh(s, grids[i], self.forcings[i],
-                                             self.cfg), self.rad[i])
+                new = radiation_refresh(s, fn.grids[i], fn.forcings[i],
+                                        self.cfg)
+                for f in RAD_FIELDS:
+                    self.rad[i][f].copy_(getattr(new, f))
             return s
 
-        self.shard_step(states, radiation, scalars=self.scalars,
-                        outs=self.sets[1 - parity])
+        fn(states, radiation, scalars=self.scalars,
+           outs=self.sets[1 - parity])
         for t in self.t:
             self.scalars.advance(t)
 
-    def run(self, ss: ShardedState, dt: float, n: int) -> ShardedState:
+    def _build(self):
+        """Warm every variant of ``step(parity, refresh)``, then capture
+        each (the span ``cm.capture``); the counters are left as they
+        were."""
+        global captures
+        with span("capture"):
+            before = counts()
+            for key in self.keys:
+                self.capture.warm(lambda k=key: self.step(*k))
+            t0 = time.perf_counter()
+            for key in self.keys:
+                at = counts()
+                self.graphs[key] = self.capture(lambda k=key: self.step(*k))
+                self.deltas[key] = counts() - at
+                captures += 1
+            reset_counts(before)
+            self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = self.capture.pool_bytes()
+
+    def replay(self, key):
+        """Replay the step ``key``; one that refreshes the radiation under
+        the span ``cm.step.radiation``, a plain one under none. The
+        counters move by what its capture counted."""
+        if key[1]:
+            with span("step.radiation"):
+                self.graphs[key].replay()
+        else:
+            self.graphs[key].replay()
+        add_counts(self.deltas[key])
+
+    def run(self, states: list, dt: float, n: int) -> list:
+        """``n`` steps from the blocks ``states``: the blocks after them,
+        copies of the buffers the last step wrote."""
         self.scalars.set(dt)
-        self._load(ss.states)
-        step0 = ss.states[0].step
+        self._load(states)
+        step0 = states[0].step
         for i in range(n):
             self.replay((i % 2, _refresh(self.cfg, step0 + i)))
-        return ss.replace(states=tuple(
-            _result(fields, rad, t, step0 + n)
-            for fields, rad, t in zip(self.sets[n % 2], self.rad, self.t)))
+        return [State(**{f: x.clone() for f, x in fields.items()},
+                      **{f: x.clone() for f, x in rad.items()},
+                      t=t.clone(), step=step0 + n)
+                for fields, rad, t in zip(self.sets[n % 2], self.rad,
+                                          self.t)]
 
 
 def describe(mesh=None) -> str:
@@ -366,25 +290,32 @@ def make_graph_runner(cfg: ModelConfig, n_steps: int, capture=None):
     capture = capture or CudaCapture
     sh = cfg.sharding
 
+    def sharded(ss: ShardedState, dt: float) -> _Captured:
+        check_blocks(cfg, ss)
+        ss.exchange.use_static_buffers()
+        return _Captured(cfg, lambda: ShardStep(cfg, ss, dt, static=True),
+                         ss.states, dt, capture(ss.states[0].device))
+
     def run_blocks(ss: ShardedState, dt: float) -> ShardedState:
         s0 = ss.states[0]
         key = ("sharded", cfg, ss.layouts, ss.halo, ss.mesh.n_lat,
                ss.mesh.n_lon, ss.mesh.rank, str(s0.device), s0.dtype,
                tuple(s0.u.shape), capture, id(ss.exchange),
                _ids(*ss.grids, *ss.forcings))
-        runner = _cached(key, lambda: ShardedGraphs(
-            cfg, ss, dt, capture(s0.device)))
-        return runner.run(ss, dt, n_steps)
+        runner = _cached(key, lambda: sharded(ss, dt))
+        return ss.replace(states=tuple(runner.run(ss.states, dt, n_steps)))
 
     if sh.mesh_lat * sh.mesh_lon > 1:
-        return global_io(cfg, run_blocks)
+        return global_io(cfg, run_blocks, Halo())
 
     def run(state: State, grid: Grid, forcing: Forcing) -> State:
         key = ("packed", cfg, str(state.device), state.dtype,
                tuple(state.u.shape), capture, _ids(grid, forcing))
-        runner = _cached(key, lambda: PackedGraphs(
-            cfg, state, grid, forcing, capture(state.device)))
-        return runner.run(state, grid.dt, n_steps)
+        runner = _cached(key, lambda: _Captured(
+            cfg, lambda: PackedStep(cfg, state, grid, forcing, static=True),
+            [state], grid.dt, capture(state.device)))
+        (out,) = runner.run([state], grid.dt, n_steps)
+        return out
 
     return run
 

@@ -24,13 +24,11 @@ memory.
 * ``predictor`` / ``corrector`` are the wrappers. On a CUDA tensor they
   launch the kernels (fp32, 2 to ``MAX_NZ`` levels) or raise; on a CPU
   tensor they call the plain version. Each counts its launches per variant
-  in plain integer
-  attributes. On a whole grid (``part="grid"``): ``predictor.launches`` /
-  ``.masked_launches`` (index rule / mask), ``corrector.launches`` /
-  ``.masked_launches`` (without the epilogue) and
-  ``corrector.epilogue_launches``. On a shard's block and on the south and
-  north seam strips: ``.shard_launches``, ``.south_strip_launches`` and
-  ``.north_strip_launches`` of each wrapper.
+  in the port's counters (``trace.py``): on a whole grid (``part="grid"``)
+  ``predictor`` / ``predictor.masked`` (index rule / mask), ``corrector``
+  / ``corrector.masked`` (without the epilogue) and
+  ``corrector.epilogue``; on a shard's block and on the south and north
+  seam strips ``<wrapper>.shard``, ``.south_strip`` and ``.north_strip``.
 * ``fused_substep_plain`` is the plain version: the stepper's ``substep``,
   then, with ``phys``, the port's own surface, turbulence and microphysics
   splits on the pressure of the new colp (``epilogue_plain``). The CPU
@@ -42,8 +40,8 @@ memory.
   state, the next stage state from the t_n state, and w dt k into an
   accumulator in device memory (``rk4_accumulator``); its plain version,
   ``rk4_stage_plain``, composes ``tendencies`` and ``proceed``. It counts
-  ``rk4_stage.k1_launches`` to ``.k4_launches``. ``epilogue`` launches the
-  physics epilogue alone, after the last stage (``epilogue.launches``).
+  ``rk4_stage.k1`` to ``.k4``. ``epilogue`` launches the physics epilogue
+  alone, after the last stage (counted as ``epilogue``).
   The RK4 step runs on one device only: the stage has no shard-local or
   seam-strip variant.
 
@@ -77,6 +75,7 @@ import torch
 from ..core.config import ModelConfig, NumericsConfig, PhysicsConfig
 from ..core.grid import Grid
 from ..core.state import Forcing, State
+from ..trace import count
 
 GEO_FIELDS = ("area", "area_v", "dx", "dxs", "corf", "corf_v",
               "tan_lat", "tan_lat_v", "kdiff_uv", "kdiff_pott",
@@ -857,14 +856,15 @@ def _check_part(part: str):
         raise ValueError(f"part {part!r}: expected one of {PARTS}")
 
 
-def _count(fn, part: str, masked: bool, epilogue: bool = False):
+def _count(name: str, part: str, masked: bool, epilogue: bool = False):
+    """Count a launch of the wrapper ``name`` on ``part``."""
     if part != "grid":
-        name = f"{part}_launches"
+        name += f".{part}"
     elif epilogue:
-        name = "epilogue_launches"
-    else:
-        name = "masked_launches" if masked else "launches"
-    setattr(fn, name, getattr(fn, name) + 1)
+        name += ".epilogue"
+    elif masked:
+        name += ".masked"
+    count(name)
 
 
 def predictor(ev: State, grid: Grid, forcing: Forcing, dt: float, *,
@@ -888,7 +888,7 @@ def predictor(ev: State, grid: Grid, forcing: Forcing, dt: float, *,
                       None, vmask, scalars, out)
     res = _launch(ev, None, grid, forcing, dt, with_rad, with_diff, None,
                   vmask, scalars, geo, out)
-    _count(predictor, part, vmask is not None)
+    _count("predictor", part, vmask is not None)
     return res
 
 
@@ -909,7 +909,7 @@ def corrector(ev: State, base: State, grid: Grid, forcing: Forcing,
                       phys, vmask, scalars, out)
     res = _launch(ev, base, grid, forcing, dt, with_rad, with_diff, phys,
                   vmask, scalars, geo, out)
-    _count(corrector, part, vmask is not None, epilogue=phys is not None)
+    _count("corrector", part, vmask is not None, epilogue=phys is not None)
     return res
 
 
@@ -925,7 +925,7 @@ def rk4_stage(ev: State, y0: State, acc: dict, grid: Grid,
     ``y0``, or at stage 4 the step's state, returned as ``y0`` with u, v,
     pott, qv, qc and colp replaced (``rk4_stage_plain`` says how).
     ``vmask``, ``scalars``, ``geo`` and ``out`` as for the predictor. Counts
-    ``rk4_stage.k<stage>_launches``."""
+    ``rk4_stage.k<stage>``."""
     if stage not in (1, 2, 3, 4):
         raise ValueError(f"stage {stage!r}: expected 1, 2, 3 or 4")
     _validate(ev, y0, grid, forcing, with_rad, vmask=vmask, geo=geo,
@@ -940,8 +940,7 @@ def rk4_stage(ev: State, y0: State, acc: dict, grid: Grid,
             vmask=vmask), out)
     res = _launch_stage(ev, y0, acc, grid, forcing, dt, stage, with_rad,
                         with_diff, vmask, scalars, geo, out)
-    name = f"k{stage}_launches"
-    setattr(rk4_stage, name, getattr(rk4_stage, name) + 1)
+    count(f"rk4_stage.k{stage}")
     return res
 
 
@@ -952,7 +951,7 @@ def epilogue(state: State, grid: Grid, forcing: Forcing, dt: float, *,
     second launch) on a post-dynamics ``state`` that carries the time-n
     surface fields (``epilogue_plain`` says what it computes). ``out``
     holds u, v, pott, qv, qc, tsurf, rain and soil_moist; colp is
-    ``state``'s. Counts ``epilogue.launches``."""
+    ``state``'s. Counts ``epilogue``."""
     _validate(state, state, grid, forcing, False, phys, vmask)
     if out is not None:
         names = _FIELDS3 + _FIELDS2_OUT
@@ -977,20 +976,5 @@ def epilogue(state: State, grid: Grid, forcing: Forcing, dt: float, *,
                        vmask, launch_plan(nz, ny, nx).epilogue,
                        _scalars_ptr(dev, dt, phys, scalars), out,
                        torch.cuda.current_stream(dev).cuda_stream)
-    epilogue.launches += 1
+    count("epilogue")
     return state.replace(**out)
-
-
-def reset_launch_counts():
-    """Set every launch counter of the substep kernels to 0."""
-    for fn in (predictor, corrector):
-        for name in ("launches", "masked_launches", "shard_launches",
-                     "south_strip_launches", "north_strip_launches"):
-            setattr(fn, name, 0)
-    corrector.epilogue_launches = 0
-    for stage in (1, 2, 3, 4):
-        setattr(rk4_stage, f"k{stage}_launches", 0)
-    epilogue.launches = 0
-
-
-reset_launch_counts()

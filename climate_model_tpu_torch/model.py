@@ -2,19 +2,23 @@
 
 Port of ``climate_model_tpu/model.py``. Two paths, as in the reference:
 
-* The **packed scan** (``make_packed_step_fn``), which ``make_chunk_runner``
-  takes for every ``backend='pallas'`` config, as the reference's default
-  does (``CLIMATE_TPU_PACKED_SCAN=1``); on a device mesh its sharded form,
-  ``dist/packed_halo.py::make_packed_sharded_runner``. A Matsuno step is
-  radiation on its interval, the predictor kernel, then one corrector that
-  also runs surface, turbulence and microphysics as its epilogue, with the
-  v wall passed as a row mask. An RK4 step (one device) is radiation on
-  its interval, the four RK4 stage launches, then the same epilogue
-  launched on the last stage's output: the per-step path's surface,
-  turbulence and microphysics splits after ``step_rk4``. The reference
-  runs its step on its packed supertensor layout (``kernels/packing.py``);
-  the port runs the same program on its plain ``(nz, ny, nx)`` State
-  layout, so there is nothing to pack. The reference's ``physics/packed.py`` (``radiation_step_packed``,
+* The **packed scan**, which ``make_chunk_runner`` takes for every
+  ``backend='pallas'`` config, as the reference's default does
+  (``CLIMATE_TPU_PACKED_SCAN=1``). Its step is one interface over a list
+  of blocks, ``step(states, radiation, *, scalars=None, outs=None)``, with
+  two implementations: ``PackedStep`` on one device and, on a device mesh,
+  ``dist/packed_halo.py::ShardStep``. One eager loop, ``run_packed``,
+  runs either, and one compiled runner (``graphs.py``) captures either. A
+  Matsuno step is radiation on its interval, the predictor kernel, then
+  one corrector that also runs surface, turbulence and microphysics as its
+  epilogue, with the v wall passed as a row mask. An RK4 step (one device)
+  is radiation on its interval, the four RK4 stage launches, then the same
+  epilogue launched on the last stage's output: the per-step path's
+  surface, turbulence and microphysics splits after ``step_rk4``. The
+  reference runs its step on its packed supertensor layout
+  (``kernels/packing.py``); the port runs the same program on its plain
+  ``(nz, ny, nx)`` State layout, so there is nothing to pack. The
+  reference's ``physics/packed.py`` (``radiation_step_packed``,
   ``compute_radiation_packed``, ``packed_pressure``) is the same math as
   ``physics/radiation.py`` on the packed layout; on the plain layout its
   counterpart is the port's ``radiation_step``, which gates on the same
@@ -33,9 +37,9 @@ On a CUDA device ``make_chunk_runner`` runs the packed scan, one card or
 sharded, as the **compiled chunk** (``graphs.py``): the port's counterpart
 of the reference's jitted chunk programs, a CUDA graph of the step per
 buffer parity and radiation variant, replayed once a step, with ``dt`` a
-runtime operand. ``graphs=False`` asks for the eager loop below, which is
-the yardstick the gates hold the graphs to; on the CPU there are no graphs
-and the runner is the eager loop.
+runtime operand. ``graphs=False`` asks for the eager loop, which is the
+yardstick the gates hold the graphs to; on the CPU there are no graphs and
+the runner is the eager loop. ``takes_graphs`` makes that choice.
 
 ``make_run_fn`` is the reference's name for the chunk runner (the bench's
 stability probe uses it).
@@ -54,8 +58,8 @@ from .dist.mesh import in_process_group
 from .dycore.operators import diagnose_pressure
 from .dycore.stepper import check_pallas, dynamics_step_fn, run_scan
 from .kernels.fused_substep import (ACC_FIELDS, corrector, epilogue,
-                                    predictor, rk4_accumulator, rk4_stage,
-                                    wall_mask)
+                                    geo_table, predictor, rk4_accumulator,
+                                    rk4_stage, wall_mask)
 from .physics.microphysics import microphysics_step
 from .physics.radiation import radiation_step
 from .physics.surface import surface_step
@@ -179,27 +183,76 @@ def _rk4_dynamics_fn(cfg: ModelConfig):
     return dyn
 
 
-def make_packed_step_fn(cfg: ModelConfig):
-    """Full model step of the packed scan: radiation on its interval, then
-    ``packed_dynamics_fn``'s kernels: for Matsuno the predictor, then the
-    corrector with the physics epilogue (surface + turbulence +
-    microphysics in the same call); for RK4 the four stages and the
-    epilogue. The name is the
-    reference's; the port's "packed" step runs on the plain State layout.
-    Returns ``step(state, grid, forcing, vmask)``, ``vmask`` the v-wall row
-    mask (``kernels.fused_substep.wall_mask``). Without split physics the
-    corrector runs without the epilogue, still with the mask."""
+class PackedStep:
+    """One step of the packed scan on one device, with ``ShardStep``'s
+    interface over a list of one block: ``step([state], radiation, *,
+    scalars=None, outs=None)`` runs ``radiation(0, state)`` (the refresh on
+    its interval) and ``packed_dynamics_fn``'s kernels, and returns the
+    step's ``[state]`` before ``t`` advances; ``scalars`` is the ``(dt,
+    frac)`` operand and ``outs[0]`` the tensors the step writes.
+
+    The eager loop makes one a chunk. A captured step (``graphs.py``) makes
+    one at capture with ``static=True``, which computes the geometry table
+    once and holds the buffers the step needs beyond the state's
+    (``packed_work``: for RK4 its stage states and accumulator)."""
+
+    def __init__(self, cfg: ModelConfig, state: State, grid: Grid,
+                 forcing: Forcing, static: bool = False):
+        self.cfg = cfg
+        self.dyn = packed_dynamics_fn(cfg)
+        self.grids, self.forcings = [grid], [forcing]
+        self.vmask = wall_mask(state.v.shape[-2], state.dtype, state.device)
+        self.launch = dict(geo=geo_table(grid), **packed_work(cfg, state)) \
+            if static else {}
+
+    def __call__(self, states: list, radiation, *, scalars=None,
+                 outs: list | None = None) -> list:
+        (state,) = states
+        if self.cfg.physics.radiation:
+            state = radiation(0, state)
+        return [self.dyn(state, self.grids[0], self.forcings[0], self.vmask,
+                         scalars=scalars,
+                         out=None if outs is None else outs[0],
+                         **self.launch)]
+
+
+def run_packed(cfg: ModelConfig, step, states: list, dt: float,
+               n_steps: int) -> list:
+    """The eager packed scan: ``n_steps`` of ``step`` (``PackedStep`` or
+    ``ShardStep``) on the blocks ``states``, each step's radiation by
+    ``radiation_step`` on the blocks' step counter, then ``t + dt`` and
+    ``step + 1`` on every block."""
+
+    def radiation(i: int, state: State) -> State:
+        return radiation_step(state, step.grids[i], step.forcings[i], cfg)
+
+    for _ in range(n_steps):
+        states = [s.replace(t=s.t + dt, step=s.step + 1)
+                  for s in step(states, radiation)]
+    return states
+
+
+def _packed_runner(cfg: ModelConfig, n_steps: int):
+    """The eager packed scan on one device: ``run(state, grid, forcing)``
+    advancing ``n_steps``."""
     check_rad_resolved(cfg)
-    phys = cfg.physics
-    dyn = packed_dynamics_fn(cfg)
 
-    def step(state: State, grid: Grid, forcing: Forcing, vmask) -> State:
-        if phys.radiation:
-            state = radiation_step(state, grid, forcing, cfg)
-        state = dyn(state, grid, forcing, vmask)
-        return state.replace(t=state.t + grid.dt, step=state.step + 1)
+    def run(state: State, grid: Grid, forcing: Forcing) -> State:
+        (out,) = run_packed(cfg, PackedStep(cfg, state, grid, forcing),
+                            [state], grid.dt, n_steps)
+        return out
 
-    return step
+    return run
+
+
+def make_packed_step_fn(cfg: ModelConfig):
+    """Full model step of the packed scan on one device, ``step(state,
+    grid, forcing) -> state``: one step of the eager loop on ``PackedStep``
+    (radiation on its interval; for Matsuno the predictor, then the
+    corrector with the physics epilogue; for RK4 the four stages and the
+    epilogue). The name is the reference's; the port's "packed" step runs
+    on the plain State layout."""
+    return _packed_runner(cfg, 1)
 
 
 def takes_packed_scan(cfg: ModelConfig) -> bool:
@@ -210,10 +263,15 @@ def takes_packed_scan(cfg: ModelConfig) -> bool:
     return cfg.backend == "pallas"
 
 
-def takes_graphs(cfg: ModelConfig, device) -> bool:
-    """Whether ``make_chunk_runner(cfg, ...)``, left to decide, runs the
-    compiled chunk on ``device``: the packed scan on a CUDA device."""
-    return takes_packed_scan(cfg) and torch.device(device).type == "cuda"
+def takes_graphs(cfg: ModelConfig, device, graphs: bool | None = None
+                 ) -> bool:
+    """Whether ``make_chunk_runner(cfg, n, graphs)`` runs the compiled chunk
+    for a state on ``device``: the packed scan, on a CUDA device unless
+    ``graphs`` is False, and on any device if it is True (where a CPU
+    device raises)."""
+    if not takes_packed_scan(cfg) or graphs is False:
+        return False
+    return bool(graphs) or torch.device(device).type == "cuda"
 
 
 def make_chunk_runner(cfg: ModelConfig, n_steps: int,
@@ -265,30 +323,14 @@ def make_chunk_runner(cfg: ModelConfig, n_steps: int,
         eager = make_packed_sharded_runner(cfg, n_steps)
     else:
         eager = _packed_runner(cfg, n_steps)
-    if graphs is False:
-        return eager
     from .dist.sharding import ShardedState
     from .graphs import make_graph_runner
     compiled = make_graph_runner(cfg, n_steps)
 
     def run(state, grid: Grid, forcing: Forcing = None):
         one = state.states[0] if isinstance(state, ShardedState) else state
-        if graphs or one.device.type == "cuda":
-            return compiled(state, grid, forcing)
-        return eager(state, grid, forcing)
-
-    return run
-
-
-def _packed_runner(cfg: ModelConfig, n_steps: int):
-    """The eager packed scan on one device: a Python loop over steps."""
-    pstep = make_packed_step_fn(cfg)
-
-    def run(state: State, grid: Grid, forcing: Forcing) -> State:
-        vmask = wall_mask(state.v.shape[-2], state.dtype, state.device)
-        for _ in range(n_steps):
-            state = pstep(state, grid, forcing, vmask)
-        return state
+        runner = compiled if takes_graphs(cfg, one.device, graphs) else eager
+        return runner(state, grid, forcing)
 
     return run
 

@@ -17,6 +17,7 @@ from ..core.config import ModelConfig
 from ..core.grid import Grid
 from ..core.state import State
 from ..dycore import operators as ops
+from ..trace import count
 from .thermo import qsat_water
 
 
@@ -45,8 +46,8 @@ def saturation_adjustment(pott, qv, qc, pvtf, pair, dt, cfg: ModelConfig):
 def microphysics_step(state: State, grid: Grid, forcing, cfg: ModelConfig,
                       dt, press=None) -> State:
     """Saturation adjustment, autoconversion, rain and the soil refill.
-    ``microphysics_step.calls`` counts the calls."""
-    microphysics_step.calls += 1
+    The counter ``microphysics.calls`` (``trace.py``) counts the calls."""
+    count("microphysics.calls")
     pvb, pvtf, _ = press if press is not None \
         else ops.diagnose_pressure(state.colp, grid)
     pair = 0.5 * (pvb[:-1] + pvb[1:])
@@ -66,6 +67,3 @@ def microphysics_step(state: State, grid: Grid, forcing, cfg: ModelConfig,
     return state.replace(pott=pott, qv=torch.clamp(qv, min=0.0),
                          qc=torch.clamp(qc, min=0.0), rain=rain,
                          soil_moist=soil_moist)
-
-
-microphysics_step.calls = 0

@@ -21,6 +21,7 @@ from ..core.config import ModelConfig
 from ..core.grid import Grid
 from ..core.state import Forcing, State
 from ..dycore import operators as ops
+from ..trace import count
 
 K_SW_QV = 0.0005     # shortwave absorption by water vapor [m2 kg-1]
 K_SW_DRY = 5.0e-6    # shortwave background (ozone/aerosol stand-in)
@@ -172,9 +173,9 @@ def refresh_due(step: int, cfg: ModelConfig) -> bool:
 
 def radiation_refresh(state: State, grid: Grid, forcing: Forcing,
                       cfg: ModelConfig) -> State:
-    """Recompute the radiation cache, counted in
-    ``radiation_step.refreshes``."""
-    radiation_step.refreshes += 1
+    """Recompute the radiation cache, counted in ``radiation.refreshes``
+    (``trace.py``)."""
+    count("radiation.refreshes")
     out = compute_radiation(state, grid, forcing, cfg)
     return state.replace(dpottdt_rad=out.dpottdt_rad,
                          swflx_sfc=out.swflx_sfc, lwflx_sfc=out.lwflx_sfc)
@@ -183,11 +184,9 @@ def radiation_refresh(state: State, grid: Grid, forcing: Forcing,
 def radiation_step(state: State, grid: Grid, forcing: Forcing,
                    cfg: ModelConfig) -> State:
     """Recompute the radiation cache when step % rad_every_steps == 0 (a
-    host-side test of the host step counter). ``radiation_step.refreshes``
-    counts the recomputations, so a run can show its cadence."""
+    host-side test of the host step counter). The counter
+    ``radiation.refreshes`` counts the recomputations, so a run can show its
+    cadence."""
     if not refresh_due(state.step, cfg):
         return state
     return radiation_refresh(state, grid, forcing, cfg)
-
-
-radiation_step.refreshes = 0

@@ -18,6 +18,7 @@ from ..core.grid import Grid
 from ..core.state import Forcing, State
 from ..dycore import boundaries as bc
 from ..dycore import operators as ops
+from ..trace import count
 
 
 class SurfaceFluxes(NamedTuple):
@@ -75,9 +76,10 @@ def _add_bottom(x, d):
 def surface_step(state: State, grid: Grid, forcing: Forcing,
                  cfg: ModelConfig, dt, press=None) -> State:
     """Advance TSURF (slab land/ocean energy budget) and apply the surface
-    fluxes to the lowest model layer. ``surface_step.calls`` counts the
-    calls, so a run can show it took the kernel's epilogue instead."""
-    surface_step.calls += 1
+    fluxes to the lowest model layer. The counter ``surface.calls``
+    (``trace.py``) counts the calls, so a run can show it took the kernel's
+    epilogue instead."""
+    count("surface.calls")
     p = cfg.physics
     if press is None:
         press = ops.diagnose_pressure(state.colp, grid)
@@ -114,6 +116,3 @@ def surface_step(state: State, grid: Grid, forcing: Forcing,
         soil_moist = torch.where(forcing.land_mask > 0.5, dried, soil_moist)
     return state.replace(tsurf=tsurf, pott=pott, qv=qv, u=u, v=v,
                          soil_moist=soil_moist)
-
-
-surface_step.calls = 0

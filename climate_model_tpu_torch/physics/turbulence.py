@@ -16,6 +16,7 @@ from ..core.grid import Grid
 from ..core.state import Forcing, State
 from ..dycore import boundaries as bc
 from ..dycore import operators as ops
+from ..trace import count
 
 
 def convective_k(state: State, pvb, pvtf, cfg: ModelConfig):
@@ -40,8 +41,9 @@ def convective_k(state: State, pvb, pvtf, cfg: ModelConfig):
 def turbulence_step(state: State, grid: Grid, forcing: Forcing,
                     cfg: ModelConfig, dt, press=None) -> State:
     """One explicit step of the vertical K-diffusion of pott, qv, qc, u and
-    v. ``turbulence_step.calls`` counts the calls."""
-    turbulence_step.calls += 1
+    v. The counter ``turbulence.calls`` (``trace.py``) counts the
+    calls."""
+    count("turbulence.calls")
     p = cfg.physics
     pvb, pvtf, pvtfvb = press if press is not None \
         else ops.diagnose_pressure(state.colp, grid)
@@ -89,6 +91,3 @@ def turbulence_step(state: State, grid: Grid, forcing: Forcing,
 
     return state.replace(u=u, v=v, pott=pott, qv=torch.clamp(qv, min=0.0),
                          qc=torch.clamp(qc, min=0.0))
-
-
-turbulence_step.calls = 0

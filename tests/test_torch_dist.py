@@ -47,7 +47,7 @@ from climate_model_tpu_torch.dist import mesh as tmesh
 from climate_model_tpu_torch.dist import sharding
 from climate_model_tpu_torch.dist.packed_halo import \
     make_packed_sharded_runner
-from climate_model_tpu_torch.kernels import fused_substep as fs
+from climate_model_tpu_torch.trace import counts, reset_counts
 
 from .test_torch_core import jax_cfg
 
@@ -123,11 +123,11 @@ def port_sharded(physics, mesh, overlap):
     State in, split over an in-process mesh, gathered back)."""
     cfg = dist_cfg(physics, mesh, overlap)
     s, f, g = initialize(cfg, device="cpu")
-    fs.reset_launch_counts()
+    reset_counts()
     out = tmodel.make_chunk_runner(cfg, N_STEPS)(s, g, f)
     assert out.step == N_STEPS
     # on the CPU the wrappers take the plain versions and count nothing
-    assert fs.predictor.shard_launches == fs.corrector.shard_launches == 0
+    assert counts()["predictor.shard"] == counts()["corrector.shard"] == 0
     return out
 
 

@@ -23,7 +23,7 @@ from climate_model_tpu.core import init as jinit
 from climate_model_tpu_torch import model as tmodel
 from climate_model_tpu_torch.core import config as tcfg
 from climate_model_tpu_torch.core import init as tinit
-from climate_model_tpu_torch.physics import radiation as trad
+from climate_model_tpu_torch.trace import counts
 
 from .test_torch_core import jax_cfg
 
@@ -57,10 +57,10 @@ def port_run(cfg):
     """``make_chunk_runner(cfg, N_STEPS)`` from the initial state, and the
     radiation refreshes it made."""
     s, f, g = tinit.initialize(cfg, device="cpu")
-    r0 = trad.radiation_step.refreshes
+    r0 = counts()["radiation.refreshes"]
     out = tmodel.make_chunk_runner(cfg, N_STEPS)(s, g, f)
     assert out.step == N_STEPS
-    return out, trad.radiation_step.refreshes - r0
+    return out, counts()["radiation.refreshes"] - r0
 
 
 @pytest.mark.parametrize("baseline", [3, 5])

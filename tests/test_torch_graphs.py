@@ -4,16 +4,18 @@ The CPU has no CUDA graphs, so the runners' bookkeeping runs under a
 stand-in for the capture: ``StandInCapture`` records the captured callable
 and calls it once at capture (Python runs while a real capture records)
 and once on every replay, as a ``torch.cuda.CUDAGraph`` replays what was
-captured. Against the eager runner (``make_chunk_runner(...,
+captured, with the port's counters (``trace.py``) put back after it, as a
+replay runs no Python. Against the eager runner (``make_chunk_runner(...,
 graphs=False)``), at #3 cut to 32x16x8 in fp64 with radiation every 7
 steps and chunks of 7, 5 and 12 steps, the last at another dt:
 
 * the runner equals the eager runner bit for bit, on one device, on 2x2
   in one process (``LocalExchange``, both schedules) and across two gloo
   ranks (``DistExchange`` with its static buffers);
-* the launch and refresh counts equal the eager runner's, the buffers
-  ping-pong, no dt change makes a new capture, and the caller's state is
-  left as it was;
+* the launch and refresh counts equal the eager runner's, each replay
+  moves every counter by what its capture counted, the buffers ping-pong,
+  no dt change makes a new capture, and the caller's state is left as it
+  was;
 * two planted faults break it: replays that keep the capture-time dt, and
   the same parity replayed twice;
 * the kernels' ``(dt, frac)`` operand holds ``float32(dt)`` and
@@ -45,7 +47,10 @@ class StandInGraph:
         self.fn = fn
 
     def replay(self):
+        from climate_model_tpu_torch import trace
+        saved = trace.counts()
         self.fn()
+        trace.reset_counts(saved)
 
 
 class StandInCapture:
@@ -103,7 +108,7 @@ def counting(monkeypatch, *modules):
 
     def spy(fn):
         def call(*a, part="grid", **k):
-            fs._count(fn, part, k.get("vmask") is not None,
+            fs._count(fn.__name__, part, k.get("vmask") is not None,
                       epilogue=k.get("phys") is not None)
             return fn(*a, part=part, **k)
         return call
@@ -114,17 +119,21 @@ def counting(monkeypatch, *modules):
 
 
 def counts() -> dict:
-    """The counters a captured step moves, by ``wrapper.attribute``."""
-    from climate_model_tpu_torch import graphs
-    return {f"{o.__name__}.{n}": v for (o, n), v in
-            zip(graphs.COUNTERS, graphs.read_counters())}
+    """The port's counters (``trace.py``), by name."""
+    from climate_model_tpu_torch import trace
+    return trace.counts()
+
+
+def launched(c) -> dict:
+    """The launch and refresh counts of ``c`` that are not 0: every counter
+    but the plain physics splits' calls (which the kernels' plain versions
+    make on the CPU)."""
+    return {k: v for k, v in c.items() if v and not k.endswith(".calls")}
 
 
 def reset():
-    from climate_model_tpu_torch.kernels import fused_substep as fs
-    from climate_model_tpu_torch.physics import radiation
-    fs.reset_launch_counts()
-    radiation.radiation_step.refreshes = 0
+    from climate_model_tpu_torch import trace
+    trace.reset_counts()
 
 
 def both(monkeypatch, cfg, split=None):
@@ -154,11 +163,11 @@ def both(monkeypatch, cfg, split=None):
 def fresh_cache():
     """No runner cached across tests; the process-wide counters (which
     ``counting`` moves on the CPU) put back as they were."""
-    from climate_model_tpu_torch import graphs
+    from climate_model_tpu_torch import graphs, trace
     graphs.clear_cache()
-    saved = graphs.read_counters()
+    saved = trace.counts()
     yield
-    graphs._write_counters(saved)
+    trace.reset_counts(saved)
     graphs.clear_cache()
 
 
@@ -222,17 +231,17 @@ def test_one_device_equals_eager(monkeypatch):
     # steps 0, 7, 14 and 21
     assert ca == cb
     n = sum(CHUNKS)
-    assert {k: v for k, v in cb.items() if v} == {
-        "predictor.masked_launches": n, "corrector.epilogue_launches": n,
-        "radiation_step.refreshes": 4}
+    assert launched(cb) == {
+        "predictor.masked": n, "corrector.epilogue": n,
+        "radiation.refreshes": 4}
     # one capture per (parity, refresh), none after the dt change
     assert caps == 4
     (runner,) = graphs.cached_runners()
     assert sorted(runner.graphs) == [(0, False), (0, True), (1, False),
                                      (1, True)]
     # the result is a copy of the set the last step wrote (24 steps: set 0)
-    assert torch.equal(runner.sets[0]["u"], b.u)
-    assert runner.sets[0]["u"].data_ptr() != b.u.data_ptr()
+    assert torch.equal(runner.sets[0][0]["u"], b.u)
+    assert runner.sets[0][0]["u"].data_ptr() != b.u.data_ptr()
     # the caller's state is left as it was
     s2 = small_state(cfg)
     assert all(same(s, s2).values())
@@ -243,25 +252,42 @@ def small_state(cfg):
     return initialize(cfg, device="cpu")[0]
 
 
-def test_chunk_counts_and_parity(monkeypatch):
-    """An odd chunk ends in set 1; each replay moves the counters by what
-    its capture counted, never the capture itself."""
+@pytest.mark.parametrize("n", [7, 12], ids=["odd", "even"])
+def test_chunk_counts_and_parity(monkeypatch, n):
+    """A chunk ends in the set of its parity; each replay moves every
+    counter by what its capture counted, the plain physics splits' calls
+    (which the compiled chunk names nowhere) too, and the captures move
+    none."""
+    import collections
+
     import torch
 
-    from climate_model_tpu_torch import graphs, model
+    from climate_model_tpu_torch import graphs, model, trace
     from climate_model_tpu_torch.core.init import initialize
     counting(monkeypatch, model)
+    moved = []
+    real = graphs._Captured.replay
+
+    def replay(self, key):
+        before = trace.counts()
+        real(self, key)
+        moved.append((self.deltas[key], trace.counts() - before))
+
+    monkeypatch.setattr(graphs._Captured, "replay", replay)
     cfg = small_cfg()
     s, f, g = initialize(cfg, device="cpu")
     reset()
-    out = graphs.make_graph_runner(cfg, 7, capture=StandInCapture)(s, g, f)
+    out = graphs.make_graph_runner(cfg, n, capture=StandInCapture)(s, g, f)
     (runner,) = graphs.cached_runners()
-    assert torch.equal(runner.sets[1]["pott"], out.pott)
+    assert torch.equal(runner.sets[n % 2][0]["pott"], out.pott)
     c = counts()
-    assert c["predictor.masked_launches"] == 7
-    assert c["radiation_step.refreshes"] == 1             # step 0 only
-    assert runner.deltas[(0, True)][-1] == 1
-    assert runner.deltas[(1, False)][-1] == 0
+    assert c["predictor.masked"] == n
+    assert c["radiation.refreshes"] == len(range(0, n, 7))   # steps 0, 7
+    assert runner.deltas[(0, True)]["radiation.refreshes"] == 1
+    assert runner.deltas[(1, False)]["radiation.refreshes"] == 0
+    assert all(d["surface.calls"] == 1 for d in runner.deltas.values())
+    assert len(moved) == n and all(want == got for want, got in moved)
+    assert c == sum((got for _, got in moved), collections.Counter())
 
 
 def test_cpu_default_is_eager_and_graphs_true_raises():
@@ -340,13 +366,13 @@ def test_2x2_equals_eager(monkeypatch, overlap):
     assert ca == cb and caps == 4
     n = sum(CHUNKS)
     strips = 2 * n if overlap else 0          # a seam a lon column
-    assert {k: v for k, v in cb.items() if v} == {
-        "predictor.shard_launches": 4 * n, "corrector.shard_launches": 4 * n,
-        **({"predictor.south_strip_launches": strips,
-            "predictor.north_strip_launches": strips,
-            "corrector.south_strip_launches": strips,
-            "corrector.north_strip_launches": strips} if overlap else {}),
-        "radiation_step.refreshes": 4 * 4}
+    assert launched(cb) == {
+        "predictor.shard": 4 * n, "corrector.shard": 4 * n,
+        **({"predictor.south_strip": strips,
+            "predictor.north_strip": strips,
+            "corrector.south_strip": strips,
+            "corrector.north_strip": strips} if overlap else {}),
+        "radiation.refreshes": 4 * 4}
 
 
 # ---------------------------------------------------------------------------

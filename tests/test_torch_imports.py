@@ -28,6 +28,7 @@ from climate_model_tpu_torch.core.config import (GridConfig, ModelConfig,
                                                  PhysicsConfig)
 from climate_model_tpu_torch.core.init import initialize
 from climate_model_tpu_torch.kernels import fused_substep as fs
+from climate_model_tpu_torch.trace import counts, reset_counts
 
 from ._torch_threads import torch_threads  # noqa: F401 (fixture)
 
@@ -91,7 +92,7 @@ def test_wrapper_cpu_routes_to_plain():
     want = fs.fused_substep_plain(ref, st, gr, fo, gr.dt, **KW)
     for f in ("u", "v", "pott", "qv", "qc", "colp"):
         assert torch.equal(getattr(out, f), getattr(want, f)), f
-    assert fs.predictor.launches == 0 and fs.corrector.launches == 0
+    assert counts()["predictor"] == 0 and counts()["corrector"] == 0
 
 
 @pytest.mark.parametrize("bad,err,match", [
@@ -201,13 +202,15 @@ def cuda_device():
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card(cuda_device):
     st, fo, gr = _small(dtype="float32", device=cuda_device)
-    p0, c0 = fs.predictor.launches, fs.corrector.launches
+    c0 = counts()
     pk = fs.predictor(st, gr, fo, gr.dt, **KW)
     pp = fs.fused_substep_plain(st, None, gr, fo, gr.dt, **KW)
     ck = fs.corrector(pp, st, gr, fo, gr.dt, **KW)
     cp = fs.fused_substep_plain(pp, st, gr, fo, gr.dt, **KW)
     torch.cuda.synchronize()
-    assert (fs.predictor.launches - p0, fs.corrector.launches - c0) == (1, 1)
+    c1 = counts()
+    assert (c1["predictor"] - c0["predictor"],
+            c1["corrector"] - c0["corrector"]) == (1, 1)
     # the per-field bounds of chip_smoke.py (a few times the fp32 error
     # measured at config #3)
     from chip_smoke import FIELD_TOL
@@ -227,10 +230,10 @@ def test_epilogue_kernel_matches_plain_on_card(cuda_device):
     import chip_smoke as cs
     ci = cs.check_inputs(cuda_device)
     kern, plain = cs.epilogue_pair(ci)
-    e0 = fs.corrector.epilogue_launches
+    e0 = counts()["corrector.epilogue"]
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    assert fs.corrector.epilogue_launches - e0 == 1
+    assert counts()["corrector.epilogue"] - e0 == 1
     per = cs.field_errors(got, want, cs.EPI_TOL)
     assert not cs.over(per, cs.EPI_TOL), per
     g, f, s = ci.grid, ci.forcing, ci.state
@@ -265,15 +268,16 @@ def test_shard_kernels_match_plain_on_card(cuda_device):
     its bounds (pinned for that state); each call counts once."""
     import chip_smoke as cs
 
-    fs.reset_launch_counts()
+    reset_counts()
     bad = []
     _, (blocks, _, _, _) = cs.check_shards(cs.noisy_state(4, cuda_device),
                                            cuda_device, bad)
     torch.cuda.synchronize()
     assert not bad, bad
-    for fn in (fs.predictor, fs.corrector):
-        assert fn.shard_launches == len(blocks)
+    c = counts()
+    for fn in ("predictor", "corrector"):
+        assert c[f"{fn}.shard"] == len(blocks)
         for part in ("south_strip", "north_strip"):
             want = sum(st.part == part for b in blocks for st in b.strips)
-            assert getattr(fn, f"{part}_launches") == want, part
-        assert fn.launches == fn.masked_launches == 0
+            assert c[f"{fn}.{part}"] == want, part
+        assert c[fn] == c[f"{fn}.masked"] == 0

@@ -29,8 +29,7 @@ from climate_model_tpu_torch.core import config as tcfg
 from climate_model_tpu_torch.core import init as tinit
 from climate_model_tpu_torch.core.grid import adaptive_cfl_dt
 from climate_model_tpu_torch.dycore import stepper as tstep
-from climate_model_tpu_torch.kernels import fused_substep as fs
-from climate_model_tpu_torch.physics import radiation as trad
+from climate_model_tpu_torch.trace import counts
 
 from .test_torch_core import jax_cfg
 
@@ -61,9 +60,9 @@ def _assert_matches_reference(out, ref, n):
                                    np.asarray(getattr(ref, name)),
                                    rtol=1e-9, atol=1e-10, err_msg=name)
     # on the CPU the kernel wrappers take the plain version and count nothing
-    assert (fs.predictor.launches, fs.predictor.masked_launches,
-            fs.corrector.launches, fs.corrector.masked_launches,
-            fs.corrector.epilogue_launches) == (0, 0, 0, 0, 0)
+    c = counts()
+    assert (c["predictor"], c["predictor.masked"], c["corrector"],
+            c["corrector.masked"], c["corrector.epilogue"]) == (0, 0, 0, 0, 0)
 
 
 def test_chunk_runner_matches_reference(monkeypatch):
@@ -73,9 +72,9 @@ def test_chunk_runner_matches_reference(monkeypatch):
     n = 12
     ref = _reference_run(monkeypatch, False, cfg, n)
     ts, tf, tg = tinit.initialize(cfg, device="cpu")
-    refreshes = trad.radiation_step.refreshes
+    refreshes = counts()["radiation.refreshes"]
     out = tstep.run_scan(tmodel.make_step_fn(cfg), ts, tg, tf, n)
-    assert trad.radiation_step.refreshes - refreshes == 2     # steps 0, 7
+    assert counts()["radiation.refreshes"] - refreshes == 2  # steps 0, 7
     _assert_matches_reference(out, ref, n)
 
 
@@ -87,9 +86,9 @@ def test_packed_scan_matches_reference(monkeypatch):
     n = 12
     ref = _reference_run(monkeypatch, True, cfg, n)
     ts, tf, tg = tinit.initialize(cfg, device="cpu")
-    refreshes = trad.radiation_step.refreshes
+    refreshes = counts()["radiation.refreshes"]
     out = tmodel.make_chunk_runner(cfg, n)(ts, tg, tf)
-    assert trad.radiation_step.refreshes - refreshes == 2     # steps 0, 7
+    assert counts()["radiation.refreshes"] - refreshes == 2  # steps 0, 7
     _assert_matches_reference(out, ref, n)
 
 

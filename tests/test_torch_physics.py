@@ -25,6 +25,7 @@ from climate_model_tpu_torch.physics import radiation as trad
 from climate_model_tpu_torch.physics import surface as tsrf
 from climate_model_tpu_torch.physics import thermo as tthermo
 from climate_model_tpu_torch.physics import turbulence as tturb
+from climate_model_tpu_torch.trace import counts
 
 from .test_torch_core import jax_cfg, jax_inputs, port_inputs, small_cfg
 
@@ -99,11 +100,12 @@ def test_radiation_step_refresh_and_hold(step):
     """Step 0 refreshes the cache, step 3 (rad_every_steps=6) holds it; the
     port counts the refreshes."""
     cfg, jc, (js, jf, jg), (ts, tf, tg) = _setup(step=step, **FULL)
-    before = trad.radiation_step.refreshes
+    before = counts()["radiation.refreshes"]
     a = jrad.radiation_step(js, jg, jf, jc)
     b = trad.radiation_step(ts, tg, tf, cfg)
     _states_close(a, b, ("dpottdt_rad", "swflx_sfc", "lwflx_sfc"), atol=1e-10)
-    assert trad.radiation_step.refreshes - before == (1 if step == 0 else 0)
+    assert counts()["radiation.refreshes"] - before == \
+        (1 if step == 0 else 0)
 
 
 @pytest.mark.parametrize("soil", [True, False])

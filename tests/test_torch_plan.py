@@ -15,6 +15,7 @@ import torch
 from climate_model_tpu_torch.core.config import GridConfig, ModelConfig
 from climate_model_tpu_torch.core.init import initialize
 from climate_model_tpu_torch.kernels import fused_substep as fs
+from climate_model_tpu_torch.trace import counts
 
 from ._torch_threads import torch_threads  # noqa: F401 (fixture)
 
@@ -227,7 +228,7 @@ def test_wrapper_refuses_unplanned_shape_on_card():
     cfg = ModelConfig(grid=GridConfig(nx=16, ny=8, nz=fs.MAX_NZ + 1),
                       dtype="float32")
     st, fo, gr = initialize(cfg, device=torch.device("cuda", 0))
-    n0 = fs.predictor.launches
+    n0 = counts()["predictor"]
     with pytest.raises(ValueError, match="levels"):
         fs.predictor(st, gr, fo, gr.dt, with_rad=True, with_diff=True)
-    assert fs.predictor.launches == n0
+    assert counts()["predictor"] == n0

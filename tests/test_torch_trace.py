@@ -8,8 +8,8 @@ step on each replay), with files, in chunks of two steps:
 * every span of the chunk loop is recorded once a chunk (``cm.gather`` on
   a mesh only; a checkpoint at the restart cadence), nested under
   ``cm.chunk``; the checkpoint at the end lies outside every chunk;
-* ``cm.step.radiation`` ranges number the refresh replays, as
-  ``radiation_step.refreshes`` counts them;
+* ``cm.step.radiation`` ranges number the refresh replays, as the
+  counter ``radiation.refreshes`` counts them;
 * a run gives the same state, bit for bit, with the profiler on and off;
 * no ``cm.`` range is opened inside the captured step: ``cm.capture``
   encloses each capture.
@@ -21,8 +21,7 @@ import pytest
 import torch
 from torch.profiler import record_function
 
-from climate_model_tpu_torch import cli, graphs
-from climate_model_tpu_torch.physics import radiation
+from climate_model_tpu_torch import cli, graphs, trace
 from climate_model_tpu_torch.trace import PREFIX
 
 from .test_torch_graphs import FIELDS, StandInCapture, StandInGraph
@@ -56,10 +55,10 @@ def stand_in(monkeypatch):
     """The stand-in capture in place of ``CudaCapture``; no runner cached
     across tests, the counters put back as they were."""
     graphs.clear_cache()
-    saved = graphs.read_counters()
+    saved = trace.counts()
     monkeypatch.setattr(graphs, "CudaCapture", MarkedCapture)
     yield
-    graphs._write_counters(saved)
+    trace.reset_counts(saved)
     graphs.clear_cache()
 
 
@@ -94,13 +93,13 @@ def run(argv, out_dir, traced: bool):
     refreshes it counted and, traced, the spans."""
     graphs.clear_cache()
     cfg = cli.build_config(cli.make_parser().parse_args(argv))
-    r0 = radiation.radiation_step.refreshes
+    r0 = trace.counts()["radiation.refreshes"]
 
     def go():
         return cli.run(cfg, device="cpu", out_dir=out_dir, graphs=True)
 
     res, spans = traced_spans(go) if traced else (go(), None)
-    return res, radiation.radiation_step.refreshes - r0, spans
+    return res, trace.counts()["radiation.refreshes"] - r0, spans
 
 
 def named(spans, name):
@@ -117,7 +116,7 @@ def ancestors(span, spans):
 def traced(tmp_path_factory):
     """The one-device and the mesh run, each traced once."""
     graphs.clear_cache()
-    saved = graphs.read_counters()
+    saved = trace.counts()
     mp = pytest.MonkeyPatch()
     mp.setattr(graphs, "CudaCapture", MarkedCapture)
     try:
@@ -125,7 +124,7 @@ def traced(tmp_path_factory):
                for name, argv in (("one", ONE), ("mesh", MESH))}
     finally:
         mp.undo()
-        graphs._write_counters(saved)
+        trace.reset_counts(saved)
         graphs.clear_cache()
     return out
 
