@@ -54,7 +54,9 @@ and exits non-zero:
                card: ``run --baseline 4 --days 0.05 --halo-overlap`` with
                every counter set to 0 just before and read just after (8
                shard launches of each program a step, 4 south-strip and 4
-               north-strip), then the blocking schedule and the unsharded
+               north-strip, and the batched slab copies of the ghost
+               exchange and the strips, ``halo_copies``), then the
+               blocking schedule and the unsharded
                grid (``--mesh-lat 1 --mesh-lon 1``); each pair compared per
                field (SHARDED_TOL) and bit for bit. Then FAULT_STEPS steps
                from a noisy #4 state: the sound sharded run and each planted
@@ -182,6 +184,21 @@ and exits non-zero:
                kernel's device ms in the captured step; each stage kind
                and the epilogue alone timed against its plain version, in
                turns, beside its bound, for the ``kernels`` line;
+19. halo copy -- the ghost exchange's batched slab copy
+               (``kernels/halo_copy.py``) on the blocks of ranks 0 and 2 of
+               #5 on 2x2 with halo overlap (32x363x726 and 363x726, fp32,
+               noise from a seed): every pack and unpack of the column
+               refresh and the row exchange of 12 and of 6 fields, the seam
+               strip's cut and its splices of 6 and 9 fields, then float64
+               slabs, runs misaligned to 16 bytes and more pairs than a
+               launch takes; each the port's call against the per-slab
+               ``copy_`` on the same inputs, every destination set to a
+               sentinel before each, bit for bit, its launches and slabs
+               counted from 0 (a launch for every 48 slabs); each rank's
+               step of copies counted from 0 (``halo_copies``: 13
+               launches, 141 slabs) and timed against its per-slab copies,
+               in turns, beside the bound of its bytes read and written,
+               for the ``kernels`` line;
 16. across cards -- only with ``--multicard``, which needs four cards: the
                paths across ranks, one card per rank under NCCL, each held
                against the same grid on one card in this process, read back
@@ -268,7 +285,7 @@ from climate_model_tpu_torch.core.config import (GridConfig, ModelConfig,
 from climate_model_tpu_torch.core.grid import adaptive_cfl_dt, round_to
 from climate_model_tpu_torch.core.init import initialize
 from climate_model_tpu_torch.core.state import State
-from climate_model_tpu_torch.dist import comm, halo, sharding
+from climate_model_tpu_torch.dist import comm, halo, packed_halo, sharding
 from climate_model_tpu_torch.dist.mesh import Mesh, barrier, make_mesh
 from climate_model_tpu_torch.dist.packed_halo import SeamStrip, row_mask
 from climate_model_tpu_torch.dycore import boundaries as bc
@@ -281,6 +298,7 @@ from climate_model_tpu_torch.io.convert import (state_from_numpy,
 from climate_model_tpu_torch.io.metrics import diagnostics
 from climate_model_tpu_torch.io.netcdf import NCWriter
 from climate_model_tpu_torch.kernels import fused_substep as fs
+from climate_model_tpu_torch.kernels import halo_copy as hc
 from climate_model_tpu_torch.model import (make_chunk_runner, make_step_fn,
                                            phys_epilogue_tuple)
 from climate_model_tpu_torch.physics import (microphysics, radiation,
@@ -1716,14 +1734,47 @@ class peak_memory(contextlib.AbstractContextManager):
                 f"{self.base / 1e9:.3f} GB held before")
 
 
-def want_counts(cfg, n: int, keys, start: int = 0) -> dict:
+def halo_copies(cfg, ranks: bool) -> tuple:
+    """The batched slab copies (``kernels/halo_copy.py``) of one step of
+    ``cfg``'s packed scan on its mesh, summed over its shards: (launches,
+    slabs). A step refreshes the 12 prognostic and radiative fields, then
+    the 6 predicted ones; under halo overlap each seam strip cuts the 6 3-D
+    fields of a State three times (the 2-D ones are views) and splices the
+    predictor's 6 fields and the corrector's 6 or, with the epilogue, 9.
+    In one process (``LocalExchange``) a column refresh of F fields is one
+    batch of shards x 2 x F slabs and a row exchange one of F slabs a lat
+    neighbour of every shard; across ranks (``ranks``, ``DistExchange``)
+    each rank packs and unpacks 2F slabs of a column refresh and F a lat
+    neighbour of a row exchange. A launch takes at most ``MAX_SLABS``."""
+    sh = cfg.sharding
+    n_lat, n_lon = sh.mesh_lat, sh.mesh_lon
+    lat_nbrs = [(a > 0) + (a < n_lat - 1) for a in range(n_lat)
+                for _ in range(n_lon)]
+    batches = []
+    for f in (12, 6):
+        if n_lon > 1:
+            batches += [2 * f] * 2 * len(lat_nbrs) if ranks \
+                else [len(lat_nbrs) * 2 * f]
+        if n_lat > 1:
+            batches += [k * f for k in lat_nbrs for _ in (0, 1)] if ranks \
+                else [sum(lat_nbrs) * f]
+    if sh.halo_overlap and n_lat > 1:
+        cut = 6 if cfg.grid.nz > 1 else 0
+        corr = 9 if phys_epilogue_tuple(cfg) is not None else 6
+        batches += [cut, 6, cut, cut, corr] * sum(lat_nbrs)
+    return (sum(-(-k // hc.MAX_SLABS) for k in batches), sum(batches))
+
+
+def want_counts(cfg, n: int, keys, start: int = 0,
+                ranks: bool = False) -> dict:
     """The launch and call counts of ``n`` steps of ``cfg`` from step
     ``start`` on the packed scan, over every shard of its mesh (0 for each
     other key of ``keys``): unsharded one masked predictor and one epilogue
     corrector a step; on a mesh a shard launch of each program a step for
     each shard and, under halo overlap, a south-strip and a north-strip
-    launch for each lat seam; a radiation refresh on each block every
-    ``rad_every_steps`` steps."""
+    launch for each lat seam, and the batched slab copies of
+    ``halo_copies`` (``ranks``: a shard a rank); a radiation refresh on
+    each block every ``rad_every_steps`` steps."""
     sh = cfg.sharding
     shards = sh.mesh_lat * sh.mesh_lon
     every = cfg.physics.rad_every_steps
@@ -1733,8 +1784,10 @@ def want_counts(cfg, n: int, keys, start: int = 0) -> dict:
         want.update(predictor_masked=n, corrector_epilogue=n,
                     radiation_refreshes=refreshes)
         return want
+    launches, slabs = halo_copies(cfg, ranks)
     want.update(predictor_shard=shards * n, corrector_shard=shards * n,
-                radiation_refreshes=shards * refreshes)
+                radiation_refreshes=shards * refreshes,
+                halo_copy_launches=n * launches, halo_copy_slabs=n * slabs)
     if sh.halo_overlap and sh.mesh_lat > 1:
         seams = sh.mesh_lon * (sh.mesh_lat - 1)
         for part in ("south_strip", "north_strip"):
@@ -2213,8 +2266,12 @@ def bench_path(dev, card: str, timing: dict):
     n_sh = cfg4.sharding.mesh_lat * cfg4.sharding.mesh_lon
     steps = cli.make_parser().parse_args(SCALING_ARGV).steps * SCALING_RUNS
     strips = cfg4.sharding.mesh_lon * (cfg4.sharding.mesh_lat - 1)
+    launches, slabs = halo_copies(cfg4.replace(sharding=dataclasses.replace(
+        cfg4.sharding, halo_overlap=True)), ranks=False)
     want = dict(predictor_masked=steps, corrector_epilogue=steps,
-                radiation_refreshes=SCALING_RUNS * (1 + n_sh))
+                radiation_refreshes=SCALING_RUNS * (1 + n_sh),
+                halo_copy_launches=steps * launches,
+                halo_copy_slabs=steps * slabs)
     for fn in ("predictor", "corrector"):
         want.update({f"{fn}_shard": n_sh * steps,
                      f"{fn}_south_strip": strips * steps,
@@ -3602,6 +3659,246 @@ def rk4_path(dev, card: str) -> dict:
     return dict(errs=errs, timing=timing, counts=readings["counts"])
 
 
+HALO_COPY_RANKS = (0, 2)         # #5 on 2x2: a north seam, a south seam
+HALO_COPY_SENTINEL = -7.25       # in every destination before a copy
+HALO_COPY_REPLACES = ("climate_model_tpu/dist/packed_halo.py:105 "
+                      "(refresh_ghosts: ppermute of sliced ghost slabs)")
+
+
+def halo_copy_config():
+    """#5 on 2x2 with halo overlap, as ``bl5_2x2_overlap`` runs it."""
+    cfg = baseline_config(5)
+    return resolve_rad_interval(cfg.replace(sharding=dataclasses.replace(
+        cfg.sharding, mesh_lat=2, mesh_lon=2, halo_overlap=True)))
+
+
+def halo_copy_batches(cfg, dev, seed: int = SEED) -> dict:
+    """rank -> [(name, run, pairs, got)]: the batched slab copies
+    (``kernels/halo_copy.py``) of one packed-scan step of ``cfg`` (a mesh
+    of more than one lat shard, halo overlap) on each rank of
+    HALO_COPY_RANKS, on that rank's block of ``cfg``'s grid with seeded
+    noise in every field. ``run()`` is the port's call: ``comm._pack_into``
+    and ``comm._unpack`` of the column refresh and the row exchange of the
+    12 and of the 6 fields, the seam strip's ``cut`` (three a step) and its
+    ``merge`` of the predictor's 6 and the corrector's fields. ``pairs``
+    are the (dst, src) slabs it copies, as the per-slab copies take them,
+    and ``got()`` what ``run`` wrote, pair by pair."""
+    state, forcing, grid = initialize(cfg, device=dev)
+    ss = sharding.shard(make_mesh(cfg, device=dev), state, grid, forcing)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def noisy(st):
+        return st.replace(**{f: torch.randn(
+            getattr(st, f).shape, device=dev, dtype=st.dtype, generator=gen)
+            for f in sharding.STATE_FIELDS})
+
+    corr = packed_halo.DYN_FIELDS + (packed_halo.EPI_FIELDS if
+                                     phys_epilogue_tuple(cfg) is not None
+                                     else ())
+    out = {}
+    for rank in HALO_COPY_RANKS:
+        lay, st = ss.layouts[rank], noisy(ss.states[rank])
+        ex = comm.DistExchange(dataclasses.replace(ss.mesh, rank=rank),
+                               ss.layouts)
+        nb = ex.neighbours(lay)
+        side = "north" if lay.gn else "south"
+        batches = []
+        for k, names in (("12", packed_halo.PROG_FIELDS
+                          + packed_halo.RAD_FIELDS),
+                         ("6", packed_halo.DYN_FIELDS)):
+            xs = [getattr(st, f) for f in names]
+            dst = ex._row_dst(lay, side)
+            src = ex._row_src(lay, side, dst.stop - dst.start)
+            for kind, sends, recvs in (
+                    ("cols", [(nb[s], 0, [x[..., ex._col_src(lay, s)]
+                                          for x in xs])
+                              for s in ex.LON_SENDS],
+                     [(nb[s], 0, [x[..., ex._col_dst(lay, s)] for x in xs])
+                      for s in ("west", "east")]),
+                    ("rows", [(nb[side], 0, [x[..., src, :] for x in xs])],
+                     [(nb[side], 0, [x[..., dst, :] for x in xs])])):
+                bufs = [torch.randn(sum(t.numel() for t in s), device=dev,
+                                    dtype=st.dtype, generator=gen)
+                        for _, _, s in sends]
+                pack = list(comm._slots(bufs, [s for _, _, s in sends]))
+                unpack = [(g, slot) for slot, g in comm._slots(
+                    bufs, [g for _, _, g in recvs])]
+                batches += [
+                    (f"{kind}{k}.pack",
+                     lambda b=bufs, s=sends: comm._pack_into(b, s), pack,
+                     lambda p=pack: [d for d, _ in p]),
+                    (f"{kind}{k}.unpack",
+                     lambda b=bufs, r=recvs: comm._unpack(b, r), unpack,
+                     lambda p=unpack: [d for d, _ in p])]
+        strip = packed_halo.SeamStrip(
+            side, lay, ss.grids[rank], ss.forcings[rank],
+            packed_halo.row_mask(lay, st.dtype, dev), ss.halo)
+        cut = {f: getattr(st, f)[..., strip.r0:strip.r1, :]
+               for f in sharding.STATE_FIELDS}
+        copied = [f for f, x in cut.items() if not x.is_contiguous()]
+        held = {}
+
+        def run_cut(st=st, strip=strip, held=held):
+            held["cut"] = strip.cut(st)
+        batches.append((
+            "cut", run_cut,
+            [(torch.empty_like(cut[f], memory_format=torch.contiguous_format),
+              cut[f]) for f in copied],
+            lambda held=held, c=copied: [getattr(held["cut"], f)
+                                         for f in c]))
+        strip_out = strip.cut(noisy(ss.states[rank]))
+        d0, s0, n = strip.keep
+        for k, fields in (("6", packed_halo.DYN_FIELDS), (str(len(corr)),
+                                                          corr)):
+            pairs = [(getattr(st, f)[..., d0:d0 + n, :],
+                      getattr(strip_out, f)[..., s0:s0 + n, :])
+                     for f in fields]
+            batches.append((
+                f"splice{k}",
+                lambda strip=strip, st=st, o=strip_out, f=fields:
+                strip.merge(st, o, f),
+                pairs, lambda p=pairs: [d for d, _ in p]))
+        out[rank] = batches
+    return out
+
+
+def halo_copy_step(batches: list) -> list:
+    """A rank's step of ``halo_copy_batches``: each batch once, the cut
+    three times (the predictor's strip, the corrector's two inputs)."""
+    return [b for b in batches for _ in range(3 if b[0] == "cut" else 1)]
+
+
+def bits_of(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+def slab_pass(run, pairs, got) -> tuple:
+    """(bit for bit, counts): ``run`` (the port's batched copy) against the
+    per-slab ``copy_`` of ``pairs`` on the same inputs, every destination
+    set to HALO_COPY_SENTINEL before each; the port's counters over ``run``
+    alone, set to 0 just before it."""
+    for d, _ in pairs:
+        d.fill_(HALO_COPY_SENTINEL)
+    for d, s in pairs:
+        d.copy_(s)
+    want = [d.clone() for d, _ in pairs]
+    for d, _ in pairs:
+        d.fill_(HALO_COPY_SENTINEL)
+    reset_counts()
+    run()
+    counts = read_counts()
+    have = got()
+    ok = len(have) == len(want) and all(
+        torch.equal(bits_of(a), bits_of(b)) for a, b in zip(have, want))
+    return ok, counts
+
+
+def halo_copy_extra(dev) -> dict:
+    """name -> pairs: float64 slabs, runs misaligned to 16 bytes, and more
+    pairs than a launch takes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x64 = torch.randn(4, 50, 333, generator=gen, device=dev,
+                      dtype=torch.float64)
+    x32 = torch.randn(5, 70, 2053, generator=gen, device=dev)
+    return {
+        "f64 cols": [(torch.empty(4, 50, 3, device=dev,
+                                  dtype=torch.float64), x64[..., 1:4])],
+        "f64 rows": [(torch.empty(4, 7, 333, device=dev,
+                                  dtype=torch.float64), x64[:, 3:10, :])],
+        "misaligned runs": [(torch.empty(5, 70, 2050, device=dev),
+                             x32[..., k:k + 2050]) for k in range(4)],
+        "many slabs": [(torch.empty(5, 2, 2053, device=dev),
+                        x32[:, k:k + 2, :])
+                       for k in range(hc.MAX_SLABS + 9)]}
+
+
+def halo_copy_check(cfg, dev, bad: list) -> dict:
+    """Each batch of ``halo_copy_batches`` and of ``halo_copy_extra``
+    through ``slab_pass``: bit for bit, and a launch for every MAX_SLABS
+    pairs; then each rank's step counted from 0: rank -> (launches,
+    slabs), which ``halo_copies`` implies a rank."""
+    for name, pairs in halo_copy_extra(dev).items():
+        ok, c = slab_pass(lambda p=pairs: hc.copy_slabs(p), pairs,
+                          lambda p=pairs: [d for d, _ in p])
+        want = (-(-len(pairs) // hc.MAX_SLABS), len(pairs))
+        got = (c["halo_copy_launches"], c["halo_copy_slabs"])
+        print(f"  {name}: {got[1]} slabs in {got[0]} launch(es), bit for "
+              f"bit {ok}", flush=True)
+        if not ok or got != want:
+            bad.append(f"slab copy {name}: bit for bit {ok}, (launches, "
+                       f"slabs) {got}, expected {want}")
+    by_rank = halo_copy_batches(cfg, dev)
+    out = {}
+    for rank, batches in by_rank.items():
+        for name, run, pairs, got_fn in batches:
+            ok, c = slab_pass(run, pairs, got_fn)
+            got = (c["halo_copy_launches"], c["halo_copy_slabs"])
+            want = (-(-len(pairs) // hc.MAX_SLABS), len(pairs))
+            print(f"  rank {rank} {name}: {got[1]} slabs in {got[0]} "
+                  f"launch(es), {tuple(pairs[0][0].shape)} first, bit for "
+                  f"bit {ok}", flush=True)
+            if not ok or got != want:
+                bad.append(f"slab copy rank {rank} {name}: bit for bit "
+                           f"{ok}, (launches, slabs) {got}, expected {want}")
+        step = halo_copy_step(batches)
+        reset_counts()
+        for _, run, _, _ in step:
+            run()
+        c = read_counts()
+        out[rank] = (c["halo_copy_launches"], c["halo_copy_slabs"])
+        shards = cfg.sharding.mesh_lat * cfg.sharding.mesh_lon
+        launches, slabs = halo_copies(cfg, ranks=True)
+        if out[rank] != (launches // shards, slabs // shards):
+            bad.append(f"slab copy rank {rank}: a step counts "
+                       f"{out[rank]}, expected {launches // shards} "
+                       f"launches and {slabs // shards} slabs")
+    return dict(counts=out, batches=by_rank)
+
+
+def halo_copy_path(dev, card: str) -> list:
+    """Phase 19: the ghost exchange's batched slab copy at #5's 2x2 blocks
+    (``halo_copy_check``), then each rank's step of copies timed against
+    its per-slab copies, in turns, beside the bound of its bytes read and
+    written; its entries of the ``kernels`` line."""
+    bad = []
+    cfg = halo_copy_config()
+    res = halo_copy_check(cfg, dev, bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    entries = []
+    for rank, batches in res["batches"].items():
+        step = halo_copy_step(batches)
+        pairs = [p for _, _, ps, _ in step for p in ps]
+        n_bytes = sum(2 * d.numel() * d.element_size() for d, _ in pairs)
+
+        def kern(step=step):
+            for _, run, _, _ in step:
+                run()
+
+        def plain(pairs=pairs):
+            for d, s in pairs:
+                d.copy_(s)
+        tm = kernel_timing(f"slab_copy, a step of rank {rank}", kern, plain,
+                           bound_ms(n_bytes, 0, dev), card)
+        launches, slabs = res["counts"][rank]
+        entries.append({
+            "name": f"slab_copy_rank{rank}", "route": "cuda",
+            "source": "climate_model_tpu_torch/kernels/csrc/halo_copy.cu",
+            "replaces": HALO_COPY_REPLACES,
+            "path": "ghost exchange and seam strips, a step of a rank of "
+                    "#5 on 2x2 with halo overlap",
+            "launches": launches, "slabs": slabs, "bytes": n_bytes,
+            # a copy: every batch equal to the per-slab copies bit for bit
+            "max_abs_err": 0.0, "bit_for_bit": True,
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "plain_launches": len(pairs),
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": None, "launch_ms": tm["launch_ms"],
+            "enqueue_ms": tm["enqueue_ms"],
+            "plain_enqueue_ms": tm["plain_enqueue_ms"]})
+    return entries
+
+
 def on_mesh(argv, n_lat: int, n_lon: int) -> list:
     return argv + ["--mesh-lat", str(n_lat), "--mesh-lon", str(n_lon)]
 
@@ -4103,7 +4400,8 @@ def mc_runs(ranks, refs, root, card, bad: list):
             line += f"{steady_exchange(recs)}; "
             bad += [f"{name}: a rank ran {r['path']!r}, not the compiled "
                     "chunk" for r in recs if MC_COMPILED not in r["path"]]
-            want = want_counts(argv_config(argv), recs[0]["steps"], counts)
+            want = want_counts(argv_config(argv), recs[0]["steps"], counts,
+                               ranks=True)
             if counts != want:
                 bad.append(f"{name}: counts {counts}, expected {want}")
         print(line + f"counts over the ranks "
@@ -4473,6 +4771,14 @@ def main(argv=None) -> int:
     rk4 = rk4_path(dev, card)
     phase("rk4", t, RK4_PHASE_MSG)
 
+    # ---- 19. the ghost exchange's batched slab copy ----
+    t = time.perf_counter()
+    slab_copies = halo_copy_path(dev, card)
+    phase("halo copy", t, "every pack, unpack, cut and splice of a rank of "
+          "#5 on 2x2, float64, misaligned runs and more slabs than a launch "
+          "takes: the batched copy equals the per-slab copies bit for bit, "
+          "a launch for every 48 slabs")
+
     print("[across cards] not run: phase 16 runs only under --multicard, "
           f"on {MC_WORLD} cards (python3 chip_smoke.py --multicard)",
           flush=True)
@@ -4524,6 +4830,7 @@ def main(argv=None) -> int:
         "rk4_epilogue", "physics_epilogue.cu", rk4_run,
         rk4["counts"]["epilogue"], rk4["errs"]["rk4_epilogue"], EPI_TOL,
         rk4["timing"]["rk4_epilogue"], replaces=RK4_REPLACES))
+    kernels += slab_copies
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(f"total {time.perf_counter() - T0:.1f}s", flush=True)

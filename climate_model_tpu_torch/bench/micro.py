@@ -84,7 +84,8 @@ def device_ms(fn, n=50, warmup=5) -> tuple:
 # The kernels' launches by the name the profiler gives them, and the short
 # name of each in the ``launch_ms`` split.
 LAUNCH_NAMES = (("substep_kernel", "substep"),
-                ("epilogue_kernel", "epilogue"))
+                ("epilogue_kernel", "epilogue"),
+                ("slab_copy_kernel", "slab_copy"))
 
 
 def launch_ms(fn, n=20, warmup=3):

@@ -9,8 +9,12 @@ interface, two implementations:
   slabs of all fields go out packed in one buffer per direction with
   ``batch_isend_irecv``. A captured step (``graphs.py``) first calls
   ``use_static_buffers``: each exchange of the step then packs into, and
-  unpacks from, send and receive buffers allocated once for it, with the
-  same copies (``_pack``'s ``cat`` writes what the slab copies write).
+  unpacks from, send and receive buffers allocated once for it; the eager
+  exchange allocates them at each call.
+
+Every copy of a refresh, a pack or an unpack is one batched copy
+(``kernels/halo_copy.py``): on the card one launch for all its slabs, on
+the CPU a ``copy_`` a slab.
 
 Across ranks the transport may ignore tags: NCCL matches the messages
 between a pair of ranks in the order they were posted. So every rank posts
@@ -62,6 +66,7 @@ import time
 import torch
 import torch.distributed as tdist
 
+from ..kernels.halo_copy import copy_slabs
 from .mesh import Mesh
 from .sharding import Layout
 
@@ -146,25 +151,29 @@ class _Done:
 
 class LocalExchange(Exchange):
     """Every shard of the mesh in this process (local index == shard):
-    copies between blocks."""
+    copies between blocks, every slab of a refresh in one batched copy
+    (``kernels/halo_copy.py``)."""
 
     def refresh_cols(self, fields: list):
         if self.mesh.n_lon == 1:
             return
+        pairs = []
         for s, lay in enumerate(self.layouts):
             nb = self.neighbours(lay)
             for side, other in (("west", "east"), ("east", "west")):
                 src_lay = self.layouts[nb[side]]
                 dst, src = self._col_dst(lay, side), self._col_src(src_lay,
                                                                    other)
-                for x, y in zip(fields[s], fields[nb[side]]):
-                    x[..., dst].copy_(y[..., src])
+                pairs += [(x[..., dst], y[..., src])
+                          for x, y in zip(fields[s], fields[nb[side]])]
+        copy_slabs(pairs)
 
     def start_lat(self, fields: list):
         if self.mesh.n_lat == 1:
             return _Done()
 
         def apply():
+            pairs = []
             for s, lay in enumerate(self.layouts):
                 nb = self.neighbours(lay)
                 for side, other in (("south", "north"), ("north", "south")):
@@ -173,8 +182,9 @@ class LocalExchange(Exchange):
                     dst = self._row_dst(lay, side)
                     src = self._row_src(self.layouts[nb[side]], other,
                                         dst.stop - dst.start)
-                    for x, y in zip(fields[s], fields[nb[side]]):
-                        x[..., dst, :].copy_(y[..., src, :])
+                    pairs += [(x[..., dst, :], y[..., src, :])
+                              for x, y in zip(fields[s], fields[nb[side]])]
+            copy_slabs(pairs)
 
         return _Done(apply)
 
@@ -182,25 +192,29 @@ class LocalExchange(Exchange):
         return list(parts)
 
 
-def _pack(slabs: list) -> torch.Tensor:
-    return torch.cat([t.reshape(-1) for t in slabs])
+def _slots(bufs: list, slabs: list):
+    """(slot, slab) for each slab of each list of ``slabs``: the slots cut
+    one after another from the list's buffer in ``bufs``, in the slabs'
+    shapes."""
+    for buf, ts in zip(bufs, slabs):
+        o = 0
+        for t in ts:
+            n = t.numel()
+            yield buf[o:o + n].view(t.shape), t
+            o += n
 
 
-def _unpack(buf: torch.Tensor, dsts: list):
-    o = 0
-    for d in dsts:
-        n = d.numel()
-        d.copy_(buf[o:o + n].view(d.shape))
-        o += n
+def _pack_into(bufs: list, sends: list):
+    """Each send's source slabs written into its buffer, one after
+    another: one batched copy for every buffer."""
+    copy_slabs(list(_slots(bufs, [srcs for _, _, srcs in sends])))
 
 
-def _pack_into(buf: torch.Tensor, srcs: list):
-    """``_pack(srcs)`` written into ``buf``, a slab copy each."""
-    o = 0
-    for t in srcs:
-        n = t.numel()
-        buf[o:o + n].view(t.shape).copy_(t)
-        o += n
+def _unpack(bufs: list, recvs: list):
+    """Each receive's buffer written into its ghost slabs: one batched copy
+    for every buffer."""
+    copy_slabs([(g, slot) for slot, g in
+                _slots(bufs, [ghosts for _, _, ghosts in recvs])])
 
 
 @dataclasses.dataclass
@@ -262,25 +276,41 @@ class DistExchange(Exchange):
         if self.static is None:
             self.static = {}
 
+    def _buffers(self, sends: list, recvs: list) -> list:
+        """A buffer for each send and each receive, sized to its slabs:
+        new ones, or those of the static buffers kept for these peers,
+        tags and shapes."""
+        key = None
+        if self.static is not None:
+            key = (len(sends),) + tuple(
+                (peer, tag, tuple(tuple(t.shape) for t in slabs))
+                for peer, tag, slabs in sends + recvs)
+            if key in self.static:
+                return self.static[key]
+        x = (sends or recvs)[0][2][0]
+        bufs = [torch.empty(sum(t.numel() for t in slabs), dtype=x.dtype,
+                            device=x.device)
+                for _, _, slabs in sends + recvs]
+        if key is not None:
+            self.static[key] = bufs
+        return bufs
+
     def _exchange(self, sends: list, recvs: list):
         """Post one exchange. ``sends``: (peer, tag, source slabs);
         ``recvs``: (peer, tag, ghost slabs); each goes packed in one
         buffer, posted in list order (the module docstring). Returns a
         handle whose ``wait()`` writes the ghosts."""
-        if self.static is not None:
-            return self._static_exchange(sends, recvs)
-        clock = self.clock
+        clock = self.clock if self.static is None else None
         if clock is not None:
             dev = (sends or recvs)[0][2][0].device
             t0, e0 = time.perf_counter(), clock.mark(dev)
-        ops = [tdist.P2POp(tdist.isend, _pack(srcs), peer, tag=tag)
-               for peer, tag, srcs in sends]
-        into = []
-        for peer, tag, ghosts in recvs:
-            buf = torch.empty(sum(g.numel() for g in ghosts),
-                              dtype=ghosts[0].dtype, device=ghosts[0].device)
-            ops.append(tdist.P2POp(tdist.irecv, buf, peer, tag=tag))
-            into.append((buf, ghosts))
+        bufs = self._buffers(sends, recvs)
+        out, into = bufs[:len(sends)], bufs[len(sends):]
+        _pack_into(out, sends)
+        ops = [tdist.P2POp(tdist.isend, buf, peer, tag=tag)
+               for buf, (peer, tag, _) in zip(out, sends)]
+        ops += [tdist.P2POp(tdist.irecv, buf, peer, tag=tag)
+                for buf, (peer, tag, _) in zip(into, recvs)]
         reqs = tdist.batch_isend_irecv(ops) if ops else []
         if clock is not None:
             clock.exchanges += 1
@@ -297,41 +327,12 @@ class DistExchange(Exchange):
                 t1, e1 = time.perf_counter(), clock.mark(dev)
             for r in reqs:
                 r.wait()
-            for buf, ghosts in into:
-                _unpack(buf, ghosts)
+            _unpack(into, recvs)
             ops.clear()
             if clock is not None:
                 if e1 is not None:
                     clock.spans.append((e1, clock.mark(dev)))
                 clock.host_s += time.perf_counter() - t1
-
-        return _Done(apply)
-
-    def _static_exchange(self, sends: list, recvs: list):
-        key = (len(sends),) + tuple(
-            (peer, tag, tuple(tuple(t.shape) for t in slabs))
-            for peer, tag, slabs in sends + recvs)
-        bufs = self.static.get(key)
-        if bufs is None:
-            x = (sends or recvs)[0][2][0]
-            bufs = self.static[key] = [
-                torch.empty(sum(t.numel() for t in slabs), dtype=x.dtype,
-                            device=x.device)
-                for _, _, slabs in sends + recvs]
-        out, into = bufs[:len(sends)], bufs[len(sends):]
-        for buf, (_, _, srcs) in zip(out, sends):
-            _pack_into(buf, srcs)
-        ops = [tdist.P2POp(tdist.isend, buf, peer, tag=tag)
-               for buf, (peer, tag, _) in zip(out, sends)]
-        ops += [tdist.P2POp(tdist.irecv, buf, peer, tag=tag)
-                for buf, (peer, tag, _) in zip(into, recvs)]
-        reqs = tdist.batch_isend_irecv(ops) if ops else []
-
-        def apply():
-            for r in reqs:
-                r.wait()
-            for buf, (_, _, ghosts) in zip(into, recvs):
-                _unpack(buf, ghosts)
 
         return _Done(apply)
 

@@ -30,7 +30,10 @@ rows, so it gets no strip: at 2x4 a step makes 8 main launches of each
 program, and 4 south and 4 north strip launches.
 
 With all shards in one process the exchange is a copy and nothing overlaps;
-the schedule and its arithmetic are the same as across ranks.
+the schedule and its arithmetic are the same as across ranks. A strip's
+cut (of the fields whose rows are not contiguous in the block) and its
+splice are each one batched copy (``kernels/halo_copy.py``), as are the
+exchange's packs and unpacks (``dist/comm.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..core.grid import Grid
 from ..core.state import Forcing, State
 from ..dycore.stepper import check_pallas
 from ..kernels.fused_substep import corrector, geo_table, predictor
+from ..kernels.halo_copy import copy_slabs
 from ..model import phys_epilogue_tuple, run_packed
 from . import sharding
 from .mesh import validate_divisibility
@@ -64,10 +68,14 @@ def row_mask(lay: sharding.Layout, dtype, device):
 
 def _rows(obj, r0: int, r1: int, fields):
     """A copy of the dataclass ``obj`` with each of ``fields`` cut to rows
-    [r0, r1) (the second-to-last axis), contiguous."""
-    return dataclasses.replace(
-        obj, **{f: getattr(obj, f)[..., r0:r1, :].contiguous()
-                for f in fields})
+    [r0, r1) (the second-to-last axis), contiguous: a field whose rows are
+    contiguous already is a view, as ``.contiguous()`` leaves it, the
+    others are copied by one batched copy (``kernels/halo_copy.py``)."""
+    cut = {f: getattr(obj, f)[..., r0:r1, :] for f in fields}
+    out = {f: x if x.is_contiguous() else torch.empty_like(
+        x, memory_format=torch.contiguous_format) for f, x in cut.items()}
+    copy_slabs([(out[f], x) for f, x in cut.items() if out[f] is not x])
+    return dataclasses.replace(obj, **out)
 
 
 def _grid_rows(g: Grid, r0: int, r1: int) -> Grid:
@@ -76,9 +84,8 @@ def _grid_rows(g: Grid, r0: int, r1: int) -> Grid:
 
 
 def _splice(dst, src, d0: int, s0: int, n: int, fields):
-    for f in fields:
-        getattr(dst, f)[..., d0:d0 + n, :].copy_(
-            getattr(src, f)[..., s0:s0 + n, :])
+    copy_slabs([(getattr(dst, f)[..., d0:d0 + n, :],
+                 getattr(src, f)[..., s0:s0 + n, :]) for f in fields])
 
 
 class SeamStrip:

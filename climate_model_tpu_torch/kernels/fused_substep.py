@@ -105,6 +105,8 @@ _ARGTYPES = {
                                + [_F] * 9 + [_P],
     "cm_rk4_stage_f32": [_P] * 30 + [_I] * 7 + [_P] + [_F] * 2 + [_I] * 3
                         + [_P],
+    "cm_slab_copy": [_P, _I, _I, _P],           # kernels/halo_copy.py
+    "cm_slab_copy_layout": [_P],
 }
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,10 @@ that launches or calls a thing moves with ``count``:
   and its seam strips ``<wrapper>.shard``, ``.south_strip`` and
   ``.north_strip``; ``rk4_stage.k1`` to ``.k4``; ``epilogue`` (the physics
   epilogue launched alone);
+* ``halo_copy.launches`` and ``halo_copy.slabs``, a launch of the ghost
+  exchange's batched slab copy (``kernels/halo_copy.py``: a pack, an
+  unpack, a seam strip's cut or splice) and the slabs it copied, on the
+  card only;
 * ``radiation.refreshes``, a recomputation of the radiation caches each;
 * ``surface.calls``, ``turbulence.calls`` and ``microphysics.calls``, the
   plain physics splits.

@@ -508,7 +508,8 @@ def test_mesh_namelist(baseline, tmp_path):
 
 
 def test_want_counts():
-    """The launches of a mesh run summed over its shards."""
+    """The launches of a mesh run summed over its shards, the batched slab
+    copies in one process and across ranks."""
     keys = cs.read_counts().keys()
     over = cs.want_counts(mc_cfg((2, 2), True), 10, keys)
     assert over["predictor_shard"] == over["corrector_shard"] == 40
@@ -522,3 +523,16 @@ def test_want_counts():
     one = cs.want_counts(mc_cfg((1, 1)), 3, keys)
     assert (one["predictor_masked"], one["corrector_epilogue"],
             one["predictor_shard"]) == (3, 3, 0)
+    assert one["halo_copy_launches"] == one["halo_copy_slabs"] == 0
+    # 1x4 in one process: the column refreshes of 12 and 6 fields, 4
+    # shards x 2 sides, in 2 + 1 launches of at most 48 slabs
+    assert (block["halo_copy_launches"], block["halo_copy_slabs"]) == \
+        (10 * 3, 10 * 4 * 2 * (12 + 6))
+    # the batched slab copies a step: on 2x2 with overlap 13 launches of
+    # 141 slabs a rank; in one process 25 of 348 over the four shards
+    # (tests/test_torch_halo_copy.py counts those)
+    ranks = cs.want_counts(mc_cfg((2, 2), True), 10, keys, ranks=True)
+    assert (ranks["halo_copy_launches"], ranks["halo_copy_slabs"]) == \
+        (10 * 4 * 13, 10 * 4 * 141)
+    assert (over["halo_copy_launches"], over["halo_copy_slabs"]) == \
+        (10 * 25, 10 * 348)
